@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--report FILE] [--trace DIR]
+
+Phases, each printed as it runs; any failure raises and exits non-zero:
+
+1. environment: torch and CUDA versions, the card's name and power limit;
+2. build: ``nvcc`` builds every kernel of the serving path from ``csrc/``;
+3. kernels: each CUDA kernel against its plain PyTorch version on the card
+   at qwen3-8b's head shapes, bf16 and f32 pools; then, at the shapes the
+   main path gives it, its time beside its plain version's, one PyTorch
+   library call's (timed only: the port never calls it) and its bound;
+4. main path: full-width qwen3-8b, all 36 layers (random weights from a
+   seeded generator on the card), served by the continuous-batching engine on the paged
+   layout with both kernels pinned; the launch counts are zeroed just
+   before the run and read just after;
+5. parity: reduced qwen3-8b in f32, kernels against the gather path,
+   greedy tokens equal; full width in bf16, first-step logits of the two.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without ``src/repro_torch`` beside this script, it exits non-zero and
+prints no result.  ``--report`` also writes every measurement as JSON;
+``--trace`` adds a phase 6 that profiles steady decode steps and one
+prompt's prefill chunks (device busy share, time by kernel) and writes
+the chrome traces there, gzipped.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# paged-attention shapes of qwen3-8b and of the main path's engine
+HQ, HKV, D, BS = 32, 8, 128, 16
+SLOTS, MAX_LEN, CHUNK, NEW_TOKENS, REQUESTS = 4, 1024, 128, 32, 8
+NB = MAX_LEN // BS
+VOCAB = 151936
+
+SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+REPLACES = {
+    "paged_decode_attention": "src/repro/kernels/paged_attention.py:352",
+    "paged_prefill_attention": "src/repro/kernels/paged_attention.py:268",
+}
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def tolerance(dtype, read_dtype) -> tuple:
+    """(atol, rtol) of a kernel against its plain version.
+
+    f32: the same sums in another order.  f32 with ``read_dtype``: a
+    probability whose f32 value differs in its last bit may round to the
+    neighbouring bf16 value, moving the output by that probability's bf16
+    step times |v|.  bf16 output: one bf16 rounding step (2^-8 relative)
+    of a value whose f32 sum differs in its last bits."""
+    import torch
+    if dtype == torch.bfloat16:
+        return 1e-2, 1e-2
+    return (1e-3, 1e-3) if read_dtype is not None else (1e-4, 1e-4)
+
+
+def check_close(what: str, got, want, atol: float, rtol: float) -> float:
+    import torch
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    excess = float((diff - atol - rtol * want.abs()).max())
+    say(f"  {what}: max_abs_err {err} (atol {atol}, rtol {rtol})")
+    if excess > 0:
+        raise AssertionError(f"{what}: error {err} exceeds atol {atol} + "
+                             f"rtol {rtol} * |want|")
+    return err
+
+
+# -- inputs ------------------------------------------------------------------------
+
+def pool_inputs(gen, dtype, n_pages, S, B):
+    import torch
+    dev = gen.device
+    q = torch.randn((B, HQ, S, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n_pages, HKV, BS, D), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((n_pages, HKV, BS, D), generator=gen, device=dev).to(dtype)
+    return q, kp, vp
+
+
+def shared_tables(gen, B, n_pages):
+    """Random page ids, drawn with repeats, so sequences share pages."""
+    import torch
+    return torch.randint(0, n_pages, (B, NB), generator=gen, device=gen.device,
+                         dtype=torch.int32)
+
+
+def distinct_tables(gen, B, n_pages):
+    """Each sequence owns its pages, as the engine allocates them."""
+    import torch
+    perm = torch.randperm(n_pages, generator=gen, device=gen.device)
+    return perm[:B * NB].reshape(B, NB).to(torch.int32)
+
+
+# -- work each kernel must do (the bound) ----------------------------------------
+
+def decode_work(bt, lengths, window, elem):
+    """(bytes, ops) the decode function needs on these inputs: each page a
+    sequence attends to read once (shared pages once), q, tables and
+    lengths read, the output written; 4*D ops per (query head, column)."""
+    bt, lengths = bt.tolist(), lengths.tolist()
+    pages, cols = set(), 0
+    for row, L in zip(bt, lengths):
+        lo = L - window + 1 if window else 0
+        for j in range(NB):
+            if j * BS > L:
+                break
+            if j * BS + BS - 1 >= lo:
+                pages.add(row[j])
+        cols += L + 1 - max(lo, 0)
+    B = len(bt)
+    nbytes = (2 * len(pages) * HKV * BS * D * elem + 2 * B * HQ * D * elem
+              + B * NB * 4 + B * 4)
+    return nbytes, 4 * D * HQ * cols
+
+
+def prefill_work(bt, base, chunk_len, C, window, elem):
+    """(bytes, ops) of chunk attention: every page a query row attends to
+    read once, q read, the output written; 4*D ops per (query head,
+    valid column) over all C rows."""
+    bt, base = bt.tolist(), base.tolist()
+    pages, pairs = set(), 0
+    for row, b0 in zip(bt, base):
+        limit = b0 + chunk_len
+        for i in range(C):
+            pos = b0 + i
+            hi = min(pos, limit - 1)
+            lo = max(pos - window + 1, 0) if window else 0
+            if hi < lo:
+                continue
+            pairs += hi - lo + 1
+            for j in range(lo // BS, hi // BS + 1):
+                pages.add(row[j])
+    B = len(bt)
+    nbytes = (2 * len(pages) * HKV * BS * D * elem + 2 * B * HQ * C * D * elem
+              + B * NB * 4 + B * 4)
+    return nbytes, 4 * D * HQ * pairs
+
+
+def bound(nbytes, ops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- timing ------------------------------------------------------------------------
+
+def device_ms(fn, flush, iters=20):
+    """Median device time of one call, in ms: CUDA events around each call,
+    with the L2 cache (50 MB) flushed before it, as a layer of the model
+    finds its pages cold."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in times]))
+
+
+# -- phases --------------------------------------------------------------------------
+
+def phase_environment():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    say(f"[1] environment: python {sys.version.split()[0]}, torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+    say(smi)
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    log = build.build()
+    seconds = time.perf_counter() - t0
+    build.load_library()
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"  {build.SOURCE.name}: {line.strip()}")
+    say(f"[2] build: nvcc {seconds} s, {time.perf_counter() - t0} s with "
+        f"loading")
+
+
+def phase_kernel_checks(dev):
+    """Every kernel against its plain version, bf16 and f32 pools."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    say("[3] kernels against their plain versions (qwen3-8b heads: Hq=32, "
+        "Hkv=8, D=128, bs=16, nb=64)")
+    gen = torch.Generator(dev).manual_seed(3)
+    errors = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0}
+    B, n_pages = 4, 4 * NB
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (None, 100):
+            for read_dtype in (None, torch.bfloat16):
+                q, kp, vp = pool_inputs(gen, dtype, n_pages, 1, B)
+                bt = shared_tables(gen, B, n_pages)
+                lengths = torch.randint(0, NB * BS, (B,), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                got = pa.paged_attention_cuda(q, kp, vp, bt, lengths, window=window,
+                                              read_dtype=read_dtype)
+                want = ref.paged_attention_ref(q, kp, vp, bt, lengths, window=window,
+                                               read_dtype=read_dtype)
+                torch.cuda.synchronize()
+                name = (f"decode {str(dtype)[6:]} window={window} "
+                        f"read_dtype={str(read_dtype)[6:] if read_dtype else None}")
+                err = check_close(name, got, want, *tolerance(dtype, read_dtype))
+                errors["paged_decode_attention"] = max(
+                    errors["paged_decode_attention"], err)
+        for C, window in ((16, None), (128, None), (512, None), (128, 100)):
+            B = 2
+            q, kp, vp = pool_inputs(gen, dtype, n_pages, C, B)
+            bt = shared_tables(gen, B, n_pages)
+            base = torch.randint(1, NB * BS - C + 1, (B,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            chunk_len = C - 5
+            got = pa.paged_prefill_attention_cuda(q, kp, vp, bt, base,
+                                                  chunk_len=chunk_len, window=window)
+            want = ref.paged_prefill_attention_ref(q, kp, vp, bt, base,
+                                                   chunk_len=chunk_len, window=window)
+            torch.cuda.synchronize()
+            name = (f"prefill {str(dtype)[6:]} C={C} chunk_len={chunk_len} "
+                    f"base={base.tolist()} window={window}")
+            err = check_close(name, got, want, *tolerance(dtype, None))
+            errors["paged_prefill_attention"] = max(
+                errors["paged_prefill_attention"], err)
+    return errors
+
+
+def decode_timing_case(gen, prompt_lens):
+    """Decode at the main path's shapes: every slot mid-way through its new
+    tokens, each slot its own pages, the read_dtype body the engine runs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.models.kvcache import paged_gather_layer
+    dev, dt = gen.device, torch.bfloat16
+    n_pages = SLOTS * NB + SLOTS + 1
+    q, kp, vp = pool_inputs(gen, dt, n_pages, 1, SLOTS)
+    bt = distinct_tables(gen, SLOTS, n_pages)
+    lengths = torch.tensor([p + NEW_TOKENS // 2 for p in prompt_lens[:SLOTS]],
+                           dtype=torch.int32, device=dev)
+    # the library call's input, K/V linearised through the tables (not timed)
+    kg, vg = paged_gather_layer(kp, vp, bt)
+    col = torch.arange(NB * BS, device=dev)
+    mask = (col[None, :] <= lengths[:, None].long())[:, None, None, :]
+    return dict(
+        shape=f"B={SLOTS} lengths={lengths.tolist()}",
+        kernel=lambda: pa.paged_attention_cuda(q, kp, vp, bt, lengths,
+                                               read_dtype=dt),
+        plain=lambda: ref.paged_attention_ref(q, kp, vp, bt, lengths,
+                                              read_dtype=dt),
+        library=lambda: F.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask, enable_gqa=True),
+        work=decode_work(bt, lengths, None, 2))
+
+
+def prefill_timing_case(gen):
+    """Prefill at the main path's shapes: a full 128-token chunk at base
+    256 of one slot's prompt, through the slot's whole table row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.models.kvcache import paged_gather_layer
+    dev, dt = gen.device, torch.bfloat16
+    n_pages = SLOTS * NB + SLOTS + 1
+    base_pos = 2 * CHUNK
+    q, kp, vp = pool_inputs(gen, dt, n_pages, CHUNK, 1)
+    bt = distinct_tables(gen, 1, n_pages)
+    base = torch.tensor([base_pos], dtype=torch.int32, device=dev)
+    # the library call's input, K/V linearised through the tables (not timed)
+    kg, vg = paged_gather_layer(kp, vp, bt)
+    col = torch.arange(NB * BS, device=dev)
+    pos = base_pos + torch.arange(CHUNK, device=dev)
+    mask = (col[None, :] <= pos[:, None])[None, None]
+    return dict(
+        shape=f"B=1 C={CHUNK} chunk_len={CHUNK} base={base_pos}",
+        kernel=lambda: pa.paged_prefill_attention_cuda(q, kp, vp, bt, base,
+                                                       chunk_len=CHUNK),
+        plain=lambda: ref.paged_prefill_attention_ref(q, kp, vp, bt, base,
+                                                      chunk_len=CHUNK),
+        library=lambda: F.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask, enable_gqa=True),
+        work=prefill_work(bt, base, CHUNK, CHUNK, None, 2))
+
+
+def phase_kernel_times(dev, prompt_lens):
+    """Each kernel at the shapes the main path gives it: kernel, plain
+    version and library call timed, the bound computed."""
+    import torch
+    say("[3b] kernel times at the main path's shapes (bf16, median of 20 "
+        "calls, L2 flushed before each)")
+    gen = torch.Generator(dev).manual_seed(4)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
+    rows = {"paged_decode_attention": decode_timing_case(gen, prompt_lens),
+            "paged_prefill_attention": prefill_timing_case(gen)}
+    out = {}
+    for name, r in rows.items():
+        err = float((r["kernel"]().float() - r["plain"]().float()).abs().max())
+        ms = device_ms(r["kernel"], flush)
+        plain_ms = device_ms(r["plain"], flush)
+        library_ms = device_ms(r["library"], flush)
+        nbytes, ops = r["work"]
+        bound_ms, bound_by = bound(nbytes, ops, "bfloat16")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms, bytes=nbytes, ops=ops,
+                         shape=r["shape"])
+        say(f"  {name} [{r['shape']}]: kernel {ms} ms, plain {plain_ms} ms, "
+            f"SDPA on pre-gathered K/V {library_ms} ms, bound {bound_ms} ms "
+            f"({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
+            f"{ms / bound_ms}, max_abs_err vs plain {err}")
+    del flush
+    return out
+
+
+def traffic(vocab: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 513, REQUESTS)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def phase_main_path(dev):
+    """Full-width qwen3-8b, all 36 layers, through the engine, both
+    kernels pinned."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import VPE
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
+    cfg = get_config("qwen3-8b")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    say(f"[4] main path: {cfg.name}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.param_count()} params in {cfg.dtype}, "
+        f"initialised in {time.perf_counter() - t0} s")
+    engine_kw = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS,
+                     prefill_chunk=CHUNK, decode_impl="cuda",
+                     prefill_kernel="cuda", device=dev)
+
+    # warm-up engine: cuBLAS handles and the allocator, outside the run
+    warm = ContinuousBatchingEngine(cfg, params, vpe=VPE(), **engine_kw)
+    warm.submit(Request(rid=-1, prompt=np.arange(1, 200, dtype=np.int32),
+                        max_new_tokens=2))
+    warm.run()
+    del warm
+
+    engine = ContinuousBatchingEngine(cfg, params, vpe=VPE(), **engine_kw)
+    prompts = traffic(cfg.vocab_size)
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.page_pool.values())
+    say(f"  engine: slots {SLOTS}, max_len {MAX_LEN}, block {BS}, chunk {CHUNK}, "
+        f"{engine.pages.num_pages} pages + trash, pool {pool_bytes} B; traffic: "
+        f"{REQUESTS} requests, prompt lengths {[len(p) for p in prompts]}, "
+        f"{NEW_TOKENS} new tokens each")
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode_attention": pa.paged_attention_cuda.launches,
+                "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches}
+    st = engine.stats
+    say(f"  {st.summary()}")
+    say(f"  wall {wall} s, {st.decode_steps} decode steps, "
+        f"{st.prefill_chunks} prefill chunks, TTFT mean {st.mean_ttft_s} s "
+        f"max {max(st.ttft_s)} s, decode {st.decode_tok_per_s} tok/s, "
+        f"launches {launches}")
+    if len(done) != REQUESTS or any(r.status != "done" for r in done):
+        raise AssertionError(f"requests not completed: "
+                             f"{[(r.rid, r.status, r.error) for r in done]}")
+    for r in done:
+        if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid}: tokens {r.out}")
+    engine.check_kv()
+    if not engine.pages.drained:
+        raise AssertionError("page pool not drained after the run")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    if launches["paged_decode_attention"] != st.decode_steps * cfg.num_layers \
+            or launches["paged_prefill_attention"] != st.prefill_chunks * cfg.num_layers:
+        raise AssertionError(f"launches {launches} do not match "
+                             f"{st.decode_steps} decode steps and "
+                             f"{st.prefill_chunks} chunks x {cfg.num_layers} layers")
+    main = dict(wall_s=wall, decode_steps=st.decode_steps,
+                prefill_chunks=st.prefill_chunks, ttft_s=st.ttft_s,
+                decode_tok_per_s=st.decode_tok_per_s, launches=launches,
+                layers=cfg.num_layers,
+                tokens={r.rid: r.out for r in done})
+    return cfg, params, prompts, main
+
+
+def run_engine(cfg, params, dev, impls, prompts, new_tokens, **kw):
+    from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
+    eng = ContinuousBatchingEngine(cfg, params, decode_impl=impls[0],
+                                   prefill_kernel=impls[1], device=dev, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+    done = eng.run()
+    eng.check_kv()
+    return {r.rid: r.out for r in done}
+
+
+def phase_reduced_parity(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config("qwen3-8b").reduced()
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(1))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 60, 6)]
+    kw = dict(slots=3, max_len=96, block_size=BS, prefill_chunk=16)
+    gather = run_engine(cfg, params, dev, ("grouped", "gather"), prompts, 12, **kw)
+    kernels = run_engine(cfg, params, dev, ("cuda", "cuda"), prompts, 12, **kw)
+    say(f"[5a] reduced {cfg.name} ({cfg.dtype}): greedy tokens, (grouped, "
+        f"gather) == (cuda, cuda): {gather == kernels}")
+    if gather != kernels:
+        raise AssertionError(f"tokens differ:\n gather {gather}\n kernels {kernels}")
+
+
+def first_step_logits(cfg, params, dev, prompts, kernel, decode_impl, tokens=None):
+    """Prefill each prompt in 128-token chunks into its own pages, then one
+    decode step for all; returns (prefill logits (B, V), decode logits
+    (B, V))."""
+    import torch
+    from repro_torch.core import pad_to_bucket
+    from repro_torch.models import model as model_lib
+    B = len(prompts)
+    n_pages = B * NB
+    pool = model_lib.init_page_pool(cfg, n_pages, BS, dev)
+    cache = model_lib.init_paged_cache(cfg, B, MAX_LEN, BS, n_pages, dev)
+    logits = []
+    for b, p in enumerate(prompts):
+        n = -(-(len(p) + 1) // BS)
+        cache["bt"][b, :n] = torch.arange(b * NB, b * NB + n, dtype=torch.int32,
+                                          device=dev)
+        row = cache["bt"][b].contiguous()
+        for base in range(0, len(p), CHUNK):
+            clen = min(CHUNK, len(p) - base)
+            toks = np.zeros((1, pad_to_bucket(clen, minimum=16)), np.int32)
+            toks[0, :clen] = p[base:base + clen]
+            pool, lg = model_lib.prefill_chunk_paged(
+                cfg, params, pool, row, torch.from_numpy(toks).to(dev), base,
+                clen, kernel=kernel)
+        logits.append(lg[0])
+        cache["length"][b] = len(p)
+    pre = torch.stack(logits)
+    if tokens is None:
+        tokens = torch.argmax(pre, dim=-1).to(torch.int32)
+    live = torch.ones((B,), dtype=torch.int32, device=dev)
+    pool, cache, dec = model_lib.decode_step_paged(
+        cfg, params, pool, cache, tokens[:, None], live, decode_impl=decode_impl)
+    return pre, dec[:, 0], tokens
+
+
+def phase_full_width_parity(cfg, params, dev, prompts, atol):
+    import torch
+    ref_pre, ref_dec, toks = first_step_logits(cfg, params, dev, prompts,
+                                               "gather", "grouped")
+    got_pre, got_dec, _ = first_step_logits(cfg, params, dev, prompts, "cuda",
+                                            "cuda", tokens=toks)
+    torch.cuda.synchronize()
+    out = {}
+    for what, want, got in (("prefill", ref_pre, got_pre), ("decode", ref_dec, got_dec)):
+        if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
+            raise AssertionError(f"{what} logits are not finite")
+        err = float((got - want).abs().max())
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        top2 = torch.topk(want, 2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).tolist()
+        say(f"[5b] full width bf16 {what} logits, cuda vs gather: max abs diff "
+            f"{err} (tolerance {atol}), logit scale {float(want.abs().max())}, "
+            f"argmax equal {same.tolist()}, reference top-2 margins {margins}")
+        if not bool(same.all()):
+            b = int((~same).nonzero()[0])
+            say(f"  first sequence whose argmax differs: {b}, reference top-2 "
+                f"margin {margins[b]}")
+        if err > atol:
+            raise AssertionError(f"{what} logits differ by {err} > {atol}")
+        out[what] = dict(max_abs_diff=err, argmax_equal=same.tolist(),
+                         top2_margin=margins)
+    return out
+
+
+def profiled(fn, label, trace_dir):
+    """Run ``fn`` under torch.profiler; print its wall, the device's busy
+    share of it and the device time by kernel.  Returns a summary."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    say(f"  trace {label}: wall {wall_us} us, device busy {busy_us} us "
+        f"({busy_us / wall_us} of the wall; idle share {1 - busy_us / wall_us}), "
+        f"{sum(n for n, _ in by_name.values())} device events")
+    for name, (n, us) in top:
+        say(f"    {us} us in {n} calls ({us / busy_us if busy_us else 0} of busy): "
+            f"{name[:100]}")
+    if trace_dir:
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace_dir / f"trace_{label}.json.gz"))
+    return dict(wall_us=wall_us, busy_us=busy_us,
+                top=[(name, n, us) for name, (n, us) in top])
+
+
+def phase_trace(cfg, params, dev, trace_dir):
+    """Where the main path's time goes: a profiler window over 8 steady
+    decode steps at 4 busy slots, and one over a 512-token prompt's four
+    prefill chunks."""
+    from repro_torch.core import VPE
+    from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS, prefill_chunk=CHUNK,
+              decode_impl="cuda", prefill_kernel="cuda", device=dev, vpe=VPE())
+    prompts = traffic(cfg.vocab_size, seed=5)
+    eng = ContinuousBatchingEngine(cfg, params, **kw)
+    for i, p in enumerate(prompts[:SLOTS]):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    while eng.num_decoding < SLOTS:
+        eng.step()
+    say("[6] traces (torch.profiler)")
+    out = {"decode": profiled(lambda: [eng.step() for _ in range(8)],
+                              "decode_8_steps", trace_dir)}
+    eng = ContinuousBatchingEngine(cfg, params, **kw)
+    eng.submit(Request(rid=0, prompt=np.resize(prompts[0], 4 * CHUNK),
+                       max_new_tokens=2))
+    out["prefill"] = profiled(lambda: [eng.step() for _ in range(4)],
+                              "prefill_4_chunks", trace_dir)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--report", type=Path, default=None,
+                    help="also write every measurement to this JSON file")
+    ap.add_argument("--trace", type=Path, default=None,
+                    help="also profile the main path and write chrome "
+                         "traces to this directory")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run this script "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    # plain f32 versions are the yardstick: keep their products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    smi = phase_environment()
+    phase_build()
+    errors = phase_kernel_checks(dev)
+    times = phase_kernel_times(dev, [len(p) for p in traffic(VOCAB)])
+    cfg, params, prompts, main_run = phase_main_path(dev)
+    phase_reduced_parity(dev)
+    logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
+    traces = phase_trace(cfg, params, dev, args.trace) if args.trace else None
+
+    kernels = []
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": main_run["launches"][name],
+            "max_abs_err": max(errors[name], t["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if args.report:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(
+            dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                 kernel_times=times, check_errors=errors, main_path=main_run,
+                 full_width_logits=logits, traces=traces, kernels=kernels,
+                 seconds=time.perf_counter() - t_start), indent=1, default=str))
+    say(f"total {time.perf_counter() - t_start} s")
+    say(smi)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/paged_attention.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, loaded with
+``ctypes``.  The library goes to ``build/repro_torch_kernels/`` at the
+root of the checkout, named by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one loads at once.  The build
+happens at first use, so a fresh checkout needs nothing prebuilt.  Nothing
+here runs at import time: the CPU tests import every module on a machine
+without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points of the library: name -> (argtypes, restype)
+SIGNATURES = {
+    "repro_paged_decode_attention": (
+        (_P, _P, _P, _P, _P, _P) + (_I,) * 7 + (_F, _I, _I, _P), _I),
+    "repro_paged_prefill_attention": (
+        (_P, _P, _P, _P, _P, _I, _P) + (_I,) * 8 + (_F, _I, _P), _I),
+    "repro_paged_decode_smem": ((_I, _I, _I), ctypes.c_size_t),
+    "repro_paged_prefill_smem": ((_I, _I), ctypes.c_size_t),
+}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "CUDA kernels build only where the toolkit is "
+                           "installed")
+    return str(path)
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{SOURCE.stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> str:
+    """Compile the library if it is missing.  Returns the compiler's
+    output (``-Xptxas=-v`` register and spill counts), empty when the
+    library was already built."""
+    out = library_path()
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)            # atomic: a reader never sees half a file
+    return proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The loaded library (built first if missing), with the argument and
+    result types of every entry point declared."""
+    build()
+    lib = ctypes.CDLL(str(library_path()))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    return lib

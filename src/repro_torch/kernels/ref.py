@@ -1,0 +1,125 @@
+"""Plain PyTorch versions of the paged-attention kernels.
+
+The counterparts of ``repro.kernels.ref.paged_attention_ref`` and
+``paged_prefill_attention_ref``: they materialise the gather that the CUDA
+kernels in ``csrc/paged_attention.cu`` avoid, and are what those kernels
+are held against — on the CPU (where the wrappers run them in place of
+the kernels) and on the card (``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _linearize(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """(N, Hkv, bs, D) pool through (B, nb) tables -> (B, Hkv, nb*bs, D)
+    where column ``t`` is absolute position ``t``."""
+    B, nb = block_tables.shape
+    _, Hkv, bs, D = pool.shape
+    g = pool[block_tables.long()]                           # (B, nb, Hkv, bs, D)
+    return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bs, D)
+
+
+def _round(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """f32 view of ``x``, round-tripped through ``dtype`` when given."""
+    if dtype is not None:
+        x = x.to(dtype)
+    return x.float()
+
+
+def paged_attention_ref(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    read_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Single-position decode attention through block tables.
+
+    q: (B, Hq, 1, D); k_pool/v_pool: (N, Hkv, bs, D), one layer of the
+    paged pool; block_tables: (B, nb) page ids; lengths: (B,) the position
+    being decoded.  Columns ``> lengths[b]`` (or outside the sliding
+    window) are masked.
+
+    ``read_dtype`` reproduces the serve gather path's two roundings (the
+    decode kernel's two-phase body): K/V are read through ``read_dtype``,
+    and the normalised probabilities are cast through it before the value
+    product.  Returns (B, Hq, 1, D) in q's dtype.
+    """
+    B, Hq, S, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    if S != 1 or Hq % Hkv:
+        raise ValueError(f"decode attention needs S == 1 and Hq % Hkv == 0, "
+                         f"got q {tuple(q.shape)}, Hkv={Hkv}")
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    k = _round(_linearize(k_pool, block_tables), read_dtype)
+    v = _round(_linearize(v_pool, block_tables), read_dtype)
+    T = k.shape[2]
+    qg = q.float().reshape(B, Hkv, group, D)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * scale
+    col = torch.arange(T, device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    mask = col <= ln
+    if window is not None:
+        mask &= col > ln - window
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = _round(torch.softmax(s, dim=-1), read_dtype)
+    out = torch.einsum("bhgt,bhtd->bhgd", p, v)
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def paged_prefill_attention_ref(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    base: torch.Tensor,
+    *,
+    chunk_len: Optional[int] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Multi-query (chunked-prefill) attention through block tables.
+
+    q: (B, Hq, C, D), query ``i`` of sequence ``b`` at absolute position
+    ``base[b] + i``; the chunk's own K/V must already be in the pages
+    (write-then-attend).  Query ``i`` attends to columns ``t <= base + i``
+    (and inside the sliding window), and no column at or past
+    ``base + chunk_len`` is valid — rows past ``chunk_len`` are padding
+    whose output the caller discards.  Returns (B, Hq, C, D) in q's dtype.
+    """
+    B, Hq, C, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    if chunk_len is None:
+        chunk_len = C
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    k = _linearize(k_pool, block_tables).float()
+    v = _linearize(v_pool, block_tables).float()
+    T = k.shape[2]
+    qg = q.float().reshape(B, Hkv, group, C, D)
+    s = torch.einsum("bhgcd,bhtd->bhgct", qg, k) * scale
+    b0 = base.long()[:, None, None]
+    col = torch.arange(T, device=q.device)[None, None, :]          # (1, 1, T)
+    row = b0 + torch.arange(C, device=q.device)[None, :, None]      # (B, C, 1)
+    mask = (col <= row) & (col < b0 + chunk_len)
+    if window is not None:
+        mask &= col > row - window
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    # a padded query past the window of every valid column has no column
+    # left: its softmax is NaN, which the kernel writes as 0 — do the same
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    out = torch.einsum("bhgct,bhtd->bhgcd", p, v)
+    return out.reshape(B, Hq, C, D).to(q.dtype)

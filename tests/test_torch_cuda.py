@@ -1,0 +1,147 @@
+"""The port's CUDA kernels on the card: each against its plain version, the
+wrappers' argument checks and launch counts, and the engine's kernel path
+against its gather path.  Every test here needs a CUDA device (sm_90a) and
+``nvcc``, and skips without them.  This file imports no JAX, so it runs on
+a machine that has only PyTorch (``--noconftest`` skips tests/conftest.py,
+which imports JAX):
+
+    PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import paged_attention as tpa  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.runtime import serve_loop as tserve  # noqa: E402
+
+# the shapes of tests/test_torch_kernels.py: GQA, SWA, MHA, MQA, C=1
+DECODE_CASES = [
+    dict(B=3, Hq=4, Hkv=2, bs=8, nb=4, D=32, window=None),
+    dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, D=32, window=9),
+    dict(B=2, Hq=4, Hkv=4, bs=16, nb=3, D=16, window=None),
+    dict(B=1, Hq=8, Hkv=1, bs=4, nb=8, D=64, window=None),
+]
+PREFILL_CASES = [
+    dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, C=16, D=32, window=None),
+    dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, C=8, D=32, window=11),
+    dict(B=1, Hq=8, Hkv=1, bs=4, nb=8, C=12, D=64, window=None),
+    dict(B=3, Hq=4, Hkv=4, bs=16, nb=4, C=1, D=16, window=None),
+]
+# f32: the same sums in another order; bf16: one rounding step of the
+# output (2^-8 relative); f32 with read_dtype: a probability on a bf16
+# rounding boundary may round the other way (its bf16 step times |v|)
+TOLERANCES = {(torch.float32, None): 1e-5, (torch.float32, torch.bfloat16): 5e-4,
+              (torch.bfloat16, None): 2e-2, (torch.bfloat16, torch.bfloat16): 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90a) and nvcc; on the CPU the "
+                    "plain versions are held against JAX instead")
+    return torch.device("cuda")
+
+
+def _inputs(case, S, seed):
+    rng = np.random.default_rng(seed)
+    B, Hq, Hkv, bs, nb, D = (case[k] for k in ("B", "Hq", "Hkv", "bs", "nb", "D"))
+    N = nb * B
+    kp = rng.standard_normal((N, Hkv, bs, D)).astype(np.float32)
+    vp = rng.standard_normal((N, Hkv, bs, D)).astype(np.float32)
+    q = rng.standard_normal((B, Hq, S, D)).astype(np.float32)
+    bt = rng.integers(0, N, (B, nb)).astype(np.int32)
+    bt[1:, 0] = bt[0, 0]           # rows share a page
+    per_seq = rng.integers(0, nb * bs - S + 1, (B,)).astype(np.int32)
+    return q, kp, vp, bt, per_seq
+
+
+def _to(dev, dtype, *arrs):
+    return [torch.from_numpy(a).to(dev, dtype if a.dtype == np.float32 else None)
+            for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("read_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_cuda_decode_against_plain(cuda_device, case, dtype, read_dtype):
+    inputs = _to(cuda_device, dtype, *_inputs(case, 1, seed=0))
+    before = tpa.paged_attention_cuda.launches
+    got = tpa.paged_attention_cuda(*inputs, window=case["window"],
+                                   read_dtype=read_dtype)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention_cuda.launches == before + 1
+    want = tref.paged_attention_ref(*inputs, window=case["window"],
+                                    read_dtype=read_dtype)
+    tol = TOLERANCES[(dtype, read_dtype)]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_cuda_prefill_against_plain(cuda_device, case, dtype):
+    inputs = _to(cuda_device, dtype, *_inputs(case, case["C"], seed=2))
+    clen = max(1, case["C"] - 3)
+    before = tpa.paged_prefill_attention_cuda.launches
+    got = tpa.paged_prefill_attention_cuda(*inputs, chunk_len=clen,
+                                           window=case["window"])
+    torch.cuda.synchronize()
+    assert tpa.paged_prefill_attention_cuda.launches == before + 1
+    want = tref.paged_prefill_attention_ref(*inputs, chunk_len=clen,
+                                            window=case["window"])
+    tol = TOLERANCES[(dtype, None)]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_bad_arguments(cuda_device):
+    q, kp, vp, bt, ln = _to(cuda_device, torch.float32,
+                            *_inputs(DECODE_CASES[0], 1, seed=0))
+    before = tpa.paged_attention_cuda.launches
+    with pytest.raises(TypeError):
+        tpa.paged_attention_cuda(q.double(), kp, vp, bt, ln)
+    with pytest.raises(TypeError):
+        tpa.paged_attention_cuda(q, kp, vp, bt.long(), ln)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_cuda(q, kp.transpose(1, 2), vp, bt, ln)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_cuda(q.cpu(), kp, vp, bt, ln)
+    with pytest.raises(ValueError):
+        tpa.paged_prefill_attention_cuda(q, kp, vp, bt, ln, chunk_len=2)
+    assert tpa.paged_attention_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_engine_kernels_equal_gather_path(cuda_device):
+    """Reduced qwen3-8b in f32 on the card: the engine with both kernels
+    pinned gives the greedy tokens of the gather path, and launches each
+    kernel once per layer per decode step or prefill chunk."""
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 40, 5)]
+    out = {}
+    for impls in (("grouped", "gather"), ("cuda", "cuda")):
+        eng = tserve.ContinuousBatchingEngine(
+            cfg, params, slots=2, max_len=64, block_size=8, prefill_chunk=8,
+            decode_impl=impls[0], prefill_kernel=impls[1], device=cuda_device)
+        tpa.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=6))
+        out[impls] = {r.rid: r.out for r in eng.run()}
+        eng.check_kv()
+        assert eng.pages.drained
+        kernels = impls[0] == "cuda"
+        assert tpa.paged_attention_cuda.launches == \
+            (eng.stats.decode_steps * cfg.num_layers if kernels else 0)
+        assert tpa.paged_prefill_attention_cuda.launches == \
+            (eng.stats.prefill_chunks * cfg.num_layers if kernels else 0)
+    assert out[("cuda", "cuda")] == out[("grouped", "gather")]
