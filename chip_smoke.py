@@ -6,33 +6,54 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: ``nvcc`` builds every kernel of the serving path from ``csrc/``;
+2. build: one ``nvcc`` call builds every kernel from ``csrc/`` (serving:
+   paged decode and prefill attention; training: flash attention);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at qwen3-8b's head shapes, bf16 and f32 pools; then, at the shapes the
-   main path gives it, its time beside its plain version's, one PyTorch
-   library call's (timed only: the port never calls it) and its bound;
-4. main path: full-width qwen3-8b, all 36 layers (random weights from a
-   seeded generator on the card), served by the continuous-batching engine on the paged
-   layout with both kernels pinned; the launch counts are zeroed just
-   before the run and read just after;
-5. parity: reduced qwen3-8b in f32, kernels against the gather path,
-   greedy tokens equal; full width in bf16, first-step logits of the two.
+   (paged kernels at qwen3-8b's head shapes; the flash kernel at
+   h2o-danube-3-4b's and qwen3-8b's, the training path's 4096 tokens
+   among them, and the autograd wiring of its gradient), bf16 and f32;
+   then, at the shapes its path gives it, its time beside its plain
+   version's, one PyTorch library call's (timed only: the port never calls
+   it) and its bound;
+4. serving path: full-width qwen3-8b, all 36 layers (random weights from
+   a seeded generator on the card), served by the continuous-batching
+   engine on the paged layout with both paged kernels pinned; the launch
+   counts are zeroed just before the run and read just after;
+5. serving parity: reduced qwen3-8b in f32, kernels against the gather
+   path, greedy tokens equal; full width in bf16, first-step logits of
+   the two;
+7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
+   master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
+   with the VPE free until it concludes its ``attn_impl`` trial, then with
+   ``flash_cuda`` pinned, the flash launch count zeroed just before those
+   steps and read just after; then a full-size checkpoint save and
+   restore of the params, the f32 master copy and the step (23.8 GB),
+   every leaf zeroed before the restore and compared bit for bit after it
+   (m and v stay out: the whole state, 55.5 GB, would pass the 45 GiB this
+   script may write to disk);
+8. training parity: reduced h2o-danube-3-4b in f32, loss and gradients
+   and three loop steps of ``flash_cuda`` against ``reference``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without ``src/repro_torch`` beside this script, it exits non-zero and
 prints no result.  ``--report`` also writes every measurement as JSON;
-``--trace`` adds a phase 6 that profiles steady decode steps and one
-prompt's prefill chunks (device busy share, time by kernel) and writes
-the chrome traces there, gzipped.
+``--trace`` adds phase 6, which profiles steady decode steps and one
+prompt's prefill chunks, and one profiled training step in phase 7
+(device busy share, time by kernel), and writes the chrome traces there,
+gzipped.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
+import gzip
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,10 +72,26 @@ SLOTS, MAX_LEN, CHUNK, NEW_TOKENS, REQUESTS = 4, 1024, 128, 32, 8
 NB = MAX_LEN // BS
 VOCAB = 151936
 
-SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+# the training path: full h2o-danube-3-4b at 1 x 4096 tokens
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "h2o-danube-3-4b", 1, 4096, 4
+# flash kernel checks: (Hq, Hkv, D) of h2o-danube-3-4b and qwen3-8b, and
+# (S, T, causal, window): S = T, S < T, T off the 64-key tile, and the
+# training path's own shape
+FLASH_HEADS = ((32, 8, 120), (32, 8, 128))
+FLASH_CASES = ((2048, 2048, True, None), (2048, 2048, True, 1024),
+               (2048, 2048, False, None), (2048, 2048, False, 1024),
+               (300, 1100, True, 1024), (1000, 1000, True, 4096),
+               (TRAIN_SEQ, TRAIN_SEQ, True, 4096))
+
+SOURCES = {
+    "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_prefill_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+}
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:352",
     "paged_prefill_attention": "src/repro/kernels/paged_attention.py:268",
+    "flash_attention": "src/repro/kernels/flash_attention.py:105",
 }
 
 
@@ -74,6 +111,17 @@ def tolerance(dtype, read_dtype) -> tuple:
     if dtype == torch.bfloat16:
         return 1e-2, 1e-2
     return (1e-3, 1e-3) if read_dtype is not None else (1e-4, 1e-4)
+
+
+def flash_tolerance(dtype) -> tuple:
+    """(atol, rtol) of the flash kernel against its plain version.  Both
+    sum in f32 and round once to the output dtype.  f32: the same sums in
+    another order.  bf16: two f32 sums that differ in their last bits round
+    at most one bf16 step apart, and a step is at most 2^-7 of the value;
+    the atol covers outputs so near 0 that the f32 difference (about 1e-6)
+    spans more than a step."""
+    import torch
+    return (1e-5, 2 ** -7) if dtype == torch.bfloat16 else (1e-4, 1e-4)
 
 
 def check_close(what: str, got, want, atol: float, rtol: float) -> float:
@@ -210,8 +258,8 @@ def phase_build():
     seconds = time.perf_counter() - t0
     build.load_library()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  {build.SOURCE.name}: {line.strip()}")
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            say(f"  {line.strip()}")
     say(f"[2] build: nvcc {seconds} s, {time.perf_counter() - t0} s with "
         f"loading")
 
@@ -528,9 +576,29 @@ def phase_full_width_parity(cfg, params, dev, prompts, atol):
     return out
 
 
-def profiled(fn, label, trace_dir):
+# kernel-name groups of a trace, first match wins (lower-case keys)
+KERNEL_GROUPS = (("paged decode kernel", ("paged_decode_kernel",)),
+                 ("paged prefill kernel", ("paged_prefill_kernel",)),
+                 ("flash forward kernel", ("flash_fwd_kernel",)),
+                 ("f32 GEMMs", ("f32f32", "sgemm")),
+                 ("other GEMMs", ("nvjet", "gemm", "xmma")),
+                 ("softmax", ("softmax",)),
+                 ("memcpy/memset", ("memcpy", "memset")))
+
+
+def kernel_group(name):
+    name = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other elementwise/reduction"
+
+
+def profiled(fn, label, trace_dir, ranges=()):
     """Run ``fn`` under torch.profiler; print its wall, the device's busy
-    share of it and the device time by kernel.  Returns a summary."""
+    share of it, the device time by kernel and by kernel group, and the
+    span on the device timeline of each named ``record_function`` range
+    (summed over its occurrences).  Returns a summary."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -542,6 +610,8 @@ def profiled(fn, label, trace_dir):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
     for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            continue                    # a range's span, not a kernel
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
@@ -553,10 +623,25 @@ def profiled(fn, label, trace_dir):
     for name, (n, us) in top:
         say(f"    {us} us in {n} calls ({us / busy_us if busy_us else 0} of busy): "
             f"{name[:100]}")
-    if trace_dir:
-        trace_dir.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(trace_dir / f"trace_{label}.json.gz"))
-    return dict(wall_us=wall_us, busy_us=busy_us,
+    groups = {}
+    for name, (n, us) in by_name.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + us
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        say(f"    group {group}: {us} us ({us / busy_us if busy_us else 0} of busy)")
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    path = trace_dir / f"trace_{label}.json.gz"
+    prof.export_chrome_trace(str(path))
+    # a range's span on the device timeline, summed over its occurrences
+    in_range = {r: 0.0 for r in ranges}
+    if ranges:
+        with gzip.open(path, "rt") as f:
+            for e in json.load(f)["traceEvents"]:
+                if e.get("cat") == "gpu_user_annotation" and e.get("name") in in_range:
+                    in_range[e["name"]] += e["dur"]
+    for name, us in in_range.items():
+        say(f"    range {name}: {us} us on the device timeline "
+            f"({us / busy_us if busy_us else 0} of busy)")
+    return dict(wall_us=wall_us, busy_us=busy_us, ranges=in_range, groups=groups,
                 top=[(name, n, us) for name, (n, us) in top])
 
 
@@ -584,6 +669,304 @@ def phase_trace(cfg, params, dev, trace_dir):
                               "prefill_4_chunks", trace_dir)
     return out
 
+# -- the training path ------------------------------------------------------------------
+
+def flash_inputs(gen, dtype, Hq, Hkv, S, T, D):
+    import torch
+    dev = gen.device
+    return (torch.randn((1, Hq, S, D), generator=gen, device=dev).to(dtype),
+            torch.randn((1, Hkv, T, D), generator=gen, device=dev).to(dtype),
+            torch.randn((1, Hkv, T, D), generator=gen, device=dev).to(dtype))
+
+
+def phase_flash_checks(dev):
+    """The flash kernel against its plain version: bf16 and f32, danube and
+    qwen3 heads, causal on and off, window none / 1024 / 4096, S = T and
+    S < T, T off the tile; then the gradient of ``attention_flash`` (kernel
+    forward) against autograd through ``attention_chunked``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    say("[3c] flash kernel against its plain version (B=1)")
+    gen = torch.Generator(dev).manual_seed(6)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for Hq, Hkv, D in FLASH_HEADS:
+            for S, T, causal, window in FLASH_CASES:
+                q, k, v = flash_inputs(gen, dtype, Hq, Hkv, S, T, D)
+                got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+                want = ref.attention_ref(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                name = (f"flash {str(dtype)[6:]} Hq={Hq} Hkv={Hkv} D={D} S={S} "
+                        f"T={T} causal={causal} window={window}")
+                err = max(err, check_close(name, got, want, *flash_tolerance(dtype)))
+                del q, k, v, got, want
+    # the autograd wiring of attention_flash: kernel forward, and a backward
+    # that is attention_chunked's VJP on both sides, so the gradients agree
+    # exactly and test the wiring, not the kernel; the forward outputs
+    # differ by the kernel's sums (f32: the same sums in another order)
+    Hq, Hkv, D = FLASH_HEADS[0]
+    q, k, v = (t.requires_grad_() for t in
+               flash_inputs(gen, torch.float32, Hq, Hkv, 1024, 1024, D))
+    g = torch.randn(q.shape, generator=gen, device=dev)
+    outs = {}
+    for name, fn in (("flash_cuda", layers.attention_flash),
+                     ("reference", layers.attention_chunked)):
+        o = fn(q, k, v, causal=True, window=512)
+        outs[name] = (o.detach(), *torch.autograd.grad(o, (q, k, v), g))
+    torch.cuda.synchronize()
+    for i, what in enumerate(("out", "dq", "dk", "dv")):
+        err = max(err, check_close(f"attention_flash vs attention_chunked f32 {what} "
+                                   f"(Hq={Hq} Hkv={Hkv} D={D} S=T=1024 window=512)",
+                                   outs["flash_cuda"][i], outs["reference"][i],
+                                   *flash_tolerance(torch.float32)))
+    return err
+
+
+def flash_work(S, T, Hq, Hkv, D, causal, window, elem):
+    """(bytes, ops) of forward attention on these shapes: q, k, v read once,
+    the output written; 4*D ops per (query head, valid column) — the two
+    products, each 2*D per pair."""
+    pairs = 0
+    for s in range(S):
+        row = s + T - S
+        hi = min(row, T - 1) if causal else T - 1
+        lo = max(0, row - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo + 1)
+    nbytes = (2 * Hq * S * D + 2 * Hkv * T * D) * elem
+    return nbytes, 4 * D * Hq * pairs
+
+
+def phase_flash_time(dev, cfg):
+    """The flash kernel at the training path's shapes, bf16: checked against
+    its plain version; kernel, plain version and one SDPA call
+    (``is_causal``; the window is no narrower than the sequence) timed with
+    L2 flushed; the bound computed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    S = T = TRAIN_SEQ
+    Hq, Hkv, D, window = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.window
+    if window is not None and window < S:
+        raise AssertionError("the SDPA yardstick assumes the window spans the sequence")
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v = flash_inputs(gen, torch.bfloat16, Hq, Hkv, S, T, D)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=True, window=window)  # noqa: E731
+    plain = lambda: ref.attention_ref(q, k, v, causal=True, window=window)  # noqa: E731
+    shape = f"B=1 Hq={Hq} Hkv={Hkv} S=T={S} D={D} causal window={window} bf16"
+    err = check_close(f"flash_attention [{shape}]", kernel(), plain(),
+                      *flash_tolerance(torch.bfloat16))
+    ms = device_ms(kernel, flush)
+    plain_ms = device_ms(plain, flush)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), flush)
+    nbytes, ops = flash_work(S, T, Hq, Hkv, D, True, window, 2)
+    bound_ms, bound_by = bound(nbytes, ops, "bfloat16")
+    say(f"  flash_attention [{shape}]: kernel {ms} ms, plain {plain_ms} ms, "
+        f"SDPA {library_ms} ms, bound {bound_ms} ms ({bound_by}: {nbytes} B, "
+        f"{ops} ops), kernel/bound {ms / bound_ms}, max_abs_err vs plain {err}")
+    del flush
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, bytes=nbytes, ops=ops,
+                shape=shape)
+
+
+def train_flops(cfg, n_params, tokens):
+    """Model FLOPs of one step: 6 * params * tokens for the weights, and
+    12 * D * Hq per (query, valid column) pair per layer for attention
+    (two products forward, twice that backward; no recomputation)."""
+    pairs = flash_work(TRAIN_SEQ, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, True, cfg.window, 2)[1] // (4 * cfg.head_dim
+                                                                 * cfg.num_heads)
+    attn = 12 * cfg.head_dim * cfg.num_heads * pairs * cfg.num_layers * TRAIN_BATCH
+    return 6 * n_params * tokens + attn, attn
+
+
+def bit_sums(tree, key: str = "") -> dict:
+    """{leaf key: the sum of its elements' bit patterns as int64}: exact,
+    so a leaf that differs in any one element differs here."""
+    import torch
+    if isinstance(tree, dict):
+        return {k2: n for k in tree for k2, n in bit_sums(tree[k], f"{key}[{k!r}]").items()}
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32}
+    flat = tree.detach().reshape(-1).view(ints[tree.dtype])
+    return {key: sum(int(c.to(torch.int64).sum()) for c in flat.split(1 << 26))}
+
+
+def phase_train(dev, trace_dir):
+    """Full h2o-danube-3-4b trained by TrainLoop: the VPE trial, then
+    ``flash_cuda`` pinned with the launch count read, then a full-size
+    checkpoint round trip."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.train_loop import (STATIC_BUCKET, TrainLoop,
+                                                TrainLoopConfig)
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+    loop = TrainLoop(cfg, TrainLoopConfig(total_steps=1000, warmup_steps=100,
+                                          log_every=0),
+                     data, seed=0, device=dev)
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      torch.utils._pytree.tree_leaves((loop.params, loop.opt_state)))
+    say(f"[7] training path: {cfg.name}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, window {cfg.window}, {n_params} params in {cfg.dtype} "
+        f"(f32 master, m, v), remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens; state {state_bytes} B on the card, set up in "
+        f"{time.perf_counter() - t0} s")
+
+    # the VPE free: the reference until it has 3 steady samples, then a
+    # 3-step trial of flash_cuda, then its decision
+    decision = loop.vpe.controller.decision("attn_impl", STATIC_BUCKET)
+    while not any(e in ("switch", "revert") for e, _, _ in decision.history):
+        if loop.step >= 12:
+            raise AssertionError(f"no attn_impl decision after {loop.step} steps")
+        impl = loop.tuner.current()["attn_impl"]
+        m = loop.run(loop.step + 1)[-1]
+        say(f"  step {loop.step} [{impl}]: loss {m['loss']}, {m['step_time_s']} s")
+    say(f"  {loop.vpe.report()}")
+    selected = decision.selected
+
+    # flash_cuda pinned: the counted steps
+    loop.vpe.controller.force("attn_impl", STATIC_BUCKET, "flash_cuda",
+                              reason="chip_smoke counts the kernel's launches")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    first = loop.step
+    metrics = loop.run(first + TRAIN_STEPS)[-TRAIN_STEPS:]
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    expected = 2 * cfg.num_layers * TRAIN_STEPS
+    losses = [m["loss"] for m in metrics]
+    secs = [m["step_time_s"] for m in metrics]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, attn_flops = train_flops(cfg, n_params, tokens)
+    step_s = float(np.median(secs))
+    say(f"  flash_cuda pinned, steps {first + 1}..{loop.step}: losses {losses}, "
+        f"step seconds {secs}; median {step_s} s, {tokens / step_s} tokens/s; "
+        f"model FLOPs {flops} per step ({attn_flops} of them attention) -> "
+        f"{flops / step_s / PEAK_OPS_PER_S['bfloat16']} of 989 TFLOP/s; peak "
+        f"memory {peak} B ({peak / 2 ** 30} GiB); flash launches {launches} "
+        f"(expected {expected}: 2 per layer per step under remat)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if launches != expected:
+        raise AssertionError(f"flash launches {launches} != {expected}")
+
+    traces = None
+    if trace_dir:
+        batch = data.batch_at(loop.step)
+        say("[7b] trace of one training step (torch.profiler)")
+        traces = profiled(lambda: loop.run_step(batch), "train_step", trace_dir,
+                          ranges=("train_step.loss_and_grads", "train_step.optimizer",
+                                  "attention_flash.backward"))
+
+    # full-size checkpoint round trip of the bf16 params, the f32 master
+    # copy and the step, through the checkpoint module TrainLoop.save and
+    # restore use: every leaf zeroed before the restore, and compared bit
+    # for bit (bit_sums) with what was saved.  m and v stay out: the whole
+    # state (state_bytes) would pass the 45 GiB this script may write to
+    # disk in one run; the loop's own save/restore of every leaf is checked
+    # at reduced size (tests).
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tree = {"params": loop.params,
+                "opt": {k: loop.opt_state[k] for k in ("master", "step")}}
+        step = loop.step
+        saved = bit_sums(tree)
+        t0 = time.perf_counter()
+        ckpt.save(ckpt_dir, step, tree, extra={"step": step})
+        save_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+        loss_a = loop.run_step(data.batch_at(step))["loss"]
+        for leaf in torch.utils._pytree.tree_leaves(tree):
+            leaf.zero_()
+        t0 = time.perf_counter()
+        ckpt.restore(ckpt_dir, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored = bit_sums(tree)
+        loss_b = loop.run_step(data.batch_at(step))["loss"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    differ = [k for k in saved if restored[k] != saved[k]]
+    say(f"  checkpoint of the params, the f32 master and the step at step "
+        f"{step}: {len(saved)} leaves, {on_disk} B on disk, save {save_s} s, "
+        f"restore {restore_s} s; leaves zeroed before the restore and differing "
+        f"bitwise after it: {len(differ)}; loss of step {step + 1} {loss_a} "
+        f"without and {loss_b} after the restore")
+    if differ:
+        raise AssertionError(f"restored leaves differ from the saved: {differ}")
+    if loss_a != loss_b:
+        raise AssertionError(f"loss after restore {loss_b} != {loss_a}")
+    out = dict(params=n_params, state_bytes=state_bytes, vpe_selected=selected,
+               vpe_report=loop.vpe.report(), losses=losses, step_s=secs,
+               tokens_per_s=tokens / step_s, flops=flops,
+               mfu=flops / step_s / PEAK_OPS_PER_S["bfloat16"], peak_bytes=peak,
+               launches=launches, ckpt_bytes=on_disk, save_s=save_s,
+               restore_s=restore_s, trace=traces)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parity(dev):
+    """Reduced h2o-danube-3-4b in f32 on the card: loss and gradients, and
+    three TrainLoop steps, of flash_cuda against reference (f32: the same
+    sums in another order; losses within 1e-5, gradients within 1e-4)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+    base = get_config(TRAIN_ARCH).reduced()
+    params = model_lib.init_params(base, torch.Generator(dev).manual_seed(2))
+    data = DataConfig(vocab_size=base.vocab_size, seq_len=64, global_batch=2, seed=3)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticStream(data).batch_at(0).items()}
+    out = {}
+    for impl in ("flash_cuda", "reference"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        leaves, spec = torch.utils._pytree.tree_flatten(params)
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        loss = model_lib.loss_fn(cfg, torch.utils._pytree.tree_unflatten(leaves, spec),
+                                 batch)
+        grads = torch.autograd.grad(loss, leaves)
+        lc = TrainLoopConfig(total_steps=3, warmup_steps=1, log_every=0,
+                             enable_vpe=False)
+        loop = TrainLoop(cfg, lc, SyntheticStream(data), device=dev,
+                         params=torch.utils._pytree.tree_map(torch.clone, params))
+        out[impl] = (float(loss.detach()), grads, [m["loss"] for m in loop.run()])
+    gerr = max(float((a - b).abs().max()) for a, b in
+               zip(out["flash_cuda"][1], out["reference"][1]))
+    lerr = max(abs(a - b) / abs(b) for a, b in
+               zip([out["flash_cuda"][0], *out["flash_cuda"][2]],
+                   [out["reference"][0], *out["reference"][2]]))
+    say(f"[8] reduced {base.name} f32 (seq 64, window {base.window}): flash_cuda "
+        f"vs reference loss {out['flash_cuda'][0]} / {out['reference'][0]}, "
+        f"loop losses {out['flash_cuda'][2]} / {out['reference'][2]}; worst "
+        f"relative loss difference {lerr} (tolerance 1e-5), worst gradient "
+        f"difference {gerr} (tolerance 1e-4)")
+    if lerr > 1e-5 or gerr > 1e-4:
+        raise AssertionError("flash_cuda and reference disagree on the reduced model")
+    return dict(loss_rel_err=lerr, grad_err=gerr)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -610,20 +993,32 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    from repro_torch.configs import get_config
     smi = phase_environment()
     phase_build()
     errors = phase_kernel_checks(dev)
     times = phase_kernel_times(dev, [len(p) for p in traffic(VOCAB)])
+    errors["flash_attention"] = phase_flash_checks(dev)
+    say("[3d] flash kernel time at the training path's shapes (median of 20 "
+        "calls, L2 flushed before each)")
+    times["flash_attention"] = phase_flash_time(dev, get_config(TRAIN_ARCH))
     cfg, params, prompts, main_run = phase_main_path(dev)
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
     traces = phase_trace(cfg, params, dev, args.trace) if args.trace else None
+    del params                      # the training phase needs the whole card
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(dev, args.trace)
+    train_parity = phase_train_parity(dev)
+    main_run["launches"]["flash_attention"] = train["launches"]
 
     kernels = []
-    for name in ("paged_decode_attention", "paged_prefill_attention"):
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "flash_attention"):
         t = times[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": main_run["launches"][name],
             "max_abs_err": max(errors[name], t["max_abs_err"]),
@@ -634,7 +1029,8 @@ def main(argv=None) -> int:
         args.report.write_text(json.dumps(
             dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                  kernel_times=times, check_errors=errors, main_path=main_run,
-                 full_width_logits=logits, traces=traces, kernels=kernels,
+                 full_width_logits=logits, traces=traces, train=train,
+                 train_parity=train_parity, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1, default=str))
     say(f"total {time.perf_counter() - t_start} s")
     say(smi)

@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/paged_attention.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, loaded with
-``ctypes``.  The library goes to ``build/repro_torch_kernels/`` at the
-root of the checkout, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  The build
-happens at first use, so a fresh checkout needs nothing prebuilt.  Nothing
-here runs at import time: the CPU tests import every module on a machine
-without ``nvcc``.
+The sources in ``csrc/`` (paged attention, flash attention) are compiled
+by one ``nvcc`` call for Hopper (``sm_90a``) into one shared library with
+a plain C interface, loaded with ``ctypes``.  The library goes to
+``build/repro_torch_kernels/`` at the root of the checkout, named by a
+hash of the sources and the flags, so an edited source rebuilds and
+unchanged ones load at once.  The build happens at first use, so a fresh
+checkout needs nothing prebuilt.  Nothing here runs at import time: the
+CPU tests import every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "paged_attention.cu", CSRC / "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -35,6 +36,10 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _P) + (_I,) * 8 + (_F, _I, _P), _I),
     "repro_paged_decode_smem": ((_I, _I, _I), ctypes.c_size_t),
     "repro_paged_prefill_smem": ((_I, _I), ctypes.c_size_t),
+    "repro_flash_attention": ((_P,) * 4 + (_I,) * 10 + (_F, _I, _P), _I),
+    "repro_flash_block_q": ((), _I),
+    "repro_flash_block_k": ((), _I),
+    "repro_flash_max_head_dim": ((), _I),
 }
 
 
@@ -52,9 +57,12 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{SOURCE.stem}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> str:
@@ -67,11 +75,13 @@ def build() -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp,
+                           *(str(src) for src in SOURCES)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n"
+        raise RuntimeError(f"nvcc failed for "
+                           f"{', '.join(src.name for src in SOURCES)}:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)            # atomic: a reader never sees half a file
     return proc.stdout + proc.stderr

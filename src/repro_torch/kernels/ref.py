@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
-The counterparts of ``repro.kernels.ref.paged_attention_ref`` and
-``paged_prefill_attention_ref``: they materialise the gather that the CUDA
-kernels in ``csrc/paged_attention.cu`` avoid, and are what those kernels
-are held against — on the CPU (where the wrappers run them in place of
-the kernels) and on the card (``chip_smoke.py``).
+The counterparts of ``repro.kernels.ref.attention_ref``,
+``paged_attention_ref`` and ``paged_prefill_attention_ref``: they
+materialise the score matrix (and, for the paged ones, the gather) that
+the CUDA kernels in ``csrc/`` avoid, and are what those kernels are held
+against — on the CPU (where the wrappers run them in place of the
+kernels) and on the card (``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -123,3 +124,52 @@ def paged_prefill_attention_ref(
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)
     out = torch.einsum("bhgct,bhtd->bhgcd", p, v)
     return out.reshape(B, Hq, C, D).to(q.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    t_valid: Optional[int] = None,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """Multi-head attention with GQA, causal and sliding-window masks: the
+    plain version of the flash kernel (``csrc/flash_attention.cu``).
+
+    q: (B, Hq, S, D); k, v: (B, Hkv, T, D) with Hq % Hkv == 0.  K/V heads
+    are repeated to Hq (kv head = q head // group); logits, softmax and the
+    value product are f32; the output is in q's dtype.  Query row ``s``
+    sits at position ``s + q_offset`` (default ``T - S``: ends aligned, as
+    in decode), column ``t`` at ``t``; columns ``>= t_valid`` (default T)
+    are key padding.  ``window=W`` keeps ``col > row - W``.  A row with no
+    valid column gives 0, as the kernels write it (the reference's softmax
+    gives NaN there; no such row occurs with ``S <= T``).
+    """
+    B, Hq, S, D = q.shape
+    _, Hkv, T, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if t_valid is None:
+        t_valid = T
+    if q_offset is None:
+        q_offset = T - S
+    kx = k.repeat_interleave(group, dim=1).float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kx) * scale
+    row = torch.arange(S, device=q.device)[:, None] + q_offset
+    col = torch.arange(T, device=q.device)[None, :]
+    mask = col < t_valid
+    if causal:
+        mask = mask & (col <= row)
+    if window is not None:
+        mask = mask & (col > row - window)
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhst,bhtd->bhsd", p, vx).to(q.dtype)

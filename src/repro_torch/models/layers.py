@@ -1,11 +1,15 @@
-"""Shared neural blocks: norms, RoPE, GQA projections, FFN, initialisers.
+"""Shared neural blocks: norms, RoPE, attention, GQA projections, FFN,
+initialisers.
 
 Plain functions over parameter dicts of tensors, as in ``repro.models.
 layers``.  Weights keep the reference's ``(d_in, d_out)`` orientation, so
 ``x @ W`` means the same on both sides and converted parameters need no
 transpose.  Numerics follow the reference step by step: RoPE rotates
 interleaved pairs ``x[..., 0::2]``/``x[..., 1::2]``, and ``rmsnorm`` casts
-back to the input dtype *before* the gamma multiply.
+back to the input dtype *before* the gamma multiply.  Attention is a VPE
+op with two variants (``ATTENTION_VARIANTS``): ``reference``, the
+q-chunked softmax in plain PyTorch, and ``flash_cuda``, the forward flash
+kernel whose backward runs through the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +20,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import ref as kref
 
 Params = Dict[str, Any]
 
@@ -57,6 +65,89 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     y1 = x1 * cos - x2 * sin
     y2 = x1 * sin + x2 * cos
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# -- attention (reference: q-chunked softmax) ----------------------------------
+
+def attention_chunked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    *, causal: bool = True, window: Optional[int] = None,
+    scale: Optional[float] = None, q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Attention in plain PyTorch, one q chunk at a time.
+
+    q: (B, Hq, S, D); k/v: (B, Hkv, T, D).  Up to ``q_chunk`` rows it is
+    :func:`kref.attention_ref`; past that the rows go in chunks of the
+    largest size that divides S, each scored against all T columns in f32
+    (peak O(q_chunk * T) logits), with the probabilities rounded to v's
+    dtype before the value product, as ``repro.models.layers.
+    attention_chunked`` does.  Grouped heads are scored in place (no
+    repeat of K/V).
+    """
+    B, Hq, S, D = q.shape
+    _, Hkv, T, _ = k.shape
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if S <= q_chunk:
+        return kref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    while S % q_chunk:  # largest chunk that divides S (e.g. 1500 -> 750)
+        q_chunk -= 1
+    offset = T - S
+    qg = q.reshape(B, Hkv, group, S, D)
+    kf, vf = k.float(), v.float()
+    col = torch.arange(T, device=q.device)[None, :]
+    outs = []
+    for start in range(0, S, q_chunk):
+        qi = qg[:, :, :, start:start + q_chunk].float()
+        s = torch.einsum("bhgsd,bhtd->bhgst", qi, kf) * scale
+        row = start + torch.arange(q_chunk, device=q.device)[:, None] + offset
+        mask = torch.ones((q_chunk, T), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (col <= row)
+        if window is not None:
+            mask = mask & (col > row - window)
+        s = s.masked_fill(~mask, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhgst,bhtd->bhgsd", p.to(v.dtype).float(),
+                                 vf).to(q.dtype))
+    return torch.cat(outs, dim=3).reshape(B, Hq, S, D)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash kernel (its plain version on the CPU).  Backward:
+    the VJP of :func:`attention_chunked`, recomputed from the saved q, k, v
+    — ``repro.models.layers._flash_cvjp_bwd`` line for line (the JAX
+    package has no backward kernel either)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        return kflash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.opts
+        with torch.enable_grad(), record_function("attention_flash.backward"):
+            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out = attention_chunked(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
+
+
+def attention_flash(q, k, v, *, causal=True, window=None, scale=None):
+    """Flash kernel variant: :func:`kflash.flash_attention_cuda` forward,
+    reference backward."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+ATTENTION_VARIANTS = {
+    "reference": attention_chunked,
+    "flash_cuda": attention_flash,
+}
 
 
 # -- GQA attention projections -------------------------------------------------
@@ -137,6 +228,16 @@ def attn_qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
     q = apply_rope(q, positions, s.rope_theta)
     k = apply_rope(k, positions, s.rope_theta)
     return q, k, v
+
+
+def attn_block(
+    p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
+    *, causal: bool = True, attn_impl: str = "reference",
+) -> torch.Tensor:
+    """Full attention sub-layer (projections + attention + output proj)."""
+    q, k, v = attn_qkv(p, s, x, positions)
+    o = ATTENTION_VARIANTS[attn_impl](q, k, v, causal=causal, window=s.window)
+    return _merge_heads(o) @ p["wo"]
 
 
 # -- FFN -----------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Model facade: family dispatch for the serving surface of the port.
+"""Model facade: family dispatch for the serving and training surfaces of
+the port.
 
-The subset of ``repro.models.model`` the paged serving path needs.  Only
-the dense family is ported; the other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The subset of ``repro.models.model`` the paged serving path and the
+training loop need.  Only the dense family is ported; the other families
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -49,6 +50,26 @@ def count_params_from_shapes(cfg: ModelConfig, active_only: bool = False) -> int
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Any:
     return family_module(cfg).init_params(cfg, gen)
 
+
+# -- training ------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """batch {"tokens": (B, S)} -> logits (B, S, V) in f32."""
+    return family_module(cfg).forward(cfg, params, batch["tokens"])
+
+
+def loss_fn(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy over f32 logits (labels = tokens
+    shifted by the caller): mean of ``logsumexp - gold``."""
+    logits = forward(cfg, params, batch)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+# -- serving ------------------------------------------------------------------------
 
 def init_page_pool(cfg: ModelConfig, num_pages: int, block_size: int,
                    device: torch.device) -> Dict:

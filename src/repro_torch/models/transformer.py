@@ -1,11 +1,15 @@
-"""Decoder-only transformer, dense family: parameters and the paged
-serving steps.
+"""Decoder-only transformer, dense family: parameters, the whole-sequence
+training forward and the paged serving steps.
 
 The counterpart of the dense half of ``repro.models.transformer``.  The
 parameter dict has the reference's layout — per-layer weights stacked on a
 leading L axis under ``params["layers"]`` — and the steps walk the layers
 in a Python loop where the reference scans (``params["layers"][name][l]``
-is a view, so the loop copies no weights).
+is a view, so the loop copies no weights).  The training forward splits
+each stack once with ``torch.unbind`` instead: under autograd, indexing
+``W[l]`` per layer would make every layer's backward add a zero-filled
+gradient of the whole stack, while ``unbind``'s backward stacks the
+per-layer gradients once.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -90,6 +96,41 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
     return params
+
+
+# -- training forward ----------------------------------------------------------------
+
+def layer_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    s = attn_spec(cfg)
+    h = layers.rmsnorm(x, p["ln1"], cfg.rms_eps)
+    x = x + layers.attn_block(_sub(p, "attn_"), s, h, positions, causal=True,
+                              attn_impl=cfg.attn_impl)
+    h = layers.rmsnorm(x, p["ln2"], cfg.rms_eps)
+    return x + layers.swiglu(_sub(p, "ffn_"), h)
+
+
+def _unbind_layers(stacked: Params, num_layers: int) -> list:
+    """Per-layer dicts of views, one ``unbind`` per stacked weight."""
+    split = {k: torch.unbind(v, 0) for k, v in stacked.items()}
+    return [{k: split[k][l] for k in stacked} for l in range(num_layers)]
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) in f32.  ``cfg.remat == "full"``
+    recomputes each layer in the backward pass (non-reentrant
+    ``torch.utils.checkpoint``), keeping only the layer inputs — the
+    counterpart of the reference's ``jax.checkpoint`` around the scan
+    body."""
+    B, S = tokens.shape
+    x = F.embedding(tokens.long(), params["embed"])
+    positions = torch.arange(S, device=tokens.device)
+    for lp in _unbind_layers(params["layers"], cfg.num_layers):
+        if cfg.remat == "full":
+            x = checkpoint(layer_fwd, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x = layer_fwd(cfg, lp, x, positions)
+    return _logits(cfg, params, x)
 
 
 # -- serving ------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version, the
-wrappers' argument checks and launch counts, and the engine's kernel path
-against its gather path.  Every test here needs a CUDA device (sm_90a) and
+wrappers' argument checks and launch counts, the engine's kernel path
+against its gather path, and a training step with the flash kernel.  Every test here needs a CUDA device (sm_90a) and
 ``nvcc``, and skips without them.  This file imports no JAX, so it runs on
 a machine that has only PyTorch (``--noconftest`` skips tests/conftest.py,
 which imports JAX):
@@ -15,10 +15,14 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticStream  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.runtime import serve_loop as tserve  # noqa: E402
+from repro_torch.runtime import train_loop as ttrain  # noqa: E402
 
 # the shapes of tests/test_torch_kernels.py: GQA, SWA, MHA, MQA, C=1
 DECODE_CASES = [
@@ -33,11 +37,23 @@ PREFILL_CASES = [
     dict(B=1, Hq=8, Hkv=1, bs=4, nb=8, C=12, D=64, window=None),
     dict(B=3, Hq=4, Hkv=4, bs=16, nb=4, C=1, D=16, window=None),
 ]
+# (B, Hq, Hkv, S, T, D): danube heads (D=120), qwen3 heads (D=128), MHA,
+# S < T (rows aligned at the end), T not a multiple of the 64-key tile
+FLASH_CASES = [
+    dict(B=1, Hq=8, Hkv=2, S=192, T=192, D=120),
+    dict(B=2, Hq=4, Hkv=1, S=128, T=128, D=128),
+    dict(B=1, Hq=4, Hkv=4, S=70, T=200, D=64),
+    dict(B=1, Hq=4, Hkv=2, S=1, T=77, D=32),
+]
 # f32: the same sums in another order; bf16: one rounding step of the
 # output (2^-8 relative); f32 with read_dtype: a probability on a bf16
 # rounding boundary may round the other way (its bf16 step times |v|)
 TOLERANCES = {(torch.float32, None): 1e-5, (torch.float32, torch.bfloat16): 5e-4,
               (torch.bfloat16, None): 2e-2, (torch.bfloat16, torch.bfloat16): 2e-2}
+# flash kernel against its plain version, (atol, rtol): both sum in f32 and
+# round once, so bf16 outputs are at most one bf16 step (2^-7 of the value)
+# apart
+FLASH_TOLERANCES = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7)}
 
 
 @pytest.fixture
@@ -145,3 +161,96 @@ def test_cuda_engine_kernels_equal_gather_path(cuda_device):
         assert tpa.paged_prefill_attention_cuda.launches == \
             (eng.stats.prefill_chunks * cfg.num_layers if kernels else 0)
     assert out[("cuda", "cuda")] == out[("grouped", "gather")]
+
+
+def _flash_inputs(case, dev, dtype, seed):
+    rng = np.random.default_rng(seed)
+    B, Hq, Hkv, S, T, D = (case[k] for k in ("B", "Hq", "Hkv", "S", "T", "D"))
+    arrs = (rng.standard_normal((B, Hq, S, D)),
+            rng.standard_normal((B, Hkv, T, D)),
+            rng.standard_normal((B, Hkv, T, D)))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 50),
+                                           (False, None), (False, 64)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_against_plain(cuda_device, case, causal, window, dtype):
+    q, k, v = _flash_inputs(case, cuda_device, dtype, seed=5)
+    before = tfa.flash_attention_cuda.launches
+    got = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_cuda.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = tref.attention_ref(q, k, v, causal=causal, window=window)
+    atol, rtol = FLASH_TOLERANCES[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_bad_arguments(cuda_device):
+    q, k, v = _flash_inputs(FLASH_CASES[0], cuda_device, torch.float32, seed=0)
+    before = tfa.flash_attention_cuda.launches
+    with pytest.raises(TypeError):
+        tfa.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 8, 64, 136), device=cuda_device)
+        tfa.flash_attention_cuda(big, big[:, :2], big[:, :2])
+    assert tfa.flash_attention_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_flash_prepare(cuda_device):
+    """prepare builds the library, checks its tiles and launches once at
+    danube's head shape."""
+    before = tfa.flash_attention_cuda.launches
+    tfa.prepare(torch.bfloat16, 32, 8, 120, cuda_device)
+    assert tfa.flash_attention_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_gradient_matches_chunked(cuda_device):
+    """attention_flash (kernel forward, reference backward) against
+    autograd through attention_chunked, f32: the forward is the same
+    function summed in another order; the gradients are attention_chunked's
+    VJP on both sides, so this checks the autograd wiring."""
+    q, k, v = (t.requires_grad_() for t in
+               _flash_inputs(FLASH_CASES[0], cuda_device, torch.float32, seed=8))
+    g = torch.randn(q.shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(9))
+    res = []
+    for fn in (tlayers.attention_flash, tlayers.attention_chunked):
+        o = fn(q, k, v, causal=True, window=100)
+        res.append((o.detach(), *torch.autograd.grad(o, (q, k, v), g)))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_flash_pinned(cuda_device):
+    """One TrainLoop step of reduced h2o-danube-3-4b (f32) with flash_cuda
+    pinned launches the kernel twice per layer (forward and the remat
+    recomputation) and gives the reference variant's loss."""
+    import dataclasses
+    base = get_config("h2o-danube-3-4b").reduced()
+    params = tmodel.init_params(base, torch.Generator(cuda_device).manual_seed(0))
+    data = DataConfig(vocab_size=base.vocab_size, seq_len=48, global_batch=2)
+    losses = {}
+    for impl in ("flash_cuda", "reference"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        loop = ttrain.TrainLoop(
+            cfg, ttrain.TrainLoopConfig(total_steps=1, log_every=0, enable_vpe=False),
+            SyntheticStream(data), device=cuda_device,
+            params={k: (v.clone() if isinstance(v, torch.Tensor) else
+                        {kk: vv.clone() for kk, vv in v.items()})
+                    for k, v in params.items()})
+        tfa.reset_launch_counts()
+        losses[impl] = loop.run()[0]["loss"]
+        assert tfa.flash_attention_cuda.launches == \
+            (2 * cfg.num_layers if impl == "flash_cuda" else 0)
+    assert np.isfinite(losses["flash_cuda"])
+    assert losses["flash_cuda"] == pytest.approx(losses["reference"], rel=1e-5)
