@@ -6,8 +6,9 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: one ``nvcc`` call builds every kernel from ``csrc/`` (serving:
-   paged decode and prefill attention; training: flash attention);
+2. build: one ``nvcc`` per source in ``csrc/``, all started together, and
+   one link (serving: paged decode and prefill attention; training: flash
+   attention; the paper path: matmul and conv2d);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    (paged kernels at qwen3-8b's head shapes; the flash kernel at
    h2o-danube-3-4b's and qwen3-8b's, the training path's 4096 tokens
@@ -32,7 +33,23 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (m and v stay out: the whole state, 55.5 GB, would pass the 45 GiB this
    script may write to disk);
 8. training parity: reduced h2o-danube-3-4b in f32, loss and gradients
-   and three loop steps of ``flash_cuda`` against ``reference``.
+   and three loop steps of ``flash_cuda`` against ``reference``;
+9. paper-path kernels: matmul and conv2d against their plain versions on
+   the card, f32 and bf16 (matmul at tests/test_kernels.py's shapes, 512^3,
+   1000^3 off every tile and 4096^3; conv2d at the JAX tests' shapes,
+   10^2 * 5x5, 512^2 * 5x5 and 384^2 * 3x3);
+10. their times at the paper path's shapes (matmul 512^3 and 4096^3,
+   conv2d 512^2 * 5x5 and 384^2 * 3x3, f32) beside the plain version's, one
+   library call's and the bound;
+11. the paper path, its launch counts zeroed just before it and read just
+   after: (a) Table 1, the six algorithms at the paper's sizes under the
+   VPE, 12 calls each; (b) the Fig. 2b matmul sweep, 16 to 4096, each
+   variant timed and each size bucket learnt by the VPE; (c) the Fig. 3
+   image pipeline (``repro_torch.examples.image_pipeline``); (d) the
+   quickstart (``repro_torch.examples.quickstart``).  Then the outputs are
+   checked: each Table-1 algorithm's output under the VPE's decision
+   against its reference variant, the sweep's kernel outputs against the
+   plain version (launches made for these checks are not counted).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -83,15 +100,32 @@ FLASH_CASES = ((2048, 2048, True, None), (2048, 2048, True, 1024),
                (300, 1100, True, 1024), (1000, 1000, True, 4096),
                (TRAIN_SEQ, TRAIN_SEQ, True, 4096))
 
+# the paper path: matmul checks (m, k, n) — tests/test_kernels.py's shapes,
+# the Table-1 512^3, one off every tile, the Fig. 2b sweep's largest — and
+# conv2d checks (h, w, k) — the JAX tests' shapes, make_inputs at scale
+# 0.02, the Table-1 512^2 * 5x5, the image pipeline's 384^2 Laplacian
+MATMUL_CHECKS = ((128, 256, 128), (256, 512, 256), (100, 200, 60), (8, 8, 8),
+                 (1, 512, 128), (384, 128, 384), (512, 512, 512), (1000, 1000, 1000),
+                 (4096, 4096, 4096))
+CONV_CHECKS = ((64, 64, 3), (64, 64, 5), (37, 53, 5), (128, 96, 11), (16, 16, 3),
+               (66, 64, 3), (10, 10, 5), (512, 512, 5), (384, 384, 3))
+# Fig. 2b's sizes (benchmarks/fig2b.py) and three more, where the card works
+SWEEP = (16, 32, 64, 96, 128, 192, 256, 384, 512, 1024, 2048, 4096)
+TABLE1_CALLS, SWEEP_CALLS, SWEEP_REPS = 12, 10, 3
+
 SOURCES = {
     "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_prefill_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
+    "conv2d": "src/repro_torch/kernels/csrc/conv2d.cu",
 }
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:352",
     "paged_prefill_attention": "src/repro/kernels/paged_attention.py:268",
     "flash_attention": "src/repro/kernels/flash_attention.py:105",
+    "matmul": "src/repro/kernels/matmul.py:48",
+    "conv2d": "src/repro/kernels/conv2d.py:41",
 }
 
 
@@ -122,6 +156,26 @@ def flash_tolerance(dtype) -> tuple:
     spans more than a step."""
     import torch
     return (1e-5, 2 ** -7) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+
+
+def matmul_tolerance(dtype, k) -> tuple:
+    """(atol, rtol) of the matmul kernel against its plain version.  f32:
+    JAX's 5e-4 up to k = 512, scaled by sqrt(k / 512) above it (the
+    rounding error of a sum in another order grows with its length).  bf16:
+    the same f32 difference, plus one bf16 step (2^-7 of the value) from
+    rounding the two sums once each; an output near 0 whose partial sums
+    are not keeps the whole f32 difference, so the f32 atol stays."""
+    import torch
+    tol = 5e-4 * max(1.0, (k / 512) ** 0.5)
+    return (tol, tol + 2 ** -7) if dtype == torch.bfloat16 else (tol, tol)
+
+
+def conv_tolerance(dtype) -> tuple:
+    """(atol, rtol) of the conv2d kernel against its plain version: f32
+    JAX's 2e-4; bf16 one bf16 step (both sum at most 121 taps in f32 and
+    round once)."""
+    import torch
+    return (1e-5, 2 ** -7) if dtype == torch.bfloat16 else (2e-4, 2e-4)
 
 
 def check_close(what: str, got, want, atol: float, rtol: float) -> float:
@@ -968,6 +1022,287 @@ def phase_train_parity(dev):
     return dict(loss_rel_err=lerr, grad_err=gerr)
 
 
+# -- the paper path -----------------------------------------------------------------
+
+def phase_paper_kernel_checks(dev):
+    """matmul and conv2d against their plain versions on the card, f32 and
+    bf16; the bf16 kernels also against the f32 kernel on the widened
+    inputs, rounded to bf16, bit for bit (the same sums in the same order,
+    rounded once).  Returns the worst error per kernel and dtype."""
+    import torch
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ref
+    say("[9] paper-path kernels against their plain versions")
+    gen = torch.Generator(dev).manual_seed(9)
+    errors = {"matmul": {}, "conv2d": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        for m, k, n in MATMUL_CHECKS:
+            a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            got = kmm.matmul(a, b)
+            err = check_close(f"matmul {dname} {m}x{k}x{n}", got, ref.matmul_ref(a, b),
+                              *matmul_tolerance(dtype, k))
+            if dtype == torch.bfloat16 and not torch.equal(
+                    got, kmm.matmul(a.float(), b.float()).to(dtype)):
+                raise AssertionError(f"matmul bf16 {m}x{k}x{n}: not the f32 sums "
+                                     f"rounded once")
+            errors["matmul"][dname] = max(errors["matmul"].get(dname, 0.0), err)
+        for h, w, k in CONV_CHECKS:
+            x = torch.randn((h, w), generator=gen, device=dev).to(dtype)
+            taps = torch.randn((k, k), generator=gen, device=dev).to(dtype)
+            got = kconv.conv2d(x, taps)
+            if got.shape != (h - k + 1, w - k + 1):
+                raise AssertionError(f"conv2d {h}x{w}*{k}x{k}: shape {tuple(got.shape)}")
+            err = check_close(f"conv2d {dname} {h}x{w} * {k}x{k}", got,
+                              ref.conv2d_ref(x, taps), *conv_tolerance(dtype))
+            if dtype == torch.bfloat16 and not torch.equal(
+                    got, kconv.conv2d(x.float(), taps.float()).to(dtype)):
+                raise AssertionError(f"conv2d bf16 {h}x{w}*{k}x{k}: not the f32 sums "
+                                     f"rounded once")
+            errors["conv2d"][dname] = max(errors["conv2d"].get(dname, 0.0), err)
+    torch.cuda.synchronize()
+    say(f"  worst errors: {errors}")
+    return errors
+
+
+def phase_paper_kernel_times(dev):
+    """matmul and conv2d at the paper path's shapes, f32: kernel, plain
+    version and one library call (``torch.matmul``, ``F.conv2d``, both with
+    TF32 off; timed only, never called by the port) timed with L2 flushed,
+    the bound computed.  Keys "matmul" and "conv2d" hold the Table-1
+    shapes (512^3; 512^2 * 5x5)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ref
+    say("[10] paper-path kernel times (f32, median of 20 calls, L2 flushed before "
+        "each)")
+    gen = torch.Generator(dev).manual_seed(10)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    out = {}
+    for m in (512, 4096):
+        a = torch.randn((m, m), generator=gen, device=dev)
+        b = torch.randn((m, m), generator=gen, device=dev)
+
+        def library(a=a, b=b):
+            with ref.full_f32():
+                return torch.matmul(a, b)
+        out[f"matmul {m}^3"] = dict(
+            name="matmul", kernel=lambda a=a, b=b: kmm.matmul(a, b),
+            plain=lambda a=a, b=b: ref.matmul_ref(a, b), library=library,
+            tol=matmul_tolerance(torch.float32, m),
+            work=(3 * m * m * 4, 2 * m ** 3))
+    for hw, k in ((512, 5), (384, 3)):
+        x = torch.randn((hw, hw), generator=gen, device=dev)
+        taps = torch.randn((k, k), generator=gen, device=dev)
+
+        def library(x=x, taps=taps):
+            with ref.full_f32():
+                return F.conv2d(x[None, None], taps[None, None])[0, 0]
+        o = hw - k + 1
+        out[f"conv2d {hw}^2 * {k}x{k}"] = dict(
+            name="conv2d", kernel=lambda x=x, taps=taps: kconv.conv2d(x, taps),
+            plain=lambda x=x, taps=taps: ref.conv2d_ref(x, taps), library=library,
+            tol=conv_tolerance(torch.float32),
+            work=((hw * hw + k * k + o * o) * 4, 2 * k * k * o * o))
+    times = {}
+    for shape, r in out.items():
+        err = check_close(f"{shape} f32", r["kernel"](), r["plain"](), *r["tol"])
+        ms = device_ms(r["kernel"], flush)
+        plain_ms = device_ms(r["plain"], flush)
+        library_ms = device_ms(r["library"], flush)
+        nbytes, ops = r["work"]
+        bound_ms, bound_by = bound(nbytes, ops, "float32")
+        times[shape] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            bytes=nbytes, ops=ops, shape=shape)
+        say(f"  {shape}: kernel {ms} ms, plain {plain_ms} ms, library {library_ms} ms, "
+            f"bound {bound_ms} ms ({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
+            f"{ms / bound_ms}, kernel/library {ms / library_ms}")
+    times["matmul"] = times["matmul 512^3"]
+    times["conv2d"] = times["conv2d 512^2 * 5x5"]
+    del flush
+    return times
+
+
+def paper_launches():
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import matmul as kmm
+    return {"matmul": kmm.matmul.launches, "conv2d": kconv.conv2d.launches}
+
+
+def launches_since(before):
+    return {k: n - before[k] for k, n in paper_launches().items()}
+
+
+def phase_table1(dev):
+    """Table 1 (benchmarks/table1.py's loop): the six algorithms at the
+    paper's sizes (scale 1.0) under a fresh VPE, 12 calls each.  Returns
+    the rows and, for the output checks, each algorithm's inputs and its
+    last output (under the VPE's final decision)."""
+    from repro_torch.bench_algos import ALGORITHMS, build_vpe, make_inputs
+    from repro_torch.core import shape_bucket
+    vpe, fns = build_vpe(device=dev)
+    before = paper_launches()
+    rows, outputs = [], {}
+    for name, algo in ALGORITHMS.items():
+        args = make_inputs(name, scale=1.0, device=dev)
+        for _ in range(TABLE1_CALLS):
+            out = fns[name](*args)
+        bucket = shape_bucket(*args)
+        decided = vpe.controller.selected(name, bucket)
+        means = {v: vpe.profiler.mean(name, v, bucket)
+                 for v in vpe.registry.op(name).variant_names()}
+        steady = {v: vpe.profiler.samples(name, v, bucket).steady.n for v in means}
+        naive_ms = means["reference"] * 1e3
+        vpe_ms = (means[decided] or means["reference"]) * 1e3
+        row = dict(name=name, shapes=[tuple(a.shape) for a in args], naive_ms=naive_ms,
+                   vpe_ms=vpe_ms, speedup=naive_ms / vpe_ms,
+                   paper_speedup=algo.paper_speedup, decision=decided,
+                   variant_ms={v: (m * 1e3 if m is not None else None)
+                               for v, m in means.items()},
+                   steady_samples=steady,
+                   trials=[f"{e}:{v}:{d}" for e, v, d in
+                           vpe.controller.decision(name, bucket).history])
+        rows.append(row)
+        outputs[name] = (args, out, decided)
+        say(f"  {name} {row['shapes']}: naive {naive_ms} ms, VPE {vpe_ms} ms, "
+            f"speedup {row['speedup']} (paper {algo.paper_speedup}), decision "
+            f"{decided}; variant ms {row['variant_ms']}; steady samples {steady}; "
+            f"trials {row['trials']}")
+        if "cuda" in means and steady["cuda"] < 1:
+            raise AssertionError(f"{name}: the cuda variant has no steady sample")
+    launches = launches_since(before)
+    say(f"  launches in the call loops: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"Table 1 launched no {name} kernel")
+    return rows, outputs, vpe, fns
+
+
+def phase_sweep(dev):
+    """Fig. 2b (benchmarks/fig2b.py's loop) on the card: per size, each
+    matmul variant timed on the host clock around fenced calls (one warm-up,
+    mean of 3), then 10 calls through the VPE to learn the size's bucket.
+    Returns the rows, the crossovers and the inputs (for the checks)."""
+    import torch
+    from repro_torch.bench_algos import build_vpe
+    from repro_torch.core import block_until_ready, shape_bucket
+    vpe, fns = build_vpe(device=dev)
+    entry = vpe.registry.op("matmul")
+    rng = np.random.default_rng(0)
+    rows, inputs = [], {}
+
+    def host_s(fn, a, b):
+        block_until_ready(fn(a, b))
+        t0 = time.perf_counter()
+        for _ in range(SWEEP_REPS):
+            block_until_ready(fn(a, b))
+        return (time.perf_counter() - t0) / SWEEP_REPS
+
+    for n in SWEEP:
+        a = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(dev)
+        ms = {v: host_s(entry.variants[v].fn, a, b) * 1e3 for v in entry.variant_names()}
+        for _ in range(SWEEP_CALLS):
+            fns["matmul"](a, b)
+        decision = vpe.controller.decision("matmul", shape_bucket(a, b))
+        row = dict(n=n, ms=ms, winner=min(ms, key=ms.get), vpe_decision=decision.selected,
+                   trials=[f"{e}:{v}:{d}" for e, v, d in decision.history])
+        rows.append(row)
+        inputs[n] = (a, b)
+        say(f"  n={n}: ms {ms}, winner {row['winner']}, VPE {row['vpe_decision']}; "
+            f"trials {row['trials']}")
+    cross = {}
+    for fast, slow in (("fused", "reference"), ("cuda", "reference"), ("cuda", "fused")):
+        wins = [r["n"] for r in rows if r["ms"][fast] < r["ms"][slow]]
+        cross[f"{fast}<{slow}"] = wins[0] if wins else None
+    say(f"  crossover (first size where the first variant is faster): {cross} "
+        f"(paper: ~75 for the DSP against the ARM core)")
+    return rows, cross, inputs
+
+
+def phase_paper_path(dev):
+    """Phase 11: Table 1, the Fig. 2b sweep, the image pipeline and the
+    quickstart, with the matmul and conv2d launch counts zeroed just before
+    and read just after; then the outputs checked (those launches are not
+    counted)."""
+    import torch
+    from repro_torch.examples import image_pipeline, quickstart
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ref
+    torch.cuda.synchronize()
+    kmm.reset_launch_counts()
+    kconv.reset_launch_counts()
+    say("[11a] Table 1: the six algorithms at the paper's sizes under the VPE "
+        f"({TABLE1_CALLS} calls each)")
+    t0 = time.perf_counter()
+    rows, outputs, vpe, fns = phase_table1(dev)
+    split = {"table1": paper_launches()}
+    say(f"[11b] Fig. 2b: matmul sweep {SWEEP}, each variant timed (host clock, "
+        f"fenced, mean of {SWEEP_REPS} after a warm-up), {SWEEP_CALLS} VPE calls per size")
+    sweep, crossover, sweep_inputs = phase_sweep(dev)
+    split["sweep"] = launches_since(split["table1"])
+    say("[11c] image pipeline (repro_torch.examples.image_pipeline, 384^2 frames, "
+        "grant at frame 24)")
+    mark = paper_launches()
+    pipeline = image_pipeline.main(device=dev)
+    split["image_pipeline"] = launches_since(mark)
+    events = [(e, v) for e, v, _ in pipeline["history"]]
+    for v in ("fused", "cuda"):
+        if ("trial", v) not in events or not (("switch", v) in events
+                                              or ("revert", v) in events):
+            raise AssertionError(f"image pipeline: no concluded {v} trial: {events}")
+    if not all(np.isfinite(pipeline["fps_trace"])):
+        raise AssertionError("image pipeline: non-finite fps")
+    say(f"  fps before {pipeline['fps_before']}, after {pipeline['fps_after']}, ratio "
+        f"{pipeline['ratio']}, decision {pipeline['decision']}, conv launches "
+        f"{split['image_pipeline']['conv2d']}")
+    say("[11d] quickstart (repro_torch.examples.quickstart)")
+    mark = paper_launches()
+    quick = quickstart.main(device=dev)
+    split["quickstart"] = launches_since(mark)
+    torch.cuda.synchronize()
+    launches = paper_launches()
+    wall = time.perf_counter() - t0
+    say(f"  paper path: {wall} s, launches {launches} (by part {split})")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the paper path")
+    for what in ("smooth", "bench"):
+        if "trial" not in quick[what] or ("switch" not in quick[what]
+                                          and "revert" not in quick[what]):
+            raise AssertionError(f"quickstart {what}: no concluded trial")
+
+    say("[11e] outputs: under the VPE's decision against the reference variant "
+        "(integers equal, floats within 2e-2 as tests/test_system.py); the sweep's "
+        "kernel outputs against the plain version")
+    for name, (args, out, decided) in outputs.items():
+        want = vpe.registry.op(name).variants["reference"].fn(*args)
+        if out.shape != want.shape or out.dtype != want.dtype:
+            raise AssertionError(f"{name}: {decided} gives {tuple(out.shape)} "
+                                 f"{out.dtype}, reference {tuple(want.shape)} {want.dtype}")
+        if out.dtype in (torch.int32, torch.int64):
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name}: {decided} differs from reference")
+            say(f"  {name} [{decided}]: equal to reference ({out.dtype})")
+        else:
+            check_close(f"{name} [{decided}] vs reference", torch.view_as_real(out)
+                        if out.is_complex() else out,
+                        torch.view_as_real(want) if want.is_complex() else want,
+                        2e-2, 2e-2)
+    for n, (a, b) in sweep_inputs.items():
+        check_close(f"sweep matmul {n}^3 cuda vs plain", kmm.matmul(a, b),
+                    ref.matmul_ref(a, b), *matmul_tolerance(torch.float32, n))
+    return dict(table1=rows, sweep=sweep, crossover=crossover, image_pipeline={
+        k: v for k, v in pipeline.items() if k != "report"}, quickstart=quick,
+        launches=launches, launches_by_part=split, wall_s=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -1012,10 +1347,18 @@ def main(argv=None) -> int:
     train = phase_train(dev, args.trace)
     train_parity = phase_train_parity(dev)
     main_run["launches"]["flash_attention"] = train["launches"]
+    paper_errors = phase_paper_kernel_checks(dev)
+    paper_times = phase_paper_kernel_times(dev)
+    paper = phase_paper_path(dev)
+    main_run["launches"].update(paper["launches"])
+    times.update(paper_times)
+    # the paper path runs f32: its kernels' line holds their f32 errors
+    # (bf16 errors are printed in phase 9 and kept in the report)
+    errors.update({name: e["float32"] for name, e in paper_errors.items()})
 
     kernels = []
     for name in ("paged_decode_attention", "paged_prefill_attention",
-                 "flash_attention"):
+                 "flash_attention", "matmul", "conv2d"):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1030,7 +1373,8 @@ def main(argv=None) -> int:
             dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                  kernel_times=times, check_errors=errors, main_path=main_run,
                  full_width_logits=logits, traces=traces, train=train,
-                 train_parity=train_parity, kernels=kernels,
+                 train_parity=train_parity, paper_check_errors=paper_errors,
+                 paper=paper, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1, default=str))
     say(f"total {time.perf_counter() - t_start} s")
     say(smi)

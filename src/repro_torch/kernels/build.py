@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` (paged attention, flash attention) are compiled
-by one ``nvcc`` call for Hopper (``sm_90a``) into one shared library with
-a plain C interface, loaded with ``ctypes``.  The library goes to
+The sources in ``csrc/`` (paged attention, flash attention, matmul,
+conv2d) are compiled for Hopper (``sm_90a``) by one ``nvcc`` process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library goes to
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a
 hash of the sources and the flags, so an edited source rebuilds and
 unchanged ones load at once.  The build happens at first use, so a fresh
@@ -22,10 +23,11 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "paged_attention.cu", CSRC / "flash_attention.cu")
+SOURCES = (CSRC / "paged_attention.cu", CSRC / "flash_attention.cu",
+           CSRC / "matmul.cu", CSRC / "conv2d.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of the library: name -> (argtypes, restype)
@@ -40,6 +42,9 @@ SIGNATURES = {
     "repro_flash_block_q": ((), _I),
     "repro_flash_block_k": ((), _I),
     "repro_flash_max_head_dim": ((), _I),
+    "repro_matmul": ((_P,) * 3 + (_I,) * 4 + (_P,), _I),
+    "repro_conv2d": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
+    "repro_conv2d_max_taps": ((), _I),
 }
 
 
@@ -66,25 +71,35 @@ def library_path() -> Path:
 
 
 def build() -> str:
-    """Compile the library if it is missing.  Returns the compiler's
-    output (``-Xptxas=-v`` register and spill counts), empty when the
-    library was already built."""
+    """Compile the library if it is missing: every source at once, each by
+    its own ``nvcc``, then one link.  Returns the compilers' output
+    (``-Xptxas=-v`` register and spill counts), empty when the library was
+    already built."""
     out = library_path()
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp,
-                           *(str(src) for src in SOURCES)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for "
-                           f"{', '.join(src.name for src in SOURCES)}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)            # atomic: a reader never sees half a file
-    return proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs, failed = [], []
+        for src, proc in zip(SOURCES, procs):
+            stdout, stderr = proc.communicate()
+            logs.append(stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{stdout}{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        lib = Path(tmp) / out.name
+        link = subprocess.run([nvcc(), "-shared", "-o", str(lib), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {out.name} failed:\n{link.stdout}{link.stderr}")
+        os.replace(lib, out)        # atomic: a reader never sees half a file
+    return "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

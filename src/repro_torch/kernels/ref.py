@@ -1,18 +1,53 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
-The counterparts of ``repro.kernels.ref.attention_ref``,
-``paged_attention_ref`` and ``paged_prefill_attention_ref``: they
-materialise the score matrix (and, for the paged ones, the gather) that
-the CUDA kernels in ``csrc/`` avoid, and are what those kernels are held
-against — on the CPU (where the wrappers run them in place of the
-kernels) and on the card (``chip_smoke.py``).
+The counterparts of ``repro.kernels.ref``: ``matmul_ref`` and
+``conv2d_ref``, and ``attention_ref``, ``paged_attention_ref`` and
+``paged_prefill_attention_ref``, which materialise the score matrix (and,
+for the paged ones, the gather) that the CUDA kernels in ``csrc/`` avoid.
+They are what those kernels are held against — on the CPU (where the
+wrappers run them in place of the kernels) and on the card
+(``chip_smoke.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
+import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """f32 products and convolutions in full f32 inside the block.  On the
+    card PyTorch runs f32 products in full f32 by default but f32
+    convolutions through cuDNN in TF32 (about three decimal digits); this
+    turns TF32 off for both and restores the flags after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) @ (k, n) summed in full f32, output in a's dtype: the plain
+    version of the matmul kernel (``csrc/matmul.cu``)."""
+    with full_f32():
+        return (a.float() @ b.float()).to(a.dtype)
+
+
+def conv2d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Valid 2-D cross-correlation of a single-channel image, x (H, W) and
+    w (kh, kw) -> (H-kh+1, W-kw+1), in full f32 (no TF32), output in x's
+    dtype: the plain version of the conv2d kernel (``csrc/conv2d.cu``).
+    Keeps the JAX package's (H, W) / (kh, kw) layout."""
+    with full_f32():
+        out = F.conv2d(x.float()[None, None], w.float()[None, None])
+    return out[0, 0].to(x.dtype)
 
 
 def _linearize(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:

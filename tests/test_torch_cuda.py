@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: each against its plain version, the
 wrappers' argument checks and launch counts, the engine's kernel path
-against its gather path, and a training step with the flash kernel.  Every test here needs a CUDA device (sm_90a) and
-``nvcc``, and skips without them.  This file imports no JAX, so it runs on
+against its gather path, a training step with the flash kernel, and the
+paper's six algorithms under the VPE with the matmul and conv2d kernels.
+Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
+skips without them; the one unmarked test checks that the paper path's
+entry points default to the card.  This file imports no JAX, so it runs on
 a machine that has only PyTorch (``--noconftest`` skips tests/conftest.py,
 which imports JAX):
 
@@ -14,8 +17,12 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.bench_algos import build_vpe, make_inputs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import shape_bucket  # noqa: E402
+from repro_torch.kernels import conv2d as tconv  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import matmul as tmm  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticStream  # noqa: E402
@@ -254,3 +261,147 @@ def test_cuda_train_step_flash_pinned(cuda_device):
             (2 * cfg.num_layers if impl == "flash_cuda" else 0)
     assert np.isfinite(losses["flash_cuda"])
     assert losses["flash_cuda"] == pytest.approx(losses["reference"], rel=1e-5)
+
+
+# matmul: tests/test_kernels.py's shapes, the paper path's 512^3, one off
+# every tile, and the Fig. 2b sweep's largest
+MATMUL_CASES = [(128, 256, 128), (256, 512, 256), (100, 200, 60), (8, 8, 8),
+                (1, 512, 128), (384, 128, 384), (512, 512, 512), (1000, 1000, 1000),
+                (4096, 4096, 4096)]
+# conv2d: tests/test_kernels.py's shapes, make_inputs at scale 0.02, the
+# paper's 512^2 * 5x5 and the image pipeline's 384^2 Laplacian
+CONV_CASES = [(64, 64, 3), (64, 64, 5), (37, 53, 5), (128, 96, 11), (16, 16, 3),
+              (66, 64, 3), (10, 10, 5), (512, 512, 5), (384, 384, 3)]
+
+
+def matmul_tolerance(dtype, k):
+    """(atol, rtol) of the matmul kernel against its plain version.  f32:
+    JAX's 5e-4 up to k = 512, scaled by sqrt(k / 512) above it (the
+    rounding error of a sum in another order grows with its length).  bf16:
+    the same f32 difference, plus one bf16 step (2^-7 of the value) from
+    rounding the two sums once each; an output near 0 whose partial sums
+    are not keeps the whole f32 difference, so the f32 atol stays."""
+    tol = 5e-4 * max(1.0, (k / 512) ** 0.5)
+    return (tol, tol + 2 ** -7) if dtype == torch.bfloat16 else (tol, tol)
+
+
+# conv2d against its plain version, (atol, rtol): f32 JAX's 2e-4; bf16 one
+# bf16 step (both sum at most 121 taps in f32 and round once)
+CONV_TOLERANCES = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-5, 2 ** -7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", MATMUL_CASES)
+def test_cuda_matmul_against_plain(cuda_device, m, k, n, dtype):
+    """Also: the bf16 kernel rounds once — its output equals the f32
+    kernel's on the widened inputs, rounded to bf16, bit for bit (the same
+    products summed in the same order)."""
+    gen = torch.Generator(cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=cuda_device).to(dtype)
+    before = tmm.matmul.launches
+    got = tmm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert tmm.matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == dtype
+    atol, rtol = matmul_tolerance(dtype, k)
+    torch.testing.assert_close(got.float(), tref.matmul_ref(a, b).float(),
+                               rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, tmm.matmul(a.float(), b.float()).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,k", CONV_CASES)
+def test_cuda_conv2d_against_plain(cuda_device, h, w, k, dtype):
+    gen = torch.Generator(cuda_device).manual_seed(h * w + k)
+    x = torch.randn((h, w), generator=gen, device=cuda_device).to(dtype)
+    ker = torch.randn((k, k), generator=gen, device=cuda_device).to(dtype)
+    before = tconv.conv2d.launches
+    got = tconv.conv2d(x, ker)
+    torch.cuda.synchronize()
+    assert tconv.conv2d.launches == before + 1
+    assert got.shape == (h - k + 1, w - k + 1) and got.dtype == dtype
+    atol, rtol = CONV_TOLERANCES[dtype]
+    torch.testing.assert_close(got.float(), tref.conv2d_ref(x, ker).float(),
+                               rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, tconv.conv2d(x.float(), ker.float()).to(dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_conv2d_reject_bad_arguments(cuda_device):
+    a = torch.zeros((64, 64), device=cuda_device)
+    before = (tmm.matmul.launches, tconv.conv2d.launches)
+    with pytest.raises(TypeError):
+        tmm.matmul(a, a.bfloat16())                      # dtype mismatch
+    with pytest.raises(TypeError):
+        tmm.matmul(a.half(), a.half())                   # unsupported dtype
+    with pytest.raises(ValueError):
+        tmm.matmul(a.t(), a)                             # not contiguous
+    with pytest.raises(ValueError):
+        tmm.matmul(a[None], a)                           # wrong rank
+    with pytest.raises(ValueError):
+        tmm.matmul(a, a[:32])                            # k differs
+    with pytest.raises(ValueError):
+        tmm.matmul(a.cpu(), a)                           # CPU / CUDA mix
+    with pytest.raises(TypeError):
+        tconv.conv2d(a, a[:3, :3].contiguous().bfloat16())
+    with pytest.raises(ValueError):
+        tconv.conv2d(a[:, ::2], a[:3, :3].contiguous())
+    with pytest.raises(ValueError):
+        tconv.conv2d(a[None], a[:3, :3].contiguous())
+    with pytest.raises(ValueError):
+        tconv.conv2d(a, a[:3, :3].contiguous().cpu())
+    with pytest.raises(ValueError):
+        tconv.conv2d(a, torch.zeros((33, 3), device=cuda_device))
+    assert (tmm.matmul.launches, tconv.conv2d.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_prepare_launches_each_kernel_once(cuda_device):
+    before = (tmm.matmul.launches, tconv.conv2d.launches)
+    tmm.prepare(cuda_device)
+    tconv.prepare(cuda_device)
+    assert (tmm.matmul.launches, tconv.conv2d.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_paper_algorithms_trial_the_kernels(cuda_device):
+    """build_vpe on the card runs all six algorithms; the VPE trials the
+    cuda variants of matmul and convolution, which launch their kernels,
+    and every variant gives the reference's result."""
+    vpe, fns = build_vpe(device=cuda_device)
+    tmm.reset_launch_counts()
+    tconv.reset_launch_counts()
+    for name in ("complement", "convolution", "dotproduct", "matmul", "patternmatch",
+                 "fft"):
+        args = make_inputs(name, scale=0.25, device=cuda_device)
+        outs = [fns[name](*args) for _ in range(12)]
+        assert all(o.device.type == "cuda" for o in outs)
+        entry = vpe.registry.op(name)
+        want = entry.variants["reference"].fn(*args)
+        for vname, variant in entry.variants.items():
+            got = variant.fn(*args)
+            assert got.dtype == want.dtype, (name, vname)
+            if want.dtype in (torch.int32, torch.bool):
+                assert torch.equal(got, want), (name, vname)
+            else:
+                torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        history = vpe.controller.decision(name, shape_bucket(*args)).history
+        assert [e for e, _, _ in history].count("trial") == len(entry.variants) - 1
+    assert tmm.matmul.launches > 0 and tconv.conv2d.launches > 0
+
+
+def test_paper_entry_points_default_to_the_card():
+    """make_inputs and build_vpe default to device="cuda": on the card they
+    give CUDA tensors, without one they raise (no silent move to the CPU)."""
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in make_inputs("matmul", scale=0.02))
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_inputs("matmul", scale=0.02)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_vpe()
