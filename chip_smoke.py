@@ -6,13 +6,16 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: one ``nvcc`` per source in ``csrc/``, all started together, and
-   one link (serving: paged decode and prefill attention; training: flash
-   attention; the paper path: matmul and conv2d);
+2. build: one ``nvcc`` per ``.cu`` source in ``csrc/``, all started
+   together, and one link (serving: paged decode and prefill attention;
+   training: flash attention; the paper path: matmul and conv2d; the bf16
+   bodies of prefill and flash share ``attention_tile.cuh``), with each
+   kernel's registers and spills and any wgmma serialization ptxas reports;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    (paged kernels at qwen3-8b's head shapes; the flash kernel at
    h2o-danube-3-4b's and qwen3-8b's, the training path's 4096 tokens
-   among them, and the autograd wiring of its gradient), bf16 and f32;
+   among them, and the autograd wiring of its gradient), bf16 (the
+   tensor-core bodies of flash and prefill) and f32 (CUDA-core bodies);
    then, at the shapes its path gives it, its time beside its plain
    version's, one PyTorch library call's (timed only: the port never calls
    it) and its bound;
@@ -310,10 +313,13 @@ def phase_build():
     t0 = time.perf_counter()
     log = build.build()
     seconds = time.perf_counter() - t0
-    build.load_library()
+    lib = build.load_library()
     for line in log.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "spill",
+                                   "Performance Loss")):
             say(f"  {line.strip()}")
+    say(f"  dynamic shared memory of a bf16 prefill block: "
+        f"{lib.repro_paged_prefill_smem(D, BS, 1)} B")
     say(f"[2] build: nvcc {seconds} s, {time.perf_counter() - t0} s with "
         f"loading")
 

@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``csrc/`` (paged attention, flash attention, matmul,
-conv2d) are compiled for Hopper (``sm_90a``) by one ``nvcc`` process per
-source, all started together, and linked into one shared library with a
-plain C interface, loaded with ``ctypes``.  The library goes to
-``build/repro_torch_kernels/`` at the root of the checkout, named by a
-hash of the sources and the flags, so an edited source rebuilds and
-unchanged ones load at once.  The build happens at first use, so a fresh
-checkout needs nothing prebuilt.  Nothing here runs at import time: the
-CPU tests import every module on a machine without ``nvcc``.
+conv2d, and the attention tile core ``attention_tile.cuh`` that the first
+two include) are compiled for Hopper (``sm_90a``) by one ``nvcc`` process
+per ``.cu`` file, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+goes to ``build/repro_torch_kernels/`` at the root of the checkout, named
+by a hash of every ``.cu`` and ``.cuh`` file in ``csrc/`` and the flags,
+so an edited source or header rebuilds and unchanged ones load at once.
+The build happens at first use, so a fresh checkout needs nothing
+prebuilt.  Nothing here runs at import time: the CPU tests import every
+module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,8 +25,6 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "paged_attention.cu", CSRC / "flash_attention.cu",
-           CSRC / "matmul.cu", CSRC / "conv2d.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -37,10 +37,10 @@ SIGNATURES = {
     "repro_paged_prefill_attention": (
         (_P, _P, _P, _P, _P, _I, _P) + (_I,) * 8 + (_F, _I, _P), _I),
     "repro_paged_decode_smem": ((_I, _I, _I), ctypes.c_size_t),
-    "repro_paged_prefill_smem": ((_I, _I), ctypes.c_size_t),
+    "repro_paged_prefill_smem": ((_I, _I, _I), ctypes.c_size_t),
     "repro_flash_attention": ((_P,) * 4 + (_I,) * 10 + (_F, _I, _P), _I),
-    "repro_flash_block_q": ((), _I),
-    "repro_flash_block_k": ((), _I),
+    "repro_flash_block_q": ((_I,), _I),
+    "repro_flash_block_k": ((_I,), _I),
     "repro_flash_max_head_dim": ((), _I),
     "repro_matmul": ((_P,) * 3 + (_I,) * 4 + (_P,), _I),
     "repro_conv2d": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
@@ -61,9 +61,14 @@ def nvcc() -> str:
     return str(path)
 
 
+def sources() -> list:
+    """The ``.cu`` files of ``csrc/``, one ``nvcc`` each."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -79,14 +84,15 @@ def build() -> str:
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
         procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True)
-                 for src, obj in zip(SOURCES, objs)]
+                 for src, obj in zip(srcs, objs)]
         logs, failed = [], []
-        for src, proc in zip(SOURCES, procs):
+        for src, proc in zip(srcs, procs):
             stdout, stderr = proc.communicate()
             logs.append(stdout + stderr)
             if proc.returncode != 0:

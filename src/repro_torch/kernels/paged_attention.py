@@ -20,12 +20,17 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import ref
 
 # largest dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SMEM = 232448
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 prefill body (wgmma tiles of 128 dims, 16-byte cp.async rows)
+# takes head dims up to this, padded to a multiple of PREFILL_DIM_MULTIPLE
+PREFILL_MAX_HEAD_DIM = 128
+PREFILL_DIM_MULTIPLE = 8
 
 
 def _lib():
@@ -157,7 +162,10 @@ def paged_prefill_attention_cuda(
     block_tables: (B, nb) int32; base: (B,) int32.  ``chunk_len`` (a host
     int, default C) caps valid columns at ``base + chunk_len``; it is a
     kernel argument, so a new chunk length builds nothing.  Returns
-    (B, Hq, C, D); rows past ``chunk_len`` are padding.
+    (B, Hq, C, D); rows past ``chunk_len`` are padding.  In bf16 the head
+    dim must be at most 128; one that is not a multiple of 8 is zero-padded
+    (q and both pools are copied, so no configured model takes that path)
+    and the output sliced.
     """
     if chunk_len is None:
         chunk_len = q.shape[2]
@@ -176,8 +184,20 @@ def paged_prefill_attention_cuda(
     _, Hkv, bs, _ = k_pool.shape
     if not 1 <= int(chunk_len) <= C:
         raise ValueError(f"chunk_len={chunk_len} outside [1, C={C}]")
+    if q.dtype == torch.bfloat16:
+        if D > PREFILL_MAX_HEAD_DIM:
+            raise ValueError(f"head_dim {D} > {PREFILL_MAX_HEAD_DIM} (bf16 prefill)")
+        pad = -D % PREFILL_DIM_MULTIPLE
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool))
+        if pad or not aligned:
+            q, k_pool, v_pool = (F.pad(t, (0, pad)) if pad else t.clone()
+                                 for t in (q, k_pool, v_pool))
+            out = paged_prefill_attention_cuda(
+                q, k_pool, v_pool, block_tables, base, chunk_len=chunk_len,
+                window=window, scale=scale)
+            return out[..., :D].contiguous()
     lib = _lib()
-    smem = lib.repro_paged_prefill_smem(D, bs)
+    smem = lib.repro_paged_prefill_smem(D, bs, _DTYPES[q.dtype])
     if smem > MAX_SMEM:
         raise ValueError(f"prefill tile needs {smem} B of shared memory "
                          f"(D={D}, bs={bs}); the limit is {MAX_SMEM}")

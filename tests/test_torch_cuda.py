@@ -43,14 +43,28 @@ PREFILL_CASES = [
     dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, C=8, D=32, window=11),
     dict(B=1, Hq=8, Hkv=1, bs=4, nb=8, C=12, D=64, window=None),
     dict(B=3, Hq=4, Hkv=4, bs=16, nb=4, C=1, D=16, window=None),
+    # the bf16 tile core's edges: qwen3-8b's heads with a short chunk
+    # (several 64-key stages, the ring wrapping, 64-row tiles of one head),
+    # the same under a sliding window, and a head dim off the 16-byte
+    # rows (the wrapper pads it in bf16)
+    dict(B=2, Hq=32, Hkv=8, bs=16, nb=40, C=128, D=128, window=None, chunk_len=100),
+    dict(B=2, Hq=32, Hkv=8, bs=16, nb=40, C=128, D=128, window=100, chunk_len=100),
+    dict(B=1, Hq=4, Hkv=2, bs=8, nb=6, C=16, D=20, window=None),
 ]
 # (B, Hq, Hkv, S, T, D): danube heads (D=120), qwen3 heads (D=128), MHA,
-# S < T (rows aligned at the end), T not a multiple of the 64-key tile
+# S < T (rows aligned at the end), T not a multiple of the 64-key tile;
+# then the bf16 tile core's edges: GQA group 8 with S and T off the
+# 128-row and 64-key tiles and the ring wrapping, group 1 at D=120, and
+# head dims off the 16-byte rows (padded by the wrapper in bf16)
 FLASH_CASES = [
     dict(B=1, Hq=8, Hkv=2, S=192, T=192, D=120),
     dict(B=2, Hq=4, Hkv=1, S=128, T=128, D=128),
     dict(B=1, Hq=4, Hkv=4, S=70, T=200, D=64),
     dict(B=1, Hq=4, Hkv=2, S=1, T=77, D=32),
+    dict(B=2, Hq=16, Hkv=2, S=520, T=700, D=128),
+    dict(B=1, Hq=8, Hkv=8, S=333, T=333, D=120),
+    dict(B=1, Hq=8, Hkv=2, S=96, T=160, D=100),
+    dict(B=1, Hq=4, Hkv=1, S=64, T=64, D=60),
 ]
 # f32: the same sums in another order; bf16: one rounding step of the
 # output (2^-8 relative); f32 with read_dtype: a probability on a bf16
@@ -111,7 +125,7 @@ def test_cuda_decode_against_plain(cuda_device, case, dtype, read_dtype):
 @pytest.mark.parametrize("case", PREFILL_CASES)
 def test_cuda_prefill_against_plain(cuda_device, case, dtype):
     inputs = _to(cuda_device, dtype, *_inputs(case, case["C"], seed=2))
-    clen = max(1, case["C"] - 3)
+    clen = case.get("chunk_len", max(1, case["C"] - 3))
     before = tpa.paged_prefill_attention_cuda.launches
     got = tpa.paged_prefill_attention_cuda(*inputs, chunk_len=clen,
                                            window=case["window"])
@@ -139,6 +153,17 @@ def test_cuda_wrappers_reject_bad_arguments(cuda_device):
     with pytest.raises(ValueError):
         tpa.paged_prefill_attention_cuda(q, kp, vp, bt, ln, chunk_len=2)
     assert tpa.paged_attention_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_bf16_rejects_wide_heads(cuda_device):
+    """The bf16 prefill body holds at most 128 dims in its tiles."""
+    case = dict(PREFILL_CASES[0], D=136)
+    q, kp, vp, bt, base = _to(cuda_device, torch.bfloat16, *_inputs(case, 16, seed=2))
+    before = tpa.paged_prefill_attention_cuda.launches
+    with pytest.raises(ValueError):
+        tpa.paged_prefill_attention_cuda(q, kp, vp, bt, base)
+    assert tpa.paged_prefill_attention_cuda.launches == before
 
 
 @pytest.mark.cuda

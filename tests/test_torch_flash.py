@@ -158,3 +158,53 @@ def test_flash_and_chunked_agree_to_bf16_rounding():
     flash = tlayers.attention_flash(q, k, v, causal=True).float()
     chunked = tlayers.attention_chunked(q, k, v, causal=True, q_chunk=16).float()
     np.testing.assert_allclose(flash.numpy(), chunked.numpy(), rtol=3e-2, atol=3e-2)
+
+
+# the wrapper's padding for the bf16 body's tiles: head dims off the
+# multiple of 8 (zero dims, the real head dim's scale), S and T off the
+# 128-row and 64-key tiles (S < T, S > 128, S < 64)
+PAD_CASES = [
+    (130, 250, 8, 1, 100, True, None),
+    (70, 70, 4, 2, 60, True, 24),
+    (129, 129, 4, 4, 36, False, None),
+    (20, 90, 4, 2, 12, False, 30),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,causal,window", PAD_CASES)
+def test_flash_padding_matches_pallas_and_reference(S, T, Hq, Hkv, D, causal, window,
+                                                   dtype):
+    arrs = _inputs(S, T, Hq, Hkv, D, seed=9)
+    got = tfa.flash_attention_cuda(*(_torch(a, dtype) for a in arrs),
+                                   causal=causal, window=window)
+    assert got.shape == (1, Hq, S, D) and got.dtype == getattr(torch, dtype)
+    for want in (jops.flash_attention(*(_jax(a, dtype) for a in arrs), causal=causal,
+                                      window=window),
+                 jref.attention_ref(*(_jax(a, dtype) for a in arrs), causal=causal,
+                                    window=window)):
+        np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,rows,dims", [("float32", (192, 256), 100),
+                                             ("bfloat16", (256, 256), 104)])
+def test_flash_wrapper_pads_to_the_dtypes_tiles(monkeypatch, dtype, rows, dims):
+    """What the kernel (here its plain version) is handed: S and T padded
+    to the dtype's q and k tiles, bf16 head dims to a multiple of 8, the
+    keys' end and the rows' alignment passed on, the real head dim's
+    scale."""
+    seen = {}
+    real = tref.attention_ref
+
+    def spy(q, k, v, **kw):
+        seen.update(q=tuple(q.shape), k=tuple(k.shape), v=tuple(v.shape), **kw)
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tfa.ref, "attention_ref", spy)
+    q, k, v = (_torch(a, dtype) for a in _inputs(130, 250, 4, 2, 100, seed=10))
+    out = tfa.flash_attention_cuda(q, k, v, causal=True)
+    assert seen["q"] == (1, 4, rows[0], dims)
+    assert seen["k"] == seen["v"] == (1, 2, rows[1], dims)
+    assert (seen["t_valid"], seen["q_offset"]) == (250, 120)
+    assert seen["scale"] == pytest.approx(100 ** -0.5)
+    assert out.shape == (1, 4, 130, 100)
