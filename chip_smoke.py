@@ -7,10 +7,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: one ``nvcc`` per ``.cu`` source in ``csrc/``, all started
-   together, and one link (serving: paged decode and prefill attention;
-   training: flash attention; the paper path: matmul and conv2d; the bf16
-   bodies of prefill and flash share ``attention_tile.cuh``), with each
-   kernel's registers and spills and any wgmma serialization ptxas reports;
+   together, and one link (serving: paged decode, split-K in two or three
+   launches, and prefill attention; training: flash attention; the paper
+   path: matmul and conv2d; the bf16 bodies of prefill and flash share
+   ``attention_tile.cuh``), with each kernel's registers and spills and any
+   wgmma serialization ptxas reports;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    (paged kernels at qwen3-8b's head shapes; the flash kernel at
    h2o-danube-3-4b's and qwen3-8b's, the training path's 4096 tokens
@@ -70,6 +71,7 @@ import argparse
 import gc
 import gzip
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -309,17 +311,29 @@ def phase_environment():
 
 
 def phase_build():
+    import torch
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     log = build.build()
     seconds = time.perf_counter() - t0
     lib = build.load_library()
+    entry, spilled = None, []
     for line in log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill",
                                    "Performance Loss")):
             say(f"  {line.strip()}")
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "spill stores" in line and any(int(x) for x in re.findall(r"\d+", line)):
+            spilled.append(entry)
+    say(f"  kernels with a stack frame or spills: {spilled or 'none'}")
+    from repro_torch.kernels import paged_attention as pa
+    splits, kps = pa.decode_split_plan(SLOTS, HKV, NB, BS, build.sm_count(
+        torch.device("cuda", 0)))
     say(f"  dynamic shared memory of a bf16 prefill block: "
-        f"{lib.repro_paged_prefill_smem(D, BS, 1)} B")
+        f"{lib.repro_paged_prefill_smem(D, BS, 1)} B; of a bf16 decode block "
+        f"at the main path's plan ({splits} splits of {kps} keys): "
+        f"{lib.repro_paged_decode_smem(D, BS, kps, 1)} B")
     say(f"[2] build: nvcc {seconds} s, {time.perf_counter() - t0} s with "
         f"loading")
 
@@ -434,8 +448,13 @@ def phase_kernel_times(dev, prompt_lens):
     """Each kernel at the shapes the main path gives it: kernel, plain
     version and library call timed, the bound computed."""
     import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
+    splits, kps = pa.decode_split_plan(SLOTS, HKV, NB, BS, build.sm_count(dev))
     say("[3b] kernel times at the main path's shapes (bf16, median of 20 "
-        "calls, L2 flushed before each)")
+        "calls, L2 flushed before each); decode: grid of "
+        f"{splits} splits of {kps} keys x {HKV} KV heads x {SLOTS} sequences, "
+        "3 device launches a call (stats pass, value pass, combine)")
     gen = torch.Generator(dev).manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
     rows = {"paged_decode_attention": decode_timing_case(gen, prompt_lens),
@@ -637,7 +656,7 @@ def phase_full_width_parity(cfg, params, dev, prompts, atol):
 
 
 # kernel-name groups of a trace, first match wins (lower-case keys)
-KERNEL_GROUPS = (("paged decode kernel", ("paged_decode_kernel",)),
+KERNEL_GROUPS = (("paged decode kernels", ("paged_decode",)),
                  ("paged prefill kernel", ("paged_prefill_kernel",)),
                  ("flash forward kernel", ("flash_fwd_kernel",)),
                  ("f32 GEMMs", ("f32f32", "sgemm")),

@@ -32,17 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of the library: name -> (argtypes, restype)
 SIGNATURES = {
-    "repro_paged_decode_attention": (
-        (_P, _P, _P, _P, _P, _P) + (_I,) * 7 + (_F, _I, _I, _P), _I),
+    "repro_paged_decode_attention": ((_P,) * 7 + (_I,) * 9 + (_F, _I, _I, _I, _P), _I),
     "repro_paged_prefill_attention": (
         (_P, _P, _P, _P, _P, _I, _P) + (_I,) * 8 + (_F, _I, _P), _I),
-    "repro_paged_decode_smem": ((_I, _I, _I), ctypes.c_size_t),
+    "repro_paged_decode_smem": ((_I,) * 4, ctypes.c_size_t),
     "repro_paged_prefill_smem": ((_I, _I, _I), ctypes.c_size_t),
     "repro_flash_attention": ((_P,) * 4 + (_I,) * 10 + (_F, _I, _P), _I),
     "repro_flash_block_q": ((_I,), _I),
     "repro_flash_block_k": ((_I,), _I),
     "repro_flash_max_head_dim": ((), _I),
-    "repro_matmul": ((_P,) * 3 + (_I,) * 4 + (_P,), _I),
+    "repro_matmul": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
     "repro_conv2d": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
     "repro_conv2d_max_taps": ((), _I),
 }
@@ -106,6 +105,20 @@ def build() -> str:
             raise RuntimeError(f"linking {out.name} failed:\n{link.stdout}{link.stderr}")
         os.replace(lib, out)        # atomic: a reader never sees half a file
     return "".join(logs)
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (a ``torch.device``), which the
+    wrappers' launch plans take; cached per device."""
+    import torch
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

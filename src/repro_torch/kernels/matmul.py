@@ -9,11 +9,12 @@ The kernel predicates its m, k and n edges, so this wrapper neither pads
 nor sends small shapes elsewhere: (1, 512) @ (512, 128) and 8 x 8 x 8 run
 the kernel, where ``ops.matmul`` pads to its blocks and takes the oracle
 below 8.  The TPU block sizes (``bm``, ``bk``, ``bn``) are tiling knobs of
-the TPU and have no counterpart here.  On a CUDA tensor the wrapper checks
-its arguments, launches the kernel on the current stream and counts the
-launch in its ``launches`` attribute — or raises; there is no fallback.  On
-a CPU tensor it runs the plain version, :func:`.ref.matmul_ref` (the CPU
-tests' path), and counts nothing.
+the TPU and have no counterpart here; the kernel's own output tile is
+chosen by :func:`matmul_tile` and passed down.  On a CUDA tensor the
+wrapper checks its arguments, launches the kernel on the current stream
+and counts the launch in its ``launches`` attribute — or raises; there is
+no fallback.  On a CPU tensor it runs the plain version,
+:func:`.ref.matmul_ref` (the CPU tests' path), and counts nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +26,18 @@ import torch
 from . import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's output tiles, by the index it takes: (rows, columns, threads)
+MATMUL_TILES = ((64, 32, 128), (128, 128, 256))
+
+
+def matmul_tile(m: int, n: int, sms: int) -> int:
+    """Index into :data:`MATMUL_TILES` of the tile for an (m, n) output on a
+    card with ``sms`` SMs: 128 x 128 where such tiles give every SM a block
+    (2048^2 and up on an H100), else 64 x 32, which gives the paper path's
+    512^2 128 blocks of 4 warps."""
+    big_rows, big_cols, _ = MATMUL_TILES[1]
+    big_blocks = -(-m // big_rows) * -(-n // big_cols)
+    return 1 if big_blocks >= sms else 0
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -51,11 +64,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.matmul_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"matmul: unsupported device {a.device}")
-    from .build import load_library
+    from .build import load_library, sm_count
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    tile = matmul_tile(m, n, sm_count(a.device))
     err = load_library().repro_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, _DTYPES[a.dtype],
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, tile, _DTYPES[a.dtype],
         ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream))
     if err:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")

@@ -17,6 +17,7 @@ counts nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -31,6 +32,42 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # takes head dims up to this, padded to a multiple of PREFILL_DIM_MULTIPLE
 PREFILL_MAX_HEAD_DIM = 128
 PREFILL_DIM_MULTIPLE = 8
+# decode: head dims up to this (two 128-dim passes of a warp's lanes),
+# padded to whole 16-byte rows (4 f32 or 8 bf16 elements)
+DECODE_MAX_HEAD_DIM = 256
+# decode split plan: keys per split (rounded up to whole pages), and the
+# blocks per SM that the splits of all heads may reach at most
+DECODE_SPLIT_KEYS = 64
+DECODE_BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(B: int, Hkv: int, nb: int, bs: int, sms: int) -> tuple:
+    """(splits, keys per split) of the decode kernel's grid (splits, Hkv, B)
+    over a table of ``nb`` pages of ``bs`` keys, on a card with ``sms``
+    SMs.  From shapes alone: the lengths stay on the device.
+
+    A split is ``DECODE_SPLIT_KEYS`` keys rounded up to whole pages, so
+    that at small batch the grid puts many blocks per SM in flight; where
+    that would give more than ``DECODE_BLOCKS_PER_SM`` blocks per SM over
+    all B * Hkv heads, the splits grow (whole pages again) until it does
+    not; and where B * Hkv alone gives every SM two blocks, one split
+    covers the whole table.  splits * keys always covers nb * bs keys."""
+    total = nb * bs
+    heads = B * Hkv
+    if heads >= 2 * sms:
+        return 1, total
+    kps = bs * -(-DECODE_SPLIT_KEYS // bs)
+    most = max(1, -(-DECODE_BLOCKS_PER_SM * sms // heads))
+    if -(-total // kps) > most:
+        kps = bs * -(-(-(-total // most)) // bs)
+    return -(-total // kps), kps
+
+
+def decode_workspace_floats(B: int, Hkv: int, G: int, D: int, splits: int) -> int:
+    """f32 elements of the decode workspace: per (b, h, split, g) the
+    split's (m, l) and its D partial sums."""
+    return B * Hkv * splits * G * (2 + D)
 
 
 def _lib():
@@ -81,6 +118,11 @@ def _check(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                          f"{name} {tuple(per_seq.shape)} must be (B, nb), (B,)")
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_smem(D: int, bs: int, kps: int, dtype: int) -> int:
+    return _lib().repro_paged_decode_smem(D, bs, kps, dtype)
+
+
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -105,6 +147,14 @@ def paged_attention_cuda(
     that reproduces the gather path's bf16 roundings.  Page ids must lie
     in ``[0, N)``: the kernel does not bounds-check them.  Returns
     (B, Hq, 1, D).
+
+    One call is one launch in ``launches`` and, on the card, 2 kernel
+    launches (plain body: split pass, combine) or 3 (``read_dtype``:
+    stats pass, value pass, combine) over :func:`decode_split_plan`'s
+    grid, with an f32 workspace allocated here.  A head dim that does not
+    fill whole 16-byte rows (4 f32, 8 bf16 elements) is zero-padded (q
+    and both pools are copied, so no configured model takes that path),
+    and head dims above ``DECODE_MAX_HEAD_DIM`` raise.
     """
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -122,19 +172,38 @@ def paged_attention_cuda(
         raise TypeError(f"read_dtype must be None or bfloat16, got {read_dtype}")
     B, Hq, _, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
+    if D > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} > {DECODE_MAX_HEAD_DIM} (decode)")
+    pad = -D % (16 // q.element_size())
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool))
+    if pad or not aligned:
+        # whole 16-byte rows for the kernel's copies; zeros score and sum
+        # nothing, and the scale stays the real D's
+        q, k_pool, v_pool = (F.pad(t, (0, pad)) if pad else t.clone()
+                             for t in (q, k_pool, v_pool))
+        out = paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
+                                   window=window, scale=scale, read_dtype=read_dtype)
+        return out[..., :D].contiguous()
     G = Hq // Hkv
+    nb = block_tables.shape[1]
+    from .build import sm_count
     lib = _lib()
-    smem = lib.repro_paged_decode_smem(G, D, bs)
+    splits, kps = decode_split_plan(B, Hkv, nb, bs, sm_count(q.device))
+    dtype = _DTYPES[q.dtype]
+    smem = _decode_smem(D, bs, kps, dtype)
     if smem > MAX_SMEM:
-        raise ValueError(f"decode tile needs {smem} B of shared memory "
-                         f"(G={G}, D={D}, bs={bs}); the limit is {MAX_SMEM}")
+        raise ValueError(f"decode block needs {smem} B of shared memory "
+                         f"(D={D}, bs={bs}, {kps} keys per split); the "
+                         f"limit is {MAX_SMEM}")
     out = torch.empty_like(q)
+    workspace = torch.empty(decode_workspace_floats(B, Hkv, G, D, splits),
+                            dtype=torch.float32, device=q.device)
     err = lib.repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, Hkv, G, D, bs, block_tables.shape[1],
-        -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], int(read_dtype is not None), _stream(q.device))
+        workspace.data_ptr(), B, Hkv, G, D, bs, nb, splits, kps,
+        -1 if window is None else int(window), float(scale), dtype,
+        int(read_dtype is not None), q.device.index, _stream(q.device))
     if err:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error {err}")
     paged_attention_cuda.launches += 1
@@ -220,15 +289,17 @@ paged_prefill_attention_cuda.launches = 0
 def prepare(dtype: torch.dtype, num_heads: int, num_kv_heads: int,
             head_dim: int, block_size: int, device: torch.device) -> None:
     """Build and load the kernels, then launch each once on a one-page
-    pool at the model's head shape and synchronise — so a caller's first
-    timed call pays no build or module load, and a kernel that cannot
-    launch at this shape raises here.  These launches are counted like
-    any other."""
+    pool at the model's head shape and synchronise — decode in both bodies
+    (its split, stats, value and combine kernels), then prefill — so a
+    caller's first timed call pays no build or module load, and a kernel
+    that cannot launch at this shape raises here.  These launches are
+    counted like any other."""
     q = torch.zeros((1, num_heads, 1, head_dim), dtype=dtype, device=device)
     pool = torch.zeros((1, num_kv_heads, block_size, head_dim), dtype=dtype,
                        device=device)
     table = torch.zeros((1, 1), dtype=torch.int32, device=device)
     zero = torch.zeros((1,), dtype=torch.int32, device=device)
+    paged_attention_cuda(q, pool, pool, table, zero)
     paged_attention_cuda(q, pool, pool, table, zero, read_dtype=torch.bfloat16)
     paged_prefill_attention_cuda(q, pool, pool, table, zero)
     torch.cuda.synchronize(device)

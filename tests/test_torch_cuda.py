@@ -37,6 +37,21 @@ DECODE_CASES = [
     dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, D=32, window=9),
     dict(B=2, Hq=4, Hkv=4, bs=16, nb=3, D=16, window=None),
     dict(B=1, Hq=8, Hkv=1, bs=4, nb=8, D=64, window=None),
+    # the split-K decode's edges: qwen3-8b heads on the main path's table
+    # (16 splits of 64 keys) at B = 1 and 4, and under a window that
+    # empties whole splits; h2o-danube-3-4b's D = 120 (two lanes idle);
+    # B = 64, where B * Hkv fills the card and the plan is one split;
+    # qwen2-7b's group of 7 (two 4-row blocks per head, the second one
+    # row short) at a D the wrapper pads in bf16; a group of 16 (four
+    # blocks per head); D = 192 (two passes of the lanes)
+    dict(B=1, Hq=32, Hkv=8, bs=16, nb=64, D=128, window=None),
+    dict(B=4, Hq=32, Hkv=8, bs=16, nb=64, D=128, window=None),
+    dict(B=4, Hq=32, Hkv=8, bs=16, nb=64, D=128, window=100),
+    dict(B=2, Hq=32, Hkv=8, bs=16, nb=40, D=120, window=None),
+    dict(B=64, Hq=32, Hkv=8, bs=16, nb=16, D=128, window=None),
+    dict(B=2, Hq=28, Hkv=4, bs=16, nb=8, D=20, window=None),
+    dict(B=2, Hq=32, Hkv=2, bs=8, nb=10, D=64, window=7),
+    dict(B=2, Hq=8, Hkv=2, bs=16, nb=8, D=192, window=None),
 ]
 PREFILL_CASES = [
     dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, C=16, D=32, window=None),
@@ -95,6 +110,8 @@ def _inputs(case, S, seed):
     bt = rng.integers(0, N, (B, nb)).astype(np.int32)
     bt[1:, 0] = bt[0, 0]           # rows share a page
     per_seq = rng.integers(0, nb * bs - S + 1, (B,)).astype(np.int32)
+    if "lengths" in case:
+        per_seq = np.asarray(case["lengths"], dtype=np.int32)
     return q, kp, vp, bt, per_seq
 
 
@@ -152,6 +169,98 @@ def test_cuda_wrappers_reject_bad_arguments(cuda_device):
         tpa.paged_attention_cuda(q.cpu(), kp, vp, bt, ln)
     with pytest.raises(ValueError):
         tpa.paged_prefill_attention_cuda(q, kp, vp, bt, ln, chunk_len=2)
+    assert tpa.paged_attention_cuda.launches == before
+
+
+# qwen3-8b heads on the main path's table, lengths 0, on and beside page
+# (16) and split (64) boundaries, and at the table's end
+BOUNDARY_CASE = dict(B=9, Hq=32, Hkv=8, bs=16, nb=64, D=128, window=None,
+                     lengths=[0, 15, 16, 17, 63, 64, 65, 128, 1023])
+
+
+def _bf16_neighbours(p):
+    """The bf16 values below and above each of ``p``'s (positive, already
+    bf16), as f64."""
+    bits = p.to(torch.bfloat16).view(torch.int16)
+    return [(bits + i).view(torch.bfloat16).double() for i in (-1, 1)]
+
+
+def _explain_by_bf16_steps(got, q, kp, vp, bt, ln, rows, tol):
+    """The read_dtype body's outputs off the shared limit, explained: for
+    each (b, query head) row in ``rows``, the kernel's probabilities are
+    recovered by least squares from its output (one equation per dim, so
+    the row may have at most D valid keys) and each is snapped to the
+    nearest of the plain version's bf16 probability and its two bf16
+    neighbours.  Returns the probabilities moved by one bf16 step and the
+    largest excess of the row's output over its limit around the output
+    of the snapped probabilities (<= 0: the one-step moves account for
+    the whole error)."""
+    B, Hq, _, D = q.shape
+    Hkv, G = kp.shape[1], Hq // kp.shape[1]
+    k, v = (tref._round(tref._linearize(pool, bt), torch.bfloat16) for pool in (kp, vp))
+    qg = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * (1.0 / D ** 0.5)      # as the plain version
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] <= ln.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p_ref = tref._round(torch.softmax(s, dim=-1), torch.bfloat16).reshape(B, Hq, -1)
+    moved, excess = 0, -float("inf")
+    for b, hq in rows:
+        keys = valid[b].nonzero().flatten()
+        assert len(keys) <= D, f"row {(b, hq)}: {len(keys)} valid keys, no recovery"
+        vr = v[b, hq // G, keys].double().cpu()                       # (n, D)
+        o = got[b, hq, 0].double().cpu()
+        p_kernel = torch.linalg.lstsq(vr.T, o[:, None]).solution[:, 0]
+        p0 = p_ref[b, hq, keys].cpu()
+        cands = torch.stack([p0.double(), *_bf16_neighbours(p0)])     # (3, n)
+        pick = (cands - p_kernel).abs().argmin(0)
+        moved += int((pick != 0).sum())
+        o_snap = cands.gather(0, pick[None])[0] @ vr
+        excess = max(excess, float(((o - o_snap).abs() - tol - tol * o_snap.abs()).max()))
+    return moved, excess
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("read_dtype", [None, torch.bfloat16])
+def test_cuda_decode_lengths_on_boundaries(cuda_device, dtype, read_dtype):
+    """Sequences of 1 to 1024 valid keys, split by split, under
+    TOLERANCES.  In the read_dtype body with f32 pools, a probability that
+    lies on a bf16 rounding boundary may round the other way in the kernel
+    than in the plain version, whose denominator is summed in another
+    order, and with few valid keys that moves the output by more than the
+    limit.  An output row off the limit passes only where its error is
+    that: the kernel's probabilities, recovered from its output, are each
+    the plain version's or one bf16 step beside it, and the output they
+    give lies within the limit."""
+    case = BOUNDARY_CASE
+    q, kp, vp, bt, ln = _to(cuda_device, dtype, *_inputs(case, 1, seed=0))
+    before = tpa.paged_attention_cuda.launches
+    got = tpa.paged_attention_cuda(q, kp, vp, bt, ln, read_dtype=read_dtype)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention_cuda.launches == before + 1
+    want = tref.paged_attention_ref(q, kp, vp, bt, ln, read_dtype=read_dtype).float()
+    tol = TOLERANCES[(dtype, read_dtype)]
+    off = ((got.float() - want).abs() > tol + tol * want.abs()).any(-1)[..., 0]
+    rows = off.nonzero().tolist()
+    if not rows:
+        return
+    assert dtype == torch.float32 and read_dtype is not None, \
+        f"rows {rows} off the limit {tol}"
+    moved, excess = _explain_by_bf16_steps(got, q, kp, vp, bt, ln, rows, tol)
+    print(f"rows off the limit {tol}: {rows}; {moved} probabilities one bf16 "
+          f"step from the plain version's; excess over the limit then {excess}")
+    assert moved > 0 and excess <= 0, (rows, moved, excess)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_rejects_wide_heads(cuda_device):
+    """The decode kernel holds at most 256 dims (two passes of a warp's
+    lanes)."""
+    case = dict(DECODE_CASES[0], D=264)
+    q, kp, vp, bt, ln = _to(cuda_device, torch.bfloat16, *_inputs(case, 1, seed=0))
+    before = tpa.paged_attention_cuda.launches
+    with pytest.raises(ValueError):
+        tpa.paged_attention_cuda(q, kp, vp, bt, ln)
     assert tpa.paged_attention_cuda.launches == before
 
 
@@ -289,10 +398,11 @@ def test_cuda_train_step_flash_pinned(cuda_device):
 
 
 # matmul: tests/test_kernels.py's shapes, the paper path's 512^3, one off
-# every tile, and the Fig. 2b sweep's largest
+# every tile, and the Fig. 2b sweep's largest; then k and n off the
+# 16-byte copies (the predicated-load path), on both tiles
 MATMUL_CASES = [(128, 256, 128), (256, 512, 256), (100, 200, 60), (8, 8, 8),
                 (1, 512, 128), (384, 128, 384), (512, 512, 512), (1000, 1000, 1000),
-                (4096, 4096, 4096)]
+                (4096, 4096, 4096), (33, 257, 65), (512, 513, 511), (2050, 300, 2047)]
 # conv2d: tests/test_kernels.py's shapes, make_inputs at scale 0.02, the
 # paper's 512^2 * 5x5 and the image pipeline's 384^2 Laplacian
 CONV_CASES = [(64, 64, 3), (64, 64, 5), (37, 53, 5), (128, 96, 11), (16, 16, 3),

@@ -70,6 +70,24 @@ def test_matmul_bf16_matches_pallas():
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("m,n,tile", [
+    (512, 512, (64, 32)),        # Table 1: 128 blocks of 4 warps on 132 SMs
+    (1000, 1000, (64, 32)),      # 128 x 128 tiles would give 64 blocks
+    (2048, 2048, (128, 128)),    # 256 blocks of 128 x 128
+    (4096, 4096, (128, 128)),    # Fig. 2b's largest
+    (1, 128, (64, 32)),
+])
+def test_matmul_tile_choice(m, n, tile):
+    """The kernel's tile: at least 128 blocks of at least 4 warps at
+    Table 1's 512^2 on an H100 (132 SMs), and 128 x 128 tiles where those
+    fill every SM."""
+    rows, cols, threads = tmm.MATMUL_TILES[tmm.matmul_tile(m, n, 132)]
+    assert (rows, cols) == tile
+    assert threads // 32 >= 4
+    if (m, n) == (512, 512):
+        assert -(-m // rows) * -(-n // cols) >= 128
+
+
 @pytest.mark.parametrize("h,w,k", CONV_SHAPES)
 def test_conv2d_matches_pallas(h, w, k):
     x, ker = _normal(h * w + k, (h, w), (k, k))
