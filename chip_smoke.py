@@ -22,11 +22,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    it) and its bound;
 4. serving path: full-width qwen3-8b, all 36 layers (random weights from
    a seeded generator on the card), served by the continuous-batching
-   engine on the paged layout with both paged kernels pinned; the launch
-   counts are zeroed just before the run and read just after;
+   engine on the paged layout with both paged kernels pinned, one decode
+   step a call, each call a replay of a CUDA graph the engine captured in
+   its warm-up requests (no capture may fall in the timed run); the launch
+   counts are zeroed just before the run and read just after (decode: the
+   wrapper's own calls plus the calls the replays stand for, one a layer
+   a step), and the graphs' captures and pool bytes printed; then a steady
+   window on the same engine: 8 decode calls at 4 busy slots timed on the
+   host and, around each replay, with CUDA events (unprofiled: the
+   device's idle time a step), and one more call under torch.profiler,
+   whose device launches of the paged decode kernels must be 3 a layer a
+   step;
+4b. fused horizons: phase 4's engine and traffic with ``decode_horizon=16``
+   pinned (16 steps a replay); the same gates and steady window (2 calls),
+   and each request's tokens equal to phase 4's;
+4c. ``decode_horizon="auto"``: phase 4's traffic three times on one
+   engine, each pass's tokens equal to phase 4's; the VPE's decisions on
+   the horizon axis printed;
 5. serving parity: reduced qwen3-8b in f32, kernels against the gather
-   path, greedy tokens equal; full width in bf16, first-step logits of
-   the two;
+   path, greedy tokens equal, and fused horizons of 4 and 16 steps against
+   single steps for both decode variants, plus an EOS that stops a horizon
+   midway (tokens end at the first EOS); full width in bf16, first-step
+   logits of the two;
 7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
    master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
    with the VPE free until it concludes its ``attn_impl`` trial, then with
@@ -59,10 +76,11 @@ The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without ``src/repro_torch`` beside this script, it exits non-zero and
 prints no result.  ``--report`` also writes every measurement as JSON;
-``--trace`` adds phase 6, which profiles steady decode steps and one
-prompt's prefill chunks, and one profiled training step in phase 7
-(device busy share, time by kernel), and writes the chrome traces there,
-gzipped.
+``--trace`` adds phase 6, which profiles 8 steady single decode steps, one
+steady 16-step horizon (both graph replays) and one prompt's prefill
+chunks, and one profiled training step in phase 7 (device busy share,
+time by kernel, the profiler's own cost included), and writes the chrome
+traces there, gzipped.
 """
 
 from __future__ import annotations
@@ -485,15 +503,193 @@ def traffic(vocab: int, seed: int = 0):
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
+def serving_engine(cfg, params, dev, horizon):
+    """The main path's engine: slots 4, max_len 1024, block 16, chunk 128,
+    both paged kernels pinned, decode horizon ``horizon`` (an int or
+    ``"auto"``)."""
+    from repro_torch.core import VPE
+    from repro_torch.runtime.serve_loop import ContinuousBatchingEngine
+    return ContinuousBatchingEngine(
+        cfg, params, vpe=VPE(), slots=SLOTS, max_len=MAX_LEN, block_size=BS,
+        prefill_chunk=CHUNK, decode_horizon=horizon, decode_impl="cuda",
+        prefill_kernel="cuda", device=dev)
+
+
+def serve_traffic(engine, cfg, prompts, label, rid0=0):
+    """Serve the traffic on ``engine`` with the launch counts zeroed just
+    before and read just after; raise if a gate fails.  Returns the run's
+    record.  Decode launches are the decode wrapper's own calls in the run
+    plus the calls the graph replays stand for (``replayed_calls``); the
+    profiled call of :func:`steady_window` shows that a replay launches the
+    kernels."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.runtime.serve_loop import Request, ServeStats
+    engine.completed.clear()
+    engine.stats = ServeStats()
+    graphs = engine.graphs
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    before = (graphs.captures, graphs.replays, graphs.replayed_calls)
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=NEW_TOKENS))
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    captures = graphs.captures - before[0]
+    replays = graphs.replays - before[1]
+    replayed = graphs.replayed_calls - before[2]
+    launches = {"paged_decode_attention": pa.paged_attention_cuda.launches + replayed,
+                "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches}
+    st = engine.stats
+    say(f"  {st.summary()}")
+    say(f"  wall {wall} s, {st.decode_steps} decode steps in "
+        f"{sum(st.horizon_hist.values())} decode calls (by horizon "
+        f"{st.horizon_hist}), {st.prefill_chunks} prefill chunks, TTFT mean "
+        f"{st.mean_ttft_s} s max {max(st.ttft_s)} s, decode {st.decode_tok_per_s} "
+        f"tok/s, decode wall a step {st.decode_s / st.decode_steps * 1e6} us, "
+        f"reserved pages rolled back {st.reserved_pages_rolled_back}, launches "
+        f"{launches} (decode: {pa.paged_attention_cuda.launches} wrapper calls, "
+        f"{replayed} in {replays} graph replays)")
+    say(f"  decode graphs: {graphs.captures} captures ({captures} in the run, "
+        f"{st.tainted_steps} calls tainted), graph pool {graphs.pool_bytes()} B")
+    if len(done) != len(prompts) or any(r.status != "done" for r in done):
+        raise AssertionError(f"{label}: requests not completed: "
+                             f"{[(r.rid, r.status, r.error) for r in done]}")
+    for r in done:
+        if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"{label}: request {r.rid}: tokens {r.out}")
+    engine.check_kv()
+    if not engine.pages.drained:
+        raise AssertionError(f"{label}: page pool not drained after the run")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{label}: {name} was not launched on the main path")
+    if replays != sum(st.horizon_hist.values()) \
+            or replayed != st.decode_steps * cfg.num_layers:
+        raise AssertionError(f"{label}: {replays} replays standing for {replayed} "
+                             f"decode calls, for {st.horizon_hist} calls of "
+                             f"{st.decode_steps} steps x {cfg.num_layers} layers")
+    if launches["paged_prefill_attention"] != st.prefill_chunks * cfg.num_layers:
+        raise AssertionError(f"{label}: prefill launches {launches} do not match "
+                             f"{st.prefill_chunks} chunks x {cfg.num_layers} layers")
+    return dict(
+        wall_s=wall, decode_steps=st.decode_steps, prefill_chunks=st.prefill_chunks,
+        ttft_s=list(st.ttft_s), decode_tok_per_s=st.decode_tok_per_s,
+        decode_us_per_step=st.decode_s / st.decode_steps * 1e6,
+        horizon_hist=dict(st.horizon_hist), rolled_back=st.reserved_pages_rolled_back,
+        captures=graphs.captures, captures_in_run=captures,
+        tainted_steps=st.tainted_steps, graph_pool_bytes=graphs.pool_bytes(),
+        launches=launches, layers=cfg.num_layers,
+        tokens={r.rid - rid0: r.out for r in done})
+
+
+def steady_window(engine, cfg, calls):
+    """Steady decode on ``engine``, after its timed run: four prompts fill
+    every slot, then ``calls`` decode calls run back to back with no
+    prefill and no capture, each timed on the host (the whole engine step)
+    and on the device (CUDA events around its graph replay) — unprofiled;
+    then one more call under torch.profiler, whose device launches of the
+    paged decode kernels must be 3 a step a layer (the bf16 ``read_dtype``
+    body): the check that a replay really launches them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.serve_loop import Request
+    for i, p in enumerate(traffic(cfg.vocab_size, seed=5)[:SLOTS]):
+        engine.submit(Request(rid=1000 + i, prompt=p, max_new_tokens=400))
+    while engine.num_decoding < SLOTS:
+        engine.step()
+    st, graphs = engine.stats, engine.graphs
+    spans = []
+    run = graphs.run
+
+    def timed(impl, horizon):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(impl, horizon)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    before = (st.decode_steps, st.prefill_chunks, graphs.captures)
+    graphs.run = timed
+    try:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            engine.step()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del graphs.run                      # the bound method again
+    torch.cuda.synchronize()
+    span_us = sum(a.elapsed_time(b) for a, b in spans) * 1e3
+    steps = st.decode_steps - before[0]
+    if len(spans) != calls or st.prefill_chunks != before[1] \
+            or graphs.captures != before[2]:
+        raise AssertionError(f"steady window: {len(spans)} decode calls, "
+                             f"{st.prefill_chunks - before[1]} prefill chunks, "
+                             f"{graphs.captures - before[2]} captures")
+    out = dict(calls=calls, steps=steps, wall_us_per_step=wall_us / steps,
+               span_us_per_step=span_us / steps,
+               idle_us_per_step=(wall_us - span_us) / steps,
+               idle_share=1 - span_us / wall_us)
+    steps0 = st.decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    profiled_steps = st.decode_steps - steps0
+    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and kernel_group(e.name) == "paged decode kernels")
+    out.update(profiled_steps=profiled_steps, profiled_decode_launches=launches)
+    say(f"  steady window (4 slots decoding, unprofiled): {calls} calls, {steps} "
+        f"steps, wall {out['wall_us_per_step']} us a step, device span of the "
+        f"replays {out['span_us_per_step']} us a step (CUDA events), idle "
+        f"{out['idle_us_per_step']} us a step, idle share {out['idle_share']}; one "
+        f"profiled call: {profiled_steps} steps, device launches of the paged "
+        f"decode kernels {launches} (expected {3 * profiled_steps * cfg.num_layers})")
+    if graphs.captures != before[2] or launches != 3 * profiled_steps * cfg.num_layers:
+        raise AssertionError(f"profiled replay: {launches} paged decode launches for "
+                             f"{profiled_steps} steps x {cfg.num_layers} layers, or "
+                             f"it captured")
+    return out
+
+
+def phase_serving(cfg, params, dev, prompts, horizon, label, steady_calls):
+    """One serving phase: the engine at ``horizon``, warmed by requests of
+    its own (which capture the decode graphs the traffic replays: 32 new
+    tokens runs the horizon, 2 runs a single step), the traffic served
+    and gated, then the steady window on the same engine.  No capture may
+    fall in the timed run."""
+    from repro_torch.runtime.serve_loop import Request
+    engine = serving_engine(cfg, params, dev, horizon)
+    for n in ((NEW_TOKENS, 2) if horizon > 1 else (2,)):
+        engine.submit(Request(rid=-1, prompt=np.arange(1, 200, dtype=np.int32),
+                              max_new_tokens=n))
+        engine.run()
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.page_pool.values())
+    say(f"  engine: slots {SLOTS}, max_len {MAX_LEN}, block {BS}, chunk {CHUNK}, "
+        f"decode horizon {horizon}, {engine.pages.num_pages} pages + trash, pool "
+        f"{pool_bytes} B, {engine.graphs.captures} decode graphs captured in the "
+        f"warm-up; traffic: {REQUESTS} requests, prompt lengths "
+        f"{[len(p) for p in prompts]}, {NEW_TOKENS} new tokens each")
+    run = serve_traffic(engine, cfg, prompts, label)
+    if run["captures_in_run"]:
+        raise AssertionError(f"{label}: {run['captures_in_run']} captures in the "
+                             f"timed run; the warm-up captures every graph it needs")
+    if run["launches"]["paged_decode_attention"] != run["decode_steps"] * cfg.num_layers:
+        raise AssertionError(f"{label}: decode launches {run['launches']} do not match "
+                             f"{run['decode_steps']} decode steps x {cfg.num_layers} layers")
+    run["steady"] = steady_window(engine, cfg, steady_calls)
+    return run
+
+
 def phase_main_path(dev):
     """Full-width qwen3-8b, all 36 layers, through the engine, both
-    kernels pinned."""
+    kernels pinned, single decode steps (each a graph replay)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import VPE
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import model as model_lib
-    from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
     cfg = get_config("qwen3-8b")
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
@@ -501,75 +697,68 @@ def phase_main_path(dev):
     say(f"[4] main path: {cfg.name}, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.param_count()} params in {cfg.dtype}, "
         f"initialised in {time.perf_counter() - t0} s")
-    engine_kw = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS,
-                     prefill_chunk=CHUNK, decode_impl="cuda",
-                     prefill_kernel="cuda", device=dev)
-
-    # warm-up engine: cuBLAS handles and the allocator, outside the run
-    warm = ContinuousBatchingEngine(cfg, params, vpe=VPE(), **engine_kw)
-    warm.submit(Request(rid=-1, prompt=np.arange(1, 200, dtype=np.int32),
-                        max_new_tokens=2))
-    warm.run()
-    del warm
-
-    engine = ContinuousBatchingEngine(cfg, params, vpe=VPE(), **engine_kw)
     prompts = traffic(cfg.vocab_size)
-    pool_bytes = sum(t.numel() * t.element_size() for t in engine.page_pool.values())
-    say(f"  engine: slots {SLOTS}, max_len {MAX_LEN}, block {BS}, chunk {CHUNK}, "
-        f"{engine.pages.num_pages} pages + trash, pool {pool_bytes} B; traffic: "
-        f"{REQUESTS} requests, prompt lengths {[len(p) for p in prompts]}, "
-        f"{NEW_TOKENS} new tokens each")
-    torch.cuda.synchronize()
-    pa.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
-            for i, p in enumerate(prompts)]
-    for r in reqs:
-        engine.submit(r)
-    done = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": pa.paged_attention_cuda.launches,
-                "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches}
-    st = engine.stats
-    say(f"  {st.summary()}")
-    say(f"  wall {wall} s, {st.decode_steps} decode steps, "
-        f"{st.prefill_chunks} prefill chunks, TTFT mean {st.mean_ttft_s} s "
-        f"max {max(st.ttft_s)} s, decode {st.decode_tok_per_s} tok/s, "
-        f"launches {launches}")
-    if len(done) != REQUESTS or any(r.status != "done" for r in done):
-        raise AssertionError(f"requests not completed: "
-                             f"{[(r.rid, r.status, r.error) for r in done]}")
-    for r in done:
-        if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.out):
-            raise AssertionError(f"request {r.rid}: tokens {r.out}")
-    engine.check_kv()
-    if not engine.pages.drained:
-        raise AssertionError("page pool not drained after the run")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    if launches["paged_decode_attention"] != st.decode_steps * cfg.num_layers \
-            or launches["paged_prefill_attention"] != st.prefill_chunks * cfg.num_layers:
-        raise AssertionError(f"launches {launches} do not match "
-                             f"{st.decode_steps} decode steps and "
-                             f"{st.prefill_chunks} chunks x {cfg.num_layers} layers")
-    main = dict(wall_s=wall, decode_steps=st.decode_steps,
-                prefill_chunks=st.prefill_chunks, ttft_s=st.ttft_s,
-                decode_tok_per_s=st.decode_tok_per_s, launches=launches,
-                layers=cfg.num_layers,
-                tokens={r.rid: r.out for r in done})
+    main = phase_serving(cfg, params, dev, prompts, 1, "phase 4", steady_calls=8)
     return cfg, params, prompts, main
 
 
-def run_engine(cfg, params, dev, impls, prompts, new_tokens, **kw):
+def first_difference(label, main, run):
+    """Raise unless each request's tokens in ``run`` are phase 4's."""
+    differ = [rid for rid, toks in main["tokens"].items() if run["tokens"][rid] != toks]
+    say(f"  tokens equal to phase 4's (H = 1), request by request: {not differ}")
+    if differ:
+        rid = differ[0]
+        a, b = main["tokens"][rid], run["tokens"][rid]
+        first = next(j for j in range(NEW_TOKENS) if a[j] != b[j])
+        raise AssertionError(f"{label}: tokens differ from H = 1 in requests {differ}; "
+                             f"request {rid} first at position {first}: {a} / {b}")
+
+
+def phase_fused_horizons(cfg, params, dev, prompts, main):
+    """Phase 4b: phase 4's traffic and engine with ``decode_horizon=16``
+    pinned; its tokens must be phase 4's, request by request."""
+    say(f"[4b] fused horizons: {cfg.name} at full width, decode_horizon=16, both "
+        f"kernels pinned, phase 4's traffic")
+    fused = phase_serving(cfg, params, dev, prompts, 16, "phase 4b", steady_calls=2)
+    first_difference("phase 4b", main, fused)
+    return fused
+
+
+def phase_auto_horizon(cfg, params, dev, prompts, main, passes=3):
+    """Phase 4c: phase 4's traffic, ``passes`` times over, on one engine
+    with ``decode_horizon="auto"``: the VPE's ``decode_horizon`` axis
+    trials 1, 4 and 16 and keeps one per (queue depth, occupancy) bucket.
+    Each pass must give phase 4's tokens; the decisions are printed."""
+    say(f"[4c] decode_horizon=auto: {cfg.name} at full width, phase 4's traffic "
+        f"{passes} times on one engine")
+    engine = serving_engine(cfg, params, dev, "auto")
+    out = []
+    for k in range(passes):
+        run = serve_traffic(engine, cfg, prompts, f"phase 4c pass {k}",
+                            rid0=100 * (k + 1))
+        first_difference(f"phase 4c pass {k}", main, run)
+        run.pop("tokens")
+        out.append(run)
+    decisions = {}
+    say("  decode_horizon decisions (bucket: kept, tried, history):")
+    for (op, bucket), d in sorted(engine.vpe.controller._decisions.items(), key=repr):
+        if op == "decode_horizon":
+            decisions[str(bucket)] = (d.selected, d.tried)
+            say(f"    {bucket}: kept {d.selected}, tried {d.tried}, "
+                f"{[f'{ev} {v}: {detail}' for ev, v, detail in d.history]}")
+    return dict(passes=out, decisions=decisions)
+
+
+def run_engine(cfg, params, dev, impls, prompts, new_tokens, eos=None, **kw):
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
     eng = ContinuousBatchingEngine(cfg, params, decode_impl=impls[0],
                                    prefill_kernel=impls[1], device=dev, **kw)
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens, eos_id=eos))
     done = eng.run()
     eng.check_kv()
+    if not eng.pages.drained:
+        raise AssertionError("page pool not drained")
     return {r.rid: r.out for r in done}
 
 
@@ -589,6 +778,27 @@ def phase_reduced_parity(dev):
         f"gather) == (cuda, cuda): {gather == kernels}")
     if gather != kernels:
         raise AssertionError(f"tokens differ:\n gather {gather}\n kernels {kernels}")
+    # fused horizons against single steps, both decode variants; then an EOS
+    # whose first occurrence in request 0 is its fifth token or later, so it
+    # stops a horizon midway: each request's tokens end at its first EOS
+    ref0 = gather[0]
+    eos = next(t for i, t in enumerate(ref0) if i >= 4 and t not in ref0[:i])
+    want_eos = {rid: out[:out.index(eos) + 1] if eos in out else out
+                for rid, out in gather.items()}
+    for impls in (("grouped", "gather"), ("cuda", "cuda")):
+        for horizon in (4, 16):
+            fused = run_engine(cfg, params, dev, impls, prompts, 12,
+                               decode_horizon=horizon, **kw)
+            say(f"  {impls} H={horizon} tokens == H=1: {fused == gather}")
+            if fused != gather:
+                raise AssertionError(f"{impls} H={horizon} tokens differ:\n H=1 "
+                                     f"{gather}\n fused {fused}")
+        got = run_engine(cfg, params, dev, impls, prompts, 12, eos=eos,
+                         decode_horizon=16, **kw)
+        say(f"  {impls} H=16 with EOS {eos} (request 0's token "
+            f"{ref0.index(eos)}): tokens end at the first EOS: {got == want_eos}")
+        if got != want_eos:
+            raise AssertionError(f"{impls} EOS run: {got} != {want_eos}")
 
 
 def first_step_logits(cfg, params, dev, prompts, kernel, decode_impl, tokens=None):
@@ -687,13 +897,20 @@ def profiled(fn, label, trace_dir, ranges=()):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, decode_spans = {}, []
     for e in prof.events():
         if getattr(e, "is_user_annotation", False):
             continue                    # a range's span, not a kernel
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            if kernel_group(e.name) == "paged decode kernels":
+                decode_spans.append((e.time_range.start, e.time_range.end))
+    # decode kernels that start before the one ahead of them ends: the
+    # programmatic dependent launches (value pass, combine) overlapping
+    decode_spans.sort()
+    overlaps = sum(1 for (_, end), (start, _) in zip(decode_spans, decode_spans[1:])
+                   if start < end)
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     say(f"  trace {label}: wall {wall_us} us, device busy {busy_us} us "
@@ -720,27 +937,60 @@ def profiled(fn, label, trace_dir, ranges=()):
     for name, us in in_range.items():
         say(f"    range {name}: {us} us on the device timeline "
             f"({us / busy_us if busy_us else 0} of busy)")
+    counts = {}
+    for name, (n, _) in by_name.items():
+        counts[kernel_group(name)] = counts.get(kernel_group(name), 0) + n
     return dict(wall_us=wall_us, busy_us=busy_us, ranges=in_range, groups=groups,
+                counts=counts, decode_overlaps=overlaps,
                 top=[(name, n, us) for name, (n, us) in top])
 
 
 def phase_trace(cfg, params, dev, trace_dir):
     """Where the main path's time goes: a profiler window over 8 steady
-    decode steps at 4 busy slots, and one over a 512-token prompt's four
-    prefill chunks."""
+    single decode steps at 4 busy slots, one over a steady fused horizon of
+    16 steps, and one over a 512-token prompt's four prefill chunks: the
+    breakdown by kernel.  Its walls and idle shares hold the profiler's own
+    cost (the unprofiled idle time is phase 4's steady window).  The device
+    launches of the decode kernels must be 3 per step per layer, as in the
+    profiled call of phases 4 and 4b."""
     from repro_torch.core import VPE
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
     kw = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS, prefill_chunk=CHUNK,
               decode_impl="cuda", prefill_kernel="cuda", device=dev, vpe=VPE())
     prompts = traffic(cfg.vocab_size, seed=5)
-    eng = ContinuousBatchingEngine(cfg, params, **kw)
-    for i, p in enumerate(prompts[:SLOTS]):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
-    while eng.num_decoding < SLOTS:
-        eng.step()
     say("[6] traces (torch.profiler)")
-    out = {"decode": profiled(lambda: [eng.step() for _ in range(8)],
-                              "decode_8_steps", trace_dir)}
+    out = {}
+    for horizon, steps, new_tokens in ((1, 8, NEW_TOKENS), (16, 1, 400)):
+        eng = ContinuousBatchingEngine(cfg, params, decode_horizon=horizon, **kw)
+        for i, p in enumerate(prompts[:SLOTS]):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+        while eng.num_decoding < SLOTS:
+            eng.step()
+        st = eng.stats
+        before = (st.decode_steps, eng.graphs.captures, st.horizon_calls)
+        label = f"decode_{steps}_steps" if horizon == 1 else "decode_horizon_16"
+        r = profiled(lambda: [eng.step() for _ in range(steps)], label, trace_dir)
+        decode_steps = st.decode_steps - before[0]
+        launches = r["counts"].get("paged decode kernels", 0)
+        r.update(decode_steps=decode_steps, horizon=horizon, decode_launches=launches,
+                 profiled_idle_us_per_step=(r["wall_us"] - r["busy_us"]) / decode_steps,
+                 wall_us_per_step=r["wall_us"] / decode_steps)
+        say(f"  {label}: {decode_steps} decode steps in {steps} calls, device "
+            f"launches of the paged decode kernels {launches} (expected "
+            f"{3 * decode_steps * cfg.num_layers}; {r['decode_overlaps']} start before "
+            f"the one ahead of them ends), captures in the window "
+            f"{eng.graphs.captures - before[1]}, idle us a step (profiled) "
+            f"{r['profiled_idle_us_per_step']}, wall us a step {r['wall_us_per_step']}")
+        if decode_steps != horizon * steps or eng.graphs.captures != before[1] \
+                or st.horizon_calls - before[2] != (steps if horizon > 1 else 0):
+            raise AssertionError(f"{label}: the window was not {steps} steady "
+                                 f"replays of H={horizon}")
+        if launches != 3 * decode_steps * cfg.num_layers:
+            raise AssertionError(f"{label}: {launches} paged decode launches in the "
+                                 f"trace, expected 3 x {decode_steps} x "
+                                 f"{cfg.num_layers}")
+        out[label] = r
+        del eng
     eng = ContinuousBatchingEngine(cfg, params, **kw)
     eng.submit(Request(rid=0, prompt=np.resize(prompts[0], 4 * CHUNK),
                        max_new_tokens=2))
@@ -1149,6 +1399,12 @@ def phase_paper_kernel_times(dev):
             f"{ms / bound_ms}, kernel/library {ms / library_ms}")
     times["matmul"] = times["matmul 512^3"]
     times["conv2d"] = times["conv2d 512^2 * 5x5"]
+    # the launch floor: one kernel that does nearly nothing (a one-element
+    # fill), timed as the kernels above are
+    one = torch.empty(1, device=dev)
+    times["launch floor"] = device_ms(lambda: one.fill_(1.0), flush)
+    say(f"  launch floor (a one-element fill, timed as above): "
+        f"{times['launch floor']} ms")
     del flush
     return times
 
@@ -1363,6 +1619,8 @@ def main(argv=None) -> int:
         "calls, L2 flushed before each)")
     times["flash_attention"] = phase_flash_time(dev, get_config(TRAIN_ARCH))
     cfg, params, prompts, main_run = phase_main_path(dev)
+    fused = phase_fused_horizons(cfg, params, dev, prompts, main_run)
+    auto = phase_auto_horizon(cfg, params, dev, prompts, main_run)
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
     traces = phase_trace(cfg, params, dev, args.trace) if args.trace else None
@@ -1397,6 +1655,7 @@ def main(argv=None) -> int:
         args.report.write_text(json.dumps(
             dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                  kernel_times=times, check_errors=errors, main_path=main_run,
+                 fused_horizons=fused, auto_horizon=auto,
                  full_width_logits=logits, traces=traces, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,

@@ -16,13 +16,15 @@ from .controller import Controller, Decision
 from .dispatch import VPE, VPEFunction, block_until_ready
 from .profiler import Profiler, SampleSet, Welford
 from .registry import OpEntry, Registry, Variant
-from .shape_class import (bucket_label, occupancy_bucket, pad_to_bucket,
+from .shape_class import (bucket_label, decode_horizon_bucket,
+                          occupancy_bucket, pad_to_bucket,
                           prefill_chunk_bucket, prefix_len_bucket,
-                          shape_bucket)
+                          queue_depth_bucket, shape_bucket)
 
 __all__ = [
     "VPE", "VPEFunction", "block_until_ready", "Controller", "Decision",
     "Profiler", "SampleSet", "Welford", "Registry", "OpEntry", "Variant",
     "shape_bucket", "bucket_label", "occupancy_bucket", "pad_to_bucket",
-    "prefix_len_bucket", "prefill_chunk_bucket",
+    "prefix_len_bucket", "prefill_chunk_bucket", "queue_depth_bucket",
+    "decode_horizon_bucket",
 ]

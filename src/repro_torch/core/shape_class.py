@@ -57,6 +57,10 @@ def bucket_label(bucket: Tuple) -> str:
         _, pb, level, total = bucket
         plen = "plen0" if pb == 0 else f"plen[{2 ** (pb - 1)},{2 ** pb})"
         return f"chunk:{plen}xocc{level}/{total}slots"
+    if bucket and bucket[0] == "hzn":
+        _, qb, level, total = bucket
+        q = "q0" if qb == 0 else f"q[{2 ** (qb - 1)},{2 ** qb})"
+        return f"horizon:{q}xocc{level}/{total}slots"
     b, ranks = bucket
     lo, hi = 2 ** b, 2 ** (b + 1)
     return f"[{lo},{hi})elems/rank{','.join(map(str, ranks))}"
@@ -87,6 +91,24 @@ def prefill_chunk_bucket(prompt_len: int, active: int, total: int, *,
     p = prefix_len_bucket(prompt_len)
     o = occupancy_bucket(active, total, levels=levels)
     return ("pfc", p[1], o[1], total)
+
+
+def queue_depth_bucket(depth: int) -> int:
+    """Log2 level of the admission-queue depth (0 = empty queue)."""
+    if depth <= 0:
+        return 0
+    return int(math.floor(math.log2(depth))) + 1
+
+
+def decode_horizon_bucket(queue_depth: int, active: int, total: int, *,
+                          levels: int = 4) -> Tuple:
+    """Dispatch key for the serve engine's ``decode_horizon`` axis:
+    queue-depth level x occupancy level (a long fused horizon amortizes
+    per-token host work over more live slots, and delays the queued
+    requests, which cannot enter a slot mid-horizon)."""
+    q = queue_depth_bucket(queue_depth)
+    o = occupancy_bucket(active, total, levels=levels)
+    return ("hzn", q, o[1], total)
 
 
 def pad_to_bucket(n: int, *, minimum: int = 16) -> int:

@@ -2,7 +2,8 @@
 
     python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] \\
         --continuous --kv-layout paged [--prefill-chunk 128] \\
-        [--decode-impl cuda --prefill-kernel cuda] [--device cpu]
+        [--decode-horizon 16|auto] [--decode-impl cuda --prefill-kernel cuda] \\
+        [--device cpu]
 
 The flags are those of ``repro.launch.serve`` for the subset this slice
 ports; the others are rejected with the ROADMAP item that ports them.
@@ -55,7 +56,11 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", default="whole",
                     help="prefill chunk size in tokens, or 'whole'")
     ap.add_argument("--chunks-per-step", type=int, default=None)
-    ap.add_argument("--decode-horizon", default="1")
+    ap.add_argument("--decode-horizon", default="1",
+                    help="decode steps fused into one device call per "
+                         "engine step (int), or 'auto' — a VPE axis keyed "
+                         "by queue depth x occupancy, fed from per-token "
+                         "walls")
     ap.add_argument("--decode-impl",
                     choices=SERVE_AXES["serve_decode_impl"] + ["auto"],
                     default="auto",
@@ -84,9 +89,12 @@ def main(argv=None) -> None:
         item = "contiguous" if args.kv_layout == "contiguous" else "auto_layout"
         ap.error(f"--kv-layout {args.kv_layout} is not ported yet: ROADMAP "
                  f"queue 1, item {LATER[item]}")
-    if args.decode_horizon != "1":
-        ap.error(f"--decode-horizon {args.decode_horizon} is not ported yet: "
-                 f"ROADMAP queue 1, item {LATER['horizons']}")
+    try:
+        horizon = (args.decode_horizon if args.decode_horizon == "auto"
+                   else int(args.decode_horizon))
+    except ValueError:
+        ap.error(f"--decode-horizon must be a step count or 'auto', got "
+                 f"{args.decode_horizon!r}")
     chunk = ("whole" if args.prefill_chunk == "whole"
              else int(args.prefill_chunk))
 
@@ -106,7 +114,8 @@ def main(argv=None) -> None:
     engine = ContinuousBatchingEngine(
         cfg, params, slots=args.batch, max_len=args.max_len, vpe=vpe,
         block_size=args.block_size, prefill_chunk=chunk,
-        chunks_per_step=args.chunks_per_step, decode_impl=args.decode_impl,
+        chunks_per_step=args.chunks_per_step, decode_horizon=horizon,
+        decode_impl=args.decode_impl,
         prefill_kernel=args.prefill_kernel, device=device)
     for r in reqs:
         engine.submit(r)

@@ -9,7 +9,7 @@ raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -94,8 +94,23 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Any, pool: Dict,
 
 def decode_step_paged(cfg: ModelConfig, params: Any, pool: Dict, cache: Dict,
                       tokens: torch.Tensor, live: torch.Tensor,
-                      decode_impl: str = "grouped"
+                      decode_impl: str = "grouped",
+                      advance: Optional[torch.Tensor] = None
                       ) -> Tuple[Dict, Dict, torch.Tensor]:
     return family_module(cfg).decode_step_paged(cfg, params, pool, cache,
                                                 tokens, live,
-                                                decode_impl=decode_impl)
+                                                decode_impl=decode_impl,
+                                                advance=advance)
+
+
+def decode_steps_paged(cfg: ModelConfig, params: Any, pool: Dict, cache: Dict,
+                       tokens: torch.Tensor, live: torch.Tensor,
+                       eos_ids: torch.Tensor, budget: torch.Tensor,
+                       horizon: int, decode_impl: str = "grouped"
+                       ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Fused ``horizon``-step greedy decode over the paged layout: returns
+    (pool, cache, tok_block (B, H), valid (B, H), final_tok (B,))."""
+    return family_module(cfg).decode_steps_paged(
+        cfg, params, pool, cache, tokens, live, eos_ids, budget, horizon,
+        decode_impl=decode_impl)

@@ -290,7 +290,8 @@ def _post_attn(cfg: ModelConfig, lp: Params, x: torch.Tensor, o: torch.Tensor
 
 def decode_step_paged(cfg: ModelConfig, params: Params, pool: Dict,
                       cache: Dict, tokens: torch.Tensor, live: torch.Tensor,
-                      decode_impl: Optional[str] = None
+                      decode_impl: Optional[str] = None,
+                      advance: Optional[torch.Tensor] = None
                       ) -> Tuple[Dict, Dict, torch.Tensor]:
     """One decode step over the PAGED KV layout.
 
@@ -302,8 +303,10 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Dict,
     Per layer: append the new token's K/V into each live slot's tail page,
     then attend through the block table — by gathering the pages at the
     slot-cache dtype (``grouped``/``flat``), or in place through the decode
-    kernel (``cuda``, reading through the same dtype).  Returns (pool,
-    cache with every length advanced by one, logits (B, 1, V))."""
+    kernel (``cuda``, reading through the same dtype).  Every slot's
+    length then moves by ``advance[b]`` (by one when ``advance`` is None),
+    written in place into ``cache["length"]``: a captured graph replays
+    over that buffer.  Returns (pool, cache, logits (B, 1, V))."""
     x = params["embed"][tokens.long()]
     length = cache["length"]
     bt = cache["bt"]
@@ -329,4 +332,81 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Dict,
             o = attn_fn(q, kg, vg, length, window=cfg.window)
         x = _post_attn(cfg, lp, x, o)
 
-    return pool, {"bt": bt, "length": length + 1}, _logits(cfg, params, x)
+    logits = _logits(cfg, params, x)
+    length.add_(1 if advance is None else advance)
+    return pool, cache, logits
+
+
+# -- fused multi-token decode horizons ----------------------------------------
+#
+# Up to H decode steps back to back on the device: the greedy argmax of
+# step j feeds step j+1's embedding without a host round trip, and a stop
+# mask (per-slot EOS id, per-slot token budget) freezes a finished slot —
+# its appends go to the trash page and its length stops — so nothing it
+# does after its stop is observable.  Each step is the SAME single step
+# above with ``advance`` = the not-yet-stopped mask, which makes a horizon
+# token-exact with H single steps.  The reference scans this loop inside
+# one jit; here it is a Python loop, which the serve engine captures once
+# per (decode-attention variant, H) in a CUDA graph and replays
+# (:mod:`repro_torch.runtime.decode_graphs`).
+
+def _horizon_loop(step_fn, tokens: torch.Tensor, live: torch.Tensor,
+                  eos_ids: torch.Tensor, budget: torch.Tensor, horizon: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The stop handling of a fused horizon (``repro``'s ``_horizon_scan``).
+
+    step_fn(tok (B, 1), step_live (B,)) -> logits (B, 1, V) runs one
+    single step with ``advance=step_live``.  live: (B,) 0/1 decoding mask;
+    eos_ids: (B,) per-slot stop token (-1 = none); budget: (B,) tokens
+    each slot may still emit (>= 1 for live slots).  None of the inputs is
+    written.
+
+    Returns (tok_block (B, H) int32, valid (B, H) int32, final_tok (B,)
+    int32): ``tok_block[i, j]`` is real iff ``valid[i, j]`` — a slot
+    stopped at step j has zeros in ``valid`` from j+1 on, so EOS
+    mid-horizon emits no trailing tokens (``tok_block`` holds the discarded
+    argmax of a frozen or non-live slot there, as the reference's does).  ``final_tok`` is each slot's last valid token (the
+    input of its next step), left on the device."""
+    live = live.to(torch.int32)
+    eos_ids = eos_ids.to(torch.int32)
+    tok = tokens[:, 0].to(torch.int32)
+    stopped = torch.zeros_like(live)
+    rem = budget.to(torch.int32)
+    toks, emits = [], []
+    for _ in range(horizon):
+        step_live = live * (1 - stopped)
+        logits = step_fn(tok[:, None], step_live)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        rem = rem - step_live
+        stop_now = (step_live > 0) & ((nxt == eos_ids) | (rem <= 0))
+        stopped = torch.where(stop_now, 1, stopped)
+        tok = torch.where(step_live > 0, nxt, tok)
+        toks.append(nxt)
+        emits.append(step_live)
+    return torch.stack(toks, dim=1), torch.stack(emits, dim=1), tok
+
+
+def decode_steps_paged(cfg: ModelConfig, params: Params, pool: Dict,
+                       cache: Dict, tokens: torch.Tensor, live: torch.Tensor,
+                       eos_ids: torch.Tensor, budget: torch.Tensor,
+                       horizon: int, decode_impl: Optional[str] = None
+                       ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Fused H-step decode over the paged KV layout.
+
+    The caller must have installed, before the call, every page the
+    horizon can touch (blocks covering positions ``[length, length + H)``
+    of each live slot): mid-horizon there is no host to allocate one.  A
+    slot frozen by the stop mask appends to the trash page
+    (``step_live`` doubles as the append's live mask), so pages reserved
+    past its stop stay untouched and can be returned.  Pool and
+    ``cache["length"]`` are updated in place.  Returns (pool, cache,
+    tok_block (B, H), valid (B, H), final_tok (B,)) — see
+    :func:`_horizon_loop` for the stop contract."""
+    def step_fn(tok, step_live):
+        return decode_step_paged(cfg, params, pool, cache, tok, step_live,
+                                 decode_impl=decode_impl, advance=step_live)[2]
+
+    toks, valid, tok = _horizon_loop(step_fn, tokens, live, eos_ids, budget,
+                                     horizon)
+    return pool, cache, toks, valid, tok

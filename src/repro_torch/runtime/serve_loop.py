@@ -4,25 +4,36 @@ The counterpart of ``repro.runtime.serve_loop.ContinuousBatchingEngine``,
 restricted to the main serving path: greedy decoding of a dense model with
 ``kv_layout="paged"``.  A request is *placed* (pages allocated, block-table
 row installed), prefilled in chunks that read every earlier position in
-place through its block table, then decoded one token per engine step
-until EOS or its token budget retires it and frees its slot for the next
-request in the queue.
+place through its block table, then decoded until EOS or its token
+budget retires it and frees its slot for the next
+request in the queue.  A decode call advances every decoding slot by
+one token, or by up to H tokens in one fused horizon (``decode_horizon``):
+H single steps on the device, the greedy token of each feeding the next,
+with the pages the horizon can write reserved before the call and those a
+stopped slot left unused returned after it.
 
-Two measured implementation axes (VPE, the paper's profile-guided
-dispatch) pick the attention backends when left at ``"auto"``:
+Three measured implementation axes (VPE, the paper's profile-guided
+dispatch) pick the attention backends and the horizon when left at
+``"auto"``:
 
 * ``serve_decode_impl`` — ``grouped``/``flat`` attend over gathered pages,
   ``cuda`` scores pages in place through the decode kernel; keyed by slot
   occupancy and fed from the fenced wall of each decode step;
 * ``prefill_kernel`` — ``gather`` or the ``cuda`` multi-query kernel for
   chunked prefill; keyed by prompt length × occupancy and fed from the
-  summed chunk walls of an admission.
+  summed chunk walls of an admission;
+* ``decode_horizon`` — ``1`` or a fused horizon from ``horizon_choices``;
+  keyed by queue depth × occupancy and fed from the per-token wall of the
+  whole decode span.
 
 A pinned ``"cuda"`` runs the kernel — or raises; there is no fallback
 ladder.  On a CUDA device the kernels are built and launched once in the
-constructor, so no timed step pays for ``nvcc`` or a first load; PyTorch
-runs eagerly, so there is no compile-on-first-call to detect later either
-(the reference's jit-cache taint checks have no counterpart here).
+constructor, so no timed step pays for ``nvcc`` or a first load, and every
+decode call replays a CUDA graph captured at the first call of its
+(decode-attention variant, H) (:mod:`repro_torch.runtime.decode_graphs`,
+the counterpart of the reference's per-(variant, H) jit).  The call that
+captured is the counterpart of a call that compiled: it is counted in
+``stats.tainted_steps`` and feeds no axis.
 
 Features of the reference engine outside this slice raise ``ValueError``
 naming the ROADMAP item that ports them.
@@ -39,10 +50,11 @@ import torch
 
 from repro_torch import DeviceLike, fence, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import (VPE, occupancy_bucket, pad_to_bucket,
-                              prefill_chunk_bucket)
+from repro_torch.core import (VPE, decode_horizon_bucket, occupancy_bucket,
+                              pad_to_bucket, prefill_chunk_bucket)
 from repro_torch.models import kvcache
 from repro_torch.models import model as model_lib
+from repro_torch.runtime.decode_graphs import INPUT_ROWS, DecodeGraphs
 from repro_torch.runtime.page_pool import PagePool
 
 # serve-engine implementation axes (first = default)
@@ -61,7 +73,6 @@ LATER = {
     "prefix_cache": "8(b) prefix cache",
     "auto_layout": "8(c) auto layout",
     "chunk_axis": "8(d) measured prefill-chunk axis",
-    "horizons": "8(e) fused horizons",
     "preemption": "8(f) preemption, priority scheduling and swap",
     "speculation": "8(g) speculation",
     "faults": "8(h) faults and deadlines",
@@ -110,6 +121,16 @@ class ServeStats:
     # never-admitted submissions and terminal failures by reason code
     rejected: int = 0
     failed_by_reason: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # fused decode horizons: multi-step decode calls, the tokens they
+    # emitted, pages reserved for a horizon but returned unused (a stop
+    # froze the slot first), and the horizon of every decode call — {H:
+    # calls}, single steps under H=1
+    horizon_calls: int = 0
+    horizon_tokens: int = 0
+    reserved_pages_rolled_back: int = 0
+    horizon_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # decode calls that captured their CUDA graph (kept out of the VPE)
+    tainted_steps: int = 0
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -146,6 +167,9 @@ class ServeStats:
             s += f", paged {self.paged_admits} admits"
         if self.prefill_chunks:
             s += f", {self.prefill_chunks} prefill chunks"
+        if self.horizon_calls:
+            s += (f", {self.horizon_calls} fused horizons "
+                  f"({self.horizon_tokens} tok)")
         if self.failed_by_reason:
             by = ", ".join(f"{k}:{v}"
                            for k, v in sorted(self.failed_by_reason.items()))
@@ -213,14 +237,17 @@ class ContinuousBatchingEngine:
        position through the slot's block table and writes its own K/V
        into the slot's pages.  The final chunk yields the first
        generated token (TTFT) and turns the slot to decoding;
-    3. **decode** — one step advances every decoding slot by one token
-       (free and prefilling slots decode garbage that is discarded);
+    3. **decode** — one call advances every decoding slot by one token, or
+       by up to H in a fused horizon (free and prefilling slots decode
+       garbage that is discarded);
     4. **retire** — a request hitting EOS or ``max_new_tokens`` completes
        and frees its slot and pages at once.
 
     ``prefill_chunk`` is the chunk size in tokens, or ``"whole"`` for one
-    chunk per prompt.  ``device`` defaults to ``"cuda"`` and must hold
-    ``params``; ``"cpu"`` runs the kernels' plain versions.
+    chunk per prompt.  ``decode_horizon`` is a step count >= 1, or
+    ``"auto"`` for the measured axis over 1 and ``horizon_choices``.
+    ``device`` defaults to ``"cuda"`` and must hold ``params``; ``"cpu"``
+    runs the kernels' plain versions.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -230,6 +257,7 @@ class ContinuousBatchingEngine:
                  prefill_chunk: Any = "whole",
                  chunks_per_step: Optional[int] = None,
                  decode_horizon: Any = 1,
+                 horizon_choices: Tuple[int, ...] = (4, 16),
                  decode_impl: str = "auto", prefill_kernel: str = "auto",
                  prefix_blocks: int = 0, spec_draft: Any = "off",
                  page_budget: Optional[int] = None, swap: bool = False,
@@ -246,8 +274,6 @@ class ContinuousBatchingEngine:
             raise ValueError(f"kv_layout must be 'paged', got {kv_layout!r}")
         if prefix_blocks:
             raise not_ported("prefix_blocks > 0", "prefix_cache")
-        if decode_horizon != 1:
-            raise not_ported(f"decode_horizon={decode_horizon!r}", "horizons")
         if spec_draft != "off":
             raise not_ported(f"spec_draft={spec_draft!r}", "speculation")
         if page_budget is not None or swap:
@@ -265,6 +291,15 @@ class ContinuousBatchingEngine:
             raise ValueError("prefill_chunk must be >= 0 (0 = whole)")
         if chunks_per_step is not None and chunks_per_step < 1:
             raise ValueError("chunks_per_step must be >= 1 (or None = adaptive)")
+        if isinstance(decode_horizon, str):
+            if decode_horizon != "auto":
+                raise ValueError(
+                    "decode_horizon must be a step count >= 1 or 'auto'")
+        elif int(decode_horizon) < 1:
+            raise ValueError("decode_horizon must be >= 1")
+        if any(int(h) < 2 for h in horizon_choices):
+            raise ValueError("horizon_choices must all be >= 2 "
+                             "(1 is always the incumbent)")
         if decode_impl != "auto" and decode_impl not in SERVE_AXES["serve_decode_impl"]:
             raise ValueError(f"decode_impl must be 'auto' or one of "
                              f"{SERVE_AXES['serve_decode_impl']}, got {decode_impl!r}")
@@ -288,6 +323,9 @@ class ContinuousBatchingEngine:
         self.block_size = block_size
         self.prefill_chunk = 0 if prefill_chunk == "whole" else int(prefill_chunk)
         self.chunks_per_step = chunks_per_step
+        self.decode_horizon = (decode_horizon if decode_horizon == "auto"
+                               else int(decode_horizon))
+        self.horizon_choices = tuple(int(h) for h in horizon_choices)
         self.decode_impl = decode_impl
         self.prefill_kernel = prefill_kernel
         self.stats = ServeStats()
@@ -295,11 +333,6 @@ class ContinuousBatchingEngine:
         self.completed: List[Request] = []
         self.slots = [_Slot() for _ in range(slots)]
         self._chunk_rr = 0           # round-robin cursor over prefilling slots
-        # device-side decode inputs, rebuilt from the host slot mirrors
-        # only after an admission / prefill completion / retire: a steady
-        # decode step feeds its own on-device output tokens back
-        self._tok_dev: Optional[torch.Tensor] = None
-        self._live_dev: Optional[torch.Tensor] = None
         self._masks_dirty = True
         self._axis = "serve_decode_impl"
         if vpe is not None and not vpe.registry.has_op(self._axis):
@@ -316,6 +349,17 @@ class ContinuousBatchingEngine:
                 vpe.registry.register_variant(
                     "prefill_kernel", name, fn=(lambda name=name: name),
                     default=(i == 0))
+        if vpe is not None and self.decode_horizon == "auto" \
+                and not vpe.registry.has_op("decode_horizon"):
+            # "1" (the single step) is the incumbent; the fused horizons
+            # are the candidates, trialed per queue-depth x occupancy
+            # bucket and fed from per-token walls
+            vpe.registry.register_op("decode_horizon")
+            names = ["1"] + [str(h) for h in self.horizon_choices]
+            for i, name in enumerate(names):
+                vpe.registry.register_variant(
+                    "decode_horizon", name, fn=(lambda name=name: name),
+                    default=(i == 0))
         # -- KV storage: the worst case of every slot holding max_len
         # positions plus one partial page each, so placement and decode
         # growth never run out of pages
@@ -325,6 +369,16 @@ class ContinuousBatchingEngine:
                                                   block_size, self.device)
         self.cache = model_lib.init_paged_cache(cfg, slots, max_len, block_size,
                                                 self.pages.trash_id, self.device)
+        # device-side decode inputs, rows INPUT_ROWS (tok, live, eos,
+        # budget): rewritten in place from the host slot mirrors only
+        # after an admission / prefill completion / retire (and the budget
+        # before a fused call); a steady decode call feeds its own final
+        # tokens back into ``tok`` on the device.  These, the cache and the
+        # pool are never rebound: the decode graphs replay over them.
+        self._inputs = torch.zeros((len(INPUT_ROWS), slots), dtype=torch.int32,
+                                   device=self.device)
+        self.graphs = DecodeGraphs(cfg, params, self.page_pool, self.cache,
+                                   self._inputs)
         if self.device.type == "cuda":
             # build and load the kernels now, and launch each once: the
             # port's capability check, which raises instead of degrading
@@ -486,7 +540,7 @@ class ContinuousBatchingEngine:
         toks[0, :clen] = prompt[base:base + clen]
         t0 = time.perf_counter()
         row = torch.from_numpy(self._bt_row(slot.pages)).to(self.device)
-        self.page_pool, logits = model_lib.prefill_chunk_paged(
+        _, logits = model_lib.prefill_chunk_paged(
             self.cfg, self.params, self.page_pool, row,
             torch.from_numpy(toks).to(self.device), base, clen,
             kernel=slot.kernel)
@@ -550,15 +604,20 @@ class ContinuousBatchingEngine:
             self._masks_dirty = True
 
     # -- decode -------------------------------------------------------------
-    def _grow_block_tables(self) -> None:
-        """Before a decode step: give every decoding slot whose next token
-        starts a fresh block its page, installed in one scatter."""
+    def _grow_block_tables(self, span: int, remaining: Dict[int, int]) -> None:
+        """Before a decode call: reserve, for every decoding slot, the
+        pages covering its write range ``[pos, pos + min(span,
+        remaining))`` — mid-horizon there is no host to allocate a page —
+        and install every splice in ONE scatter.  At ``span=1`` a page
+        comes exactly when the next token starts a fresh block."""
         splices: List[Tuple[int, int, int]] = []
         for i, slot in enumerate(self.slots):
             if slot.free or slot.prefilling:
                 continue
-            col = slot.pos // self.block_size
-            if col >= len(slot.pages):
+            upto = slot.pos + min(span, remaining[i])
+            last_col = (upto - 1) // self.block_size
+            assert last_col < self.nb_max, (last_col, self.nb_max)
+            for col in range(len(slot.pages), last_col + 1):
                 pid = self._alloc_page()
                 slot.pages.append(pid)
                 splices.append((i, col, pid))
@@ -566,14 +625,28 @@ class ContinuousBatchingEngine:
             idx = torch.tensor(splices, dtype=torch.int64).T.to(self.device)
             self.cache["bt"][idx[0], idx[1]] = idx[2].to(torch.int32)
 
+    def _rollback_reserved(self, i: int) -> None:
+        """Return a slot's reserved-but-unwritten horizon pages to the
+        pool (a stop froze the slot before it reached them): the pages
+        covering ``[0, pos)`` stay, every page past them goes back."""
+        slot = self.slots[i]
+        keep = -(-slot.pos // self.block_size)      # ceil
+        while len(slot.pages) > keep:
+            self.pages.unref(slot.pages.pop())
+            self.stats.reserved_pages_rolled_back += 1
+
     def _refresh_device_masks(self) -> None:
+        """Rewrite the tok, live and eos rows of the device inputs from the
+        host slot mirrors, in place and in one copy — only after an
+        admission, prefill completion or retire dirtied them."""
         if not self._masks_dirty:
             return
-        self._tok_dev = torch.tensor([s.tok for s in self.slots],
-                                     dtype=torch.int32, device=self.device)
-        self._live_dev = torch.tensor(
+        rows = np.array([
+            [s.tok for s in self.slots],
             [0 if (s.free or s.prefilling) else 1 for s in self.slots],
-            dtype=torch.int32, device=self.device)
+            [-1 if (s.req is None or s.req.eos_id is None) else s.req.eos_id
+             for s in self.slots]], np.int32)
+        self._inputs[:3].copy_(torch.from_numpy(rows))
         self._masks_dirty = False
 
     def _select_decode_impl(self, bucket: Tuple) -> str:
@@ -585,13 +658,85 @@ class ContinuousBatchingEngine:
             return self.vpe.controller.select(self._axis, bucket)
         return SERVE_AXES[self._axis][0]
 
+    def _select_horizon(self, n_active: int
+                        ) -> Tuple[int, Optional[Tuple], Optional[str]]:
+        """This step's decode horizon and, on the measured axis, its VPE
+        bucket and variant name.  The bucket is keyed by the queue depth
+        left after this step's admissions — the requests a fused horizon
+        would delay — × occupancy."""
+        if self.decode_horizon != "auto":
+            return int(self.decode_horizon), None, None
+        if self.vpe is None:
+            return 1, None, None
+        bucket = decode_horizon_bucket(len(self.queue), n_active,
+                                       self.num_slots,
+                                       levels=self.occupancy_levels)
+        name = self.vpe.controller.select("decode_horizon", bucket)
+        return int(name), bucket, name
+
+    def _commit(self, i: int, new_toks: List[int]) -> None:
+        """Append a decoding slot's new tokens to its request and mirrors."""
+        slot = self.slots[i]
+        slot.req.out.extend(new_toks)
+        slot.tok = new_toks[-1]
+        slot.pos += len(new_toks)
+        self.stats.tokens_out += len(new_toks)
+
+    def _decode(self, H: int, hbucket, hname,
+                remaining: Dict[int, int], t_h: float) -> None:
+        """One decode call of H steps (H = 1 is a single step): reserve
+        every page the call can write (one block-table scatter), run the H
+        steps on the device, fence once on the (slots, H) token block,
+        commit each slot's valid tokens, roll its unused reserved pages
+        back and retire it if it stopped."""
+        self._grow_block_tables(span=H, remaining=remaining)
+        self._refresh_device_masks()
+        budget = np.zeros((self.num_slots,), np.int32)
+        for i, rem in remaining.items():
+            budget[i] = rem
+        self.graphs.budget.copy_(torch.from_numpy(budget))
+        bucket = occupancy_bucket(len(remaining), self.num_slots,
+                                  levels=self.occupancy_levels)
+        impl = self._select_decode_impl(bucket)
+        t0 = time.perf_counter()
+        # greedy argmax on the device; only the (slots, H) token block and
+        # valid mask cross to the host, and that copy is the call's fence
+        toks, emits, captured = self.graphs.run(impl, H)
+        dt = time.perf_counter() - t0
+        self.stats.decode_s += dt
+        self.stats.decode_steps += H
+        self.stats.horizon_hist[H] = self.stats.horizon_hist.get(H, 0) + 1
+        self.stats.tainted_steps += captured
+        valid_total = int(emits.sum())
+        if H > 1:
+            self.stats.horizon_calls += 1
+            self.stats.horizon_tokens += valid_total
+        if self.vpe is not None and not captured:
+            # the decode-attention axis keeps per-STEP units
+            self.vpe.profiler.record(self._axis, impl, bucket, dt / H)
+            self.vpe.controller.on_sample(self._axis, bucket, impl)
+        for i in remaining:
+            # a slot stops at most once, so its valid tokens are a prefix
+            e = int(emits[i].sum())
+            self._commit(i, [int(t) for t in toks[i, :e]])
+            self._rollback_reserved(i)
+            self._retire_if_done(i)
+        if self.vpe is not None and hbucket is not None and not captured \
+                and valid_total:
+            # per-TOKEN wall of the whole span (reservation, call, fence,
+            # commit — the host work a horizon amortizes); frozen steps
+            # emit nothing, so an over-long horizon pays for itself here
+            self.vpe.profiler.record("decode_horizon", hname, hbucket,
+                                     (time.perf_counter() - t_h) / valid_total)
+            self.vpe.controller.on_sample("decode_horizon", hbucket, hname)
+
     def step(self) -> bool:
         """One engine iteration; returns False when fully idle.
 
         Admission and at most ``chunks_per_step`` prefill chunks run
-        first, then ONE decode step advances the decoding slots — the wall
-        between two decode steps is bounded by the chunk budget
-        (``stats.decode_stall_s``)."""
+        first, then ONE decode call advances the decoding slots — the wall
+        between two decode calls is bounded by the chunk budget
+        (``stats.decode_stall_s``) and the horizon."""
         had_decoders = self.num_decoding > 0
         admits_before = len(self.stats.queue_wait_s)
         t_p = time.perf_counter()
@@ -603,36 +748,24 @@ class ContinuousBatchingEngine:
             return prefill_work
         if had_decoders and prefill_work:
             self.stats.decode_stall_s.append(time.perf_counter() - t_p)
-        self._grow_block_tables()
-        self._refresh_device_masks()
-        bucket = occupancy_bucket(n_active, self.num_slots,
-                                  levels=self.occupancy_levels)
-        impl = self._select_decode_impl(bucket)
-        t0 = time.perf_counter()
-        self.page_pool, cache, logits = model_lib.decode_step_paged(
-            self.cfg, self.params, self.page_pool, self.cache,
-            self._tok_dev[:, None], self._live_dev, decode_impl=impl)
-        # greedy argmax on the device; only (slots,) ints cross to the
-        # host, and that copy is the step's fence
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        toks = next_tok.cpu().numpy()
-        dt = time.perf_counter() - t0
-        self.cache = cache
-        self._tok_dev = next_tok     # next step's input, already on device
-        self.stats.decode_s += dt
-        self.stats.decode_steps += 1
-        if self.vpe is not None:
-            self.vpe.profiler.record(self._axis, impl, bucket, dt)
-            self.vpe.controller.on_sample(self._axis, bucket, impl)
-        for i, slot in enumerate(self.slots):
-            if slot.req is None or slot.prefilling:
-                continue   # free/prefilling slot decoded garbage; discard
-            t = int(toks[i])
-            slot.tok = t
-            slot.pos += 1
-            slot.req.out.append(t)
-            self.stats.tokens_out += 1
-            self._retire_if_done(i)
+        # the horizon axis's timed span starts here: it holds the host work
+        # a fused horizon amortizes, not only the fenced device wall
+        t_h = time.perf_counter()
+        H, hbucket, hname = self._select_horizon(n_active)
+        # tokens each decoding slot may still emit: the call's budget, and
+        # the horizon's clamp onto the DECLARED set ({1, H} pinned, {1} +
+        # horizon_choices auto) — an arbitrary clamped length would capture
+        # a new graph mid-serve
+        remaining = {i: s.req.max_new_tokens - len(s.req.out)
+                     for i, s in enumerate(self.slots)
+                     if s.req is not None and not s.prefilling}
+        cap = pad_to_bucket(max(remaining.values()), minimum=1)
+        allowed = [1] + [c for c in
+                         (self.horizon_choices
+                          if self.decode_horizon == "auto" else (H,))
+                         if c <= H]
+        H = max(c for c in allowed if c <= cap)
+        self._decode(H, hbucket, hname, remaining, t_h)
         return True
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:

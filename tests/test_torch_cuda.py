@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version, the
 wrappers' argument checks and launch counts, the engine's kernel path
-against its gather path, a training step with the flash kernel, and the
+against its gather path, the decode CUDA graphs against the eager loop and
+fused horizons against single steps, a training step with the flash kernel, and the
 paper's six algorithms under the VPE with the matmul and conv2d kernels.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
@@ -278,8 +279,11 @@ def test_cuda_prefill_bf16_rejects_wide_heads(cuda_device):
 @pytest.mark.cuda
 def test_cuda_engine_kernels_equal_gather_path(cuda_device):
     """Reduced qwen3-8b in f32 on the card: the engine with both kernels
-    pinned gives the greedy tokens of the gather path, and launches each
-    kernel once per layer per decode step or prefill chunk."""
+    pinned gives the greedy tokens of the gather path, and launches the
+    prefill kernel once per layer per chunk; its decode calls replay one
+    captured graph, which stands for one decode-kernel call per layer per
+    step, and the decode wrapper counts only that graph's warm-up and
+    capture."""
     cfg = get_config("qwen3-8b").reduced()
     params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
     rng = np.random.default_rng(11)
@@ -297,11 +301,162 @@ def test_cuda_engine_kernels_equal_gather_path(cuda_device):
         eng.check_kv()
         assert eng.pages.drained
         kernels = impls[0] == "cuda"
-        assert tpa.paged_attention_cuda.launches == \
-            (eng.stats.decode_steps * cfg.num_layers if kernels else 0)
+        calls = cfg.num_layers if kernels else 0       # a call of one step
+        assert eng.graphs.captures == 1
+        assert tpa.paged_attention_cuda.launches == 2 * calls
+        assert eng.graphs.replayed_calls == eng.stats.decode_steps * calls
         assert tpa.paged_prefill_attention_cuda.launches == \
             (eng.stats.prefill_chunks * cfg.num_layers if kernels else 0)
     assert out[("cuda", "cuda")] == out[("grouped", "gather")]
+
+
+def _decode_state(cfg, dev, seed):
+    """A (4, B) decode-input block, a pool of random K/V and a cache whose
+    distinct pages cover two 16-step horizons of every slot: slot 0 live,
+    slot 1 live with a budget of 2, slot 2 not live."""
+    rng = np.random.default_rng(seed)
+    B, bs, nb = 3, 8, 8
+    n_pages = B * nb
+    pool = tmodel.init_page_pool(cfg, n_pages, bs, dev)
+    for t in pool.values():
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    cache = tmodel.init_paged_cache(cfg, B, nb * bs, bs, n_pages, dev)
+    cache["bt"].copy_(torch.from_numpy(
+        rng.permutation(n_pages).reshape(B, nb).astype(np.int32)))
+    cache["length"].copy_(torch.tensor([5, 20, 0], dtype=torch.int32))
+    inputs = torch.tensor([rng.integers(0, cfg.vocab_size, B), [1, 1, 0],
+                           [-1, -1, -1], [16, 2, 0]], dtype=torch.int32, device=dev)
+    return pool, cache, inputs
+
+
+def _clone(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda", "grouped", "flat"])
+@pytest.mark.parametrize("horizon", [1, 4, 16])
+def test_cuda_decode_graph_replay_equals_eager(cuda_device, impl, horizon):
+    """Reduced qwen3-8b in f32: two calls of a captured decode graph give
+    the tokens, valid masks, final tokens and lengths of the eager loop on
+    a copy of the state, and the pool within 1e-5; the capture moves no
+    buffer; the decode wrapper counts the warm-up's and the capture's H x
+    layers calls each and no replay, and the graphs count H x layers x
+    replays replayed calls, for the kernel variant (0 for the gather
+    variants)."""
+    from repro_torch.runtime.decode_graphs import DecodeGraphs
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    pool, cache, inputs = _decode_state(cfg, cuda_device, seed=horizon)
+    e_pool, e_cache, e_inputs = _clone(pool), _clone(cache), inputs.clone()
+    graphs = DecodeGraphs(cfg, params, pool, cache, inputs)
+
+    def pointers():
+        return [t.data_ptr() for t in (inputs, graphs.tok, graphs.live, graphs.eos,
+                                       graphs.budget, cache["bt"], cache["length"],
+                                       pool["k"], pool["v"])]
+
+    before = pointers()
+    counted = 0                  # the wrapper's count over the graph calls
+    for _ in range(2):
+        mark = tpa.paged_attention_cuda.launches
+        toks, valid, _ = graphs.run(impl, horizon)
+        counted += tpa.paged_attention_cuda.launches - mark
+        _, _, e_toks, e_valid, e_final = tmodel.decode_steps_paged(
+            cfg, params, e_pool, e_cache, e_inputs[0][:, None], e_inputs[1],
+            e_inputs[2], e_inputs[3], horizon, decode_impl=impl)
+        e_inputs[0].copy_(e_final)
+        np.testing.assert_array_equal(valid, e_valid.cpu().numpy())
+        np.testing.assert_array_equal(toks * valid, (e_toks * e_valid).cpu().numpy())
+        assert torch.equal(inputs, e_inputs)
+        assert torch.equal(cache["length"], e_cache["length"])
+        for k in "kv":
+            torch.testing.assert_close(pool[k][:, :-1], e_pool[k][:, :-1],
+                                       rtol=1e-5, atol=1e-5)
+    assert valid.sum(1).tolist() == [horizon, min(2, horizon), 0]
+    assert pointers() == before
+    assert (graphs.captures, graphs.replays) == (1, 2)
+    assert graphs.pool_bytes() > 0
+    calls = horizon * cfg.num_layers if impl == "cuda" else 0
+    assert counted == 2 * calls
+    assert graphs.replayed_calls == 2 * calls
+
+
+@pytest.mark.cuda
+def test_cuda_decode_graph_capture_failure_raises(cuda_device):
+    """A host sync inside the captured call fails the capture, and the
+    error reaches the caller: no eager retry.  Run in a fresh interpreter,
+    so the failed capture cannot touch the other tests' state."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    code = textwrap.dedent("""
+        import numpy as np, torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as tmodel
+        from repro_torch.runtime.decode_graphs import DecodeGraphs
+        dev = torch.device("cuda")
+        cfg = get_config("qwen3-8b").reduced()
+        params = tmodel.init_params(cfg, torch.Generator(dev).manual_seed(0))
+        pool = tmodel.init_page_pool(cfg, 8, 8, dev)
+        cache = tmodel.init_paged_cache(cfg, 2, 32, 8, 8, dev)
+        inputs = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+        inputs[1] = 1
+        real = tmodel.decode_steps_paged
+        def syncing(*args, **kw):
+            out = real(*args, **kw)
+            out[2].sum().item()          # a host sync: illegal under capture
+            return out
+        tmodel.decode_steps_paged = syncing
+        graphs = DecodeGraphs(cfg, params, pool, cache, inputs)
+        try:
+            graphs.run("grouped", 4)
+        except RuntimeError as e:    # torch.AcceleratorError is one
+            print("RAISED", type(e).__name__, str(e).splitlines()[0][:200])
+        else:
+            print("NO ERROR")
+        print("CAPTURES", graphs.captures, "LIVE", inputs[1].tolist())
+    """)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": src}, timeout=300)
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+    assert "CAPTURES 0 LIVE [1, 1]" in proc.stdout, proc.stdout + proc.stderr
+
+
+@pytest.mark.cuda
+def test_cuda_engine_fused_horizon_equals_single_step(cuda_device):
+    """Reduced qwen3-8b in f32, both kernels pinned: the engine at H = 16
+    gives the tokens of H = 1; every decode call replays a graph (one
+    capture per horizon used, each counted as a tainted step); the replays
+    stand for one decode-kernel call per layer per decode step, and the
+    wrapper counted only each capture's warm-up and recorded calls."""
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 40, 5)]
+    out = {}
+    for horizon in (1, 16):
+        eng = tserve.ContinuousBatchingEngine(
+            cfg, params, slots=2, max_len=96, block_size=8, prefill_chunk=8,
+            decode_horizon=horizon, decode_impl="cuda", prefill_kernel="cuda",
+            device=cuda_device)
+        tpa.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=24))
+        out[horizon] = {r.rid: r.out for r in eng.run()}
+        eng.check_kv()
+        assert eng.pages.drained
+        st = eng.stats
+        assert eng.graphs.captures == len(st.horizon_hist) == st.tainted_steps
+        assert eng.graphs.replays == sum(st.horizon_hist.values())
+        assert eng.graphs.replayed_calls == st.decode_steps * cfg.num_layers
+        assert tpa.paged_attention_cuda.launches \
+            == 2 * sum(st.horizon_hist) * cfg.num_layers
+    assert out[16] == out[1]
+    assert set(eng.stats.horizon_hist) == {1, 16}
 
 
 def _flash_inputs(case, dev, dtype, seed):

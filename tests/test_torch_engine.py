@@ -137,7 +137,7 @@ def test_intake_failures_do_not_raise(setup):
 @pytest.mark.parametrize("kw,item", [
     (dict(kv_layout="contiguous"), "8(a)"), (dict(prefix_blocks=8), "8(b)"),
     (dict(kv_layout="auto"), "8(c)"), (dict(prefill_chunk="auto"), "8(d)"),
-    (dict(decode_horizon=4), "8(e)"), (dict(swap=True), "8(f)"),
+    (dict(spec_draft="auto"), "8(g)"), (dict(swap=True), "8(f)"),
     (dict(page_budget=12), "8(f)"), (dict(spec_draft=4), "8(g)"),
     (dict(max_queue_depth=3), "8(h)"), (dict(mesh_shape=(1, 2)), "8(i)")])
 def test_unported_features_name_their_roadmap_item(setup, kw, item):
@@ -173,7 +173,7 @@ def test_launcher(capsys):
     assert "op/bucket decision table" in out
     for argv, item in ((["--swap"], "8(f)"), (["--mesh", "1,2"], "8(i)"),
                        (["--kv-layout", "auto"], "8(c)"),
-                       (["--decode-horizon", "4"], "8(e)"), ([], "8(a)")):
+                       (["--spec-draft", "4"], "8(g)"), ([], "8(a)")):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
                           *(["--continuous"] if argv else []), *argv])
@@ -181,8 +181,9 @@ def test_launcher(capsys):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """In a fresh interpreter, importing the port and serving leaves no
-    jax or repro module loaded."""
+    """In a fresh interpreter, importing the port and serving — single
+    steps, then one fused horizon, through the decode-graph module — leaves
+    no jax or repro module loaded."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -200,6 +201,15 @@ def test_port_imports_neither_jax_nor_repro():
         eng.submit(Request(rid=0, prompt=np.arange(9, dtype=np.int32),
                            max_new_tokens=3))
         assert len(eng.run()[0].out) == 3
+        eng = ContinuousBatchingEngine(cfg, params, slots=2, max_len=32,
+                                       block_size=8, decode_horizon=4,
+                                       decode_impl="cuda", prefill_kernel="cuda",
+                                       device="cpu")
+        eng.submit(Request(rid=1, prompt=np.arange(9, dtype=np.int32),
+                           max_new_tokens=6))
+        assert len(eng.run()[0].out) == 6
+        assert eng.stats.horizon_calls == 1
+        assert "repro_torch.runtime.decode_graphs" in sys.modules
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)

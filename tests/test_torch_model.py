@@ -82,12 +82,17 @@ def test_decode_step_paged(arch, impls):
         cfg, jp, {k: jnp.asarray(v) for k, v in pool.items()},
         {"bt": jnp.asarray(bt), "length": jnp.asarray(length)},
         jnp.asarray(tokens), jnp.asarray(live), decode_impl=impls[0])
+    length_buf = torch.from_numpy(length.copy())
     tpool, tcache, tlogits = tmodel.decode_step_paged(
         tcfg, tp, {k: torch.from_numpy(v.copy()) for k, v in pool.items()},
-        {"bt": torch.from_numpy(bt), "length": torch.from_numpy(length)},
+        {"bt": torch.from_numpy(bt), "length": length_buf},
         torch.from_numpy(tokens), torch.from_numpy(live), decode_impl=impls[1])
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **LOGIT_TOL)
+    # the new lengths are written in place (the buffer a CUDA graph of the
+    # serve engine replays over)
+    assert tcache["length"] is length_buf
     np.testing.assert_array_equal(tcache["length"].numpy(), length + 1)
+    np.testing.assert_array_equal(np.asarray(jcache["length"]), length + 1)
     for k in "kv":   # appended rows equal; the trash row is never compared
         np.testing.assert_allclose(tpool[k][:, :PAGES].numpy(),
                                    np.asarray(jpool[k])[:, :PAGES], **KV_TOL)
