@@ -39,11 +39,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 4c. ``decode_horizon="auto"``: phase 4's traffic three times on one
    engine, each pass's tokens equal to phase 4's; the VPE's decisions on
    the horizon axis printed;
+4d. the prefix cache on the paged layout: 8 requests sharing a 392-token
+   system prompt served cold (``prefix_blocks=0``), then on an engine whose
+   tree a warm-up filled (``prefix_blocks=256``): each warm request aliases
+   24 cached blocks and clones the 25th copy-on-write; hits, copies, tokens
+   saved, TTFT and decode tok/s of both runs, the pool drained to the
+   tree's pages, both paged kernels launched, first-token logits within
+   0.25 of the cold run's, and the token agreement (a request whose tokens
+   part gets the position and the logit margin there);
+4e. the contiguous and ``auto`` layouts with ``attn_impl="flash_cuda"``:
+   (i) phase 4's traffic on the contiguous layout, one flash launch a
+   layer an admission, decode calls graph replays, first-token logits
+   within 0.25 of phase 4's; (ii) phase 4d's traffic three times on one
+   ``auto`` engine with the prefix cache, the paged kernels launched, the
+   VPE's ``kv_layout`` and ``prefix_reuse`` decisions printed;
 5. serving parity: reduced qwen3-8b in f32, kernels against the gather
    path, greedy tokens equal, and fused horizons of 4 and 16 steps against
    single steps for both decode variants, plus an EOS that stops a horizon
-   midway (tokens end at the first EOS); full width in bf16, first-step
-   logits of the two;
+   midway (tokens end at the first EOS); then, token for token, the prefix
+   cache warm against cold, paged against contiguous against ``auto`` (its
+   warm admissions forced paged), contiguous H = 4 against H = 1, and a
+   copy-on-write tail shared by two resident requests; full width in
+   bf16, first-step logits of the two;
 7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
    master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
    with the VPE free until it concludes its ``attn_impl`` trial, then with
@@ -86,6 +103,7 @@ traces there, gzipped.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import gzip
 import json
@@ -122,6 +140,11 @@ FLASH_CASES = ((2048, 2048, True, None), (2048, 2048, True, 1024),
                (2048, 2048, False, None), (2048, 2048, False, 1024),
                (300, 1100, True, 1024), (1000, 1000, True, 4096),
                (TRAIN_SEQ, TRAIN_SEQ, True, 4096))
+# the contiguous admission's whole-prompt prefill (phase 4e(i)): qwen3-8b's
+# heads, causal, no window, S = T = the padded prompt lengths 64..512 (64 is
+# a single q tile)
+SERVE_FLASH_HEADS = (32, 8, 128)
+SERVE_FLASH_CASES = tuple((S, S, True, None) for S in (64, 128, 256, 512))
 
 # the paper path: matmul checks (m, k, n) — tests/test_kernels.py's shapes,
 # the Table-1 512^3, one off every tile, the Fig. 2b sweep's largest — and
@@ -503,33 +526,42 @@ def traffic(vocab: int, seed: int = 0):
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def serving_engine(cfg, params, dev, horizon):
+def serving_engine(cfg, params, dev, horizon, **kw):
     """The main path's engine: slots 4, max_len 1024, block 16, chunk 128,
+    the paged layout and a VPE of its own unless ``kw`` says otherwise,
     both paged kernels pinned, decode horizon ``horizon`` (an int or
     ``"auto"``)."""
     from repro_torch.core import VPE
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine
+    kw = {"kv_layout": "paged", "vpe": VPE(), **kw}
     return ContinuousBatchingEngine(
-        cfg, params, vpe=VPE(), slots=SLOTS, max_len=MAX_LEN, block_size=BS,
+        cfg, params, slots=SLOTS, max_len=MAX_LEN, block_size=BS,
         prefill_chunk=CHUNK, decode_horizon=horizon, decode_impl="cuda",
-        prefill_kernel="cuda", device=dev)
+        prefill_kernel="cuda", device=dev, **kw)
 
 
-def serve_traffic(engine, cfg, prompts, label, rid0=0):
+def serve_traffic(engine, cfg, prompts, label, rid0=0,
+                  kernels=("paged_decode_attention", "paged_prefill_attention")):
     """Serve the traffic on ``engine`` with the launch counts zeroed just
     before and read just after; raise if a gate fails.  Returns the run's
-    record.  Decode launches are the decode wrapper's own calls in the run
-    plus the calls the graph replays stand for (``replayed_calls``); the
-    profiled call of :func:`steady_window` shows that a replay launches the
-    kernels."""
+    record, with each request's first-token logits (the prompt's last
+    position, on the card) under ``first_logits``.  Decode launches are the
+    decode wrapper's own calls in the run plus the calls the graph replays
+    stand for (``replayed_calls``); the profiled call of
+    :func:`steady_window` shows that a replay launches the kernels.  Each
+    kernel in ``kernels`` must have been launched; the pool must hold
+    nothing but the prefix tree's pages after the drain."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.runtime.serve_loop import Request, ServeStats
     engine.completed.clear()
     engine.stats = ServeStats()
     graphs = engine.graphs
+    engine.first_logits = {}
     torch.cuda.synchronize()
     pa.reset_launch_counts()
+    fa.reset_launch_counts()
     before = (graphs.captures, graphs.replays, graphs.replayed_calls)
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
@@ -537,11 +569,14 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0):
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    first_logits = {rid - rid0: x.float() for rid, x in engine.first_logits.items()}
+    engine.first_logits = None
     captures = graphs.captures - before[0]
     replays = graphs.replays - before[1]
     replayed = graphs.replayed_calls - before[2]
     launches = {"paged_decode_attention": pa.paged_attention_cuda.launches + replayed,
-                "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches}
+                "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches,
+                "flash_attention": fa.flash_attention_cuda.launches}
     st = engine.stats
     say(f"  {st.summary()}")
     say(f"  wall {wall} s, {st.decode_steps} decode steps in "
@@ -560,29 +595,41 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0):
     for r in done:
         if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"{label}: request {r.rid}: tokens {r.out}")
+    if sorted(first_logits) != list(range(len(prompts))) or not all(
+            bool(torch.isfinite(x).all()) for x in first_logits.values()):
+        raise AssertionError(f"{label}: first-token logits missing or not finite")
     engine.check_kv()
-    if not engine.pages.drained:
-        raise AssertionError(f"{label}: page pool not drained after the run")
-    for name, n in launches.items():
-        if n <= 0:
+    if engine.pages is not None:
+        tree = engine.prefix_cache.owned_pages() if engine.prefix_cache else []
+        if any(s.pages for s in engine.slots) or engine.pages.num_live != len(tree):
+            raise AssertionError(f"{label}: {engine.pages.num_live} pages live after "
+                                 f"the drain, {len(tree)} of them the tree's")
+    for name in kernels:
+        if launches[name] <= 0:
             raise AssertionError(f"{label}: {name} was not launched on the main path")
+    decode_calls = cfg.num_layers if "paged_decode_attention" in kernels else 0
     if replays != sum(st.horizon_hist.values()) \
-            or replayed != st.decode_steps * cfg.num_layers:
+            or replayed != st.decode_steps * decode_calls:
         raise AssertionError(f"{label}: {replays} replays standing for {replayed} "
                              f"decode calls, for {st.horizon_hist} calls of "
-                             f"{st.decode_steps} steps x {cfg.num_layers} layers")
+                             f"{st.decode_steps} steps x {decode_calls} layer calls")
     if launches["paged_prefill_attention"] != st.prefill_chunks * cfg.num_layers:
         raise AssertionError(f"{label}: prefill launches {launches} do not match "
                              f"{st.prefill_chunks} chunks x {cfg.num_layers} layers")
     return dict(
         wall_s=wall, decode_steps=st.decode_steps, prefill_chunks=st.prefill_chunks,
-        ttft_s=list(st.ttft_s), decode_tok_per_s=st.decode_tok_per_s,
+        ttft_s=list(st.ttft_s), mean_ttft_s=st.mean_ttft_s,
+        decode_tok_per_s=st.decode_tok_per_s,
         decode_us_per_step=st.decode_s / st.decode_steps * 1e6,
         horizon_hist=dict(st.horizon_hist), rolled_back=st.reserved_pages_rolled_back,
         captures=graphs.captures, captures_in_run=captures,
         tainted_steps=st.tainted_steps, graph_pool_bytes=graphs.pool_bytes(),
         launches=launches, layers=cfg.num_layers,
-        tokens={r.rid - rid0: r.out for r in done})
+        prefix=dict(lookups=st.prefix_lookups, hits=st.prefix_hits,
+                    tokens_saved=st.prefix_tokens_saved, cow_copies=st.cow_copies,
+                    paged_admits=st.paged_admits, sched_skips=st.sched_skips,
+                    kv_place_s=list(st.kv_place_s)),
+        tokens={r.rid - rid0: r.out for r in done}, first_logits=first_logits)
 
 
 def steady_window(engine, cfg, calls):
@@ -738,6 +785,7 @@ def phase_auto_horizon(cfg, params, dev, prompts, main, passes=3):
                             rid0=100 * (k + 1))
         first_difference(f"phase 4c pass {k}", main, run)
         run.pop("tokens")
+        run.pop("first_logits")
         out.append(run)
     decisions = {}
     say("  decode_horizon decisions (bucket: kept, tried, history):")
@@ -749,17 +797,248 @@ def phase_auto_horizon(cfg, params, dev, prompts, main, passes=3):
     return dict(passes=out, decisions=decisions)
 
 
-def run_engine(cfg, params, dev, impls, prompts, new_tokens, eos=None, **kw):
+SYSTEM_PROMPT, PREFIX_BLOCKS = 392, 256
+
+
+def prefix_traffic(vocab: int, seed: int = 7):
+    """Phase 4d's traffic: 8 prompts that share a 392-token system prompt
+    (24 full blocks and 8 tokens of a 25th), each followed by a suffix of
+    its own of 32–160 tokens; and the warm-up prompt, the system prompt and
+    40 tokens more (27 full blocks), whose blocks a warm engine caches."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, vocab, int(n)).astype(np.int32)])
+               for n in rng.integers(32, 161, REQUESTS)]
+    warm = np.concatenate([system, rng.integers(0, vocab, 40).astype(np.int32)])
+    return prompts, warm
+
+
+def warm_up(engine, prompt):
+    """One 2-token request: it captures the single-step decode graph (and,
+    with a prefix cache, leaves the prompt's full blocks in the tree)."""
+    from repro_torch.runtime.serve_loop import Request
+    engine.submit(Request(rid=-1, prompt=prompt, max_new_tokens=2))
+    engine.run()
+
+
+def token_margin(cfg, params, prompt, before, a, b):
+    """Where two runs part: a full forward over the prompt and the tokens
+    before that position; logit[a] - logit[b] at its last position, and the
+    top-2 margin there."""
+    import torch
+    from repro_torch.models import model as model_lib
+    seq = np.concatenate([prompt, np.asarray(before, np.int32)])[None]
+    with torch.no_grad():
+        logits = model_lib.forward(cfg, params, {"tokens": torch.from_numpy(seq).to(
+            params["embed"].device)})[0, -1]
+    top2 = torch.topk(logits, 2).values
+    return dict(a_minus_b=float(logits[a] - logits[b]),
+                top2_margin=float(top2[0] - top2[1]))
+
+
+def compare_runs(label, ref_label, ref, run, cfg, params, prompts, atol=None):
+    """Each request's first-token logits in ``run`` against ``ref``'s (gated
+    within ``atol`` when given), and its tokens: printed, and for each
+    request whose tokens part, the first position and the logit margin
+    there (recorded, not gated)."""
+    errs = [float((run["first_logits"][r] - ref["first_logits"][r]).abs().max())
+            for r in sorted(ref["first_logits"])]
+    say(f"  {label} vs {ref_label}: first-token logits max abs diff by request "
+        f"{errs}" + (f" (tolerance {atol})" if atol is not None else ""))
+    parts = []
+    for rid, toks in sorted(ref["tokens"].items()):
+        got = run["tokens"][rid]
+        if got != toks:
+            j = next(k for k in range(len(toks)) if got[k] != toks[k])
+            margin = token_margin(cfg, params, prompts[rid], toks[:j], toks[j], got[j])
+            parts.append(dict(rid=rid, position=j, ref_token=toks[j],
+                              token=got[j], **margin))
+    same = len(ref["tokens"]) - len(parts)
+    say(f"  tokens equal to {ref_label}'s in {same} of {len(ref['tokens'])} "
+        f"requests" + "".join(
+            f"; request {p['rid']} parts at position {p['position']} ({p['ref_token']}"
+            f" / {p['token']}), logit margin there {p['a_minus_b']} (top-2 "
+            f"{p['top2_margin']}, full forward)" for p in parts))
+    if atol is not None and max(errs) > atol:
+        raise AssertionError(f"{label}: first-token logits differ from {ref_label}'s "
+                             f"by {max(errs)} > {atol}")
+    return dict(first_logit_max_abs_diff=errs, tokens_equal=same, parted=parts)
+
+
+def phase_prefix_cache(cfg, params, dev):
+    """Phase 4d: the prefix cache on the paged layout, both paged kernels
+    pinned.  Phase 4d's traffic is served cold (``prefix_blocks=0``), then
+    on an engine whose tree the warm-up filled (``prefix_blocks=256``):
+    every request aliases 24 cached blocks and clones the 25th, whose 8
+    system-prompt tokens it matches, so its first chunk starts mid-block
+    in the clone.  The engines run without a VPE, so no admission trials
+    recomputing its match.  Gates: >= 7 hits, >= 1 copy-on-write, the drained pool
+    holding only tree pages, both paged kernels launched in the warm run,
+    first-token logits within 0.25 of the cold run's."""
+    import torch
+    t0 = time.perf_counter()
+    prompts, warm = prefix_traffic(cfg.vocab_size)
+    say(f"[4d] prefix cache, paged: {cfg.name} at full width, {REQUESTS} requests "
+        f"sharing a {SYSTEM_PROMPT}-token system prompt, prompt lengths "
+        f"{[len(p) for p in prompts]}, {NEW_TOKENS} new tokens each; cold "
+        f"(prefix_blocks 0), then warm (prefix_blocks {PREFIX_BLOCKS})")
+    runs = {}
+    for label, blocks in (("cold", 0), ("warm", PREFIX_BLOCKS)):
+        # no VPE: every warm admission reuses its match (the prefix_reuse
+        # axis would trial recomputing it), so the run measures the cache
+        engine = serving_engine(cfg, params, dev, 1, prefix_blocks=blocks, vpe=None)
+        warm_up(engine, warm)
+        tree = engine.prefix_cache.live_blocks if engine.prefix_cache else 0
+        say(f"  {label}: {engine.pages.num_pages} pages + trash, {tree} blocks in "
+            f"the tree after the warm-up")
+        run = serve_traffic(engine, cfg, prompts, f"phase 4d {label}")
+        if run["captures_in_run"]:
+            raise AssertionError(f"phase 4d {label}: a capture in the timed run")
+        run["tree_blocks"] = engine.prefix_cache.live_blocks if blocks else 0
+        runs[label] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    warm_run, cold_run = runs["warm"], runs["cold"]
+    pre = warm_run["prefix"]
+    say(f"  warm: {pre['hits']}/{pre['lookups']} prefix hits, {pre['tokens_saved']} "
+        f"prompt tokens served from cached pages, {pre['cow_copies']} copy-on-write "
+        f"clones, kv_place_s mean {np.mean(pre['kv_place_s'])} s, "
+        f"{warm_run['prefill_chunks']} prefill chunks (cold: "
+        f"{cold_run['prefill_chunks']}), {warm_run['tree_blocks']} tree blocks "
+        f"after the drain")
+    for label, run in runs.items():
+        say(f"  {label}: TTFT mean {run['mean_ttft_s']} s, decode "
+            f"{run['decode_tok_per_s']} tok/s")
+    if pre["hits"] < REQUESTS - 1 or pre["cow_copies"] < 1 \
+            or pre["tokens_saved"] < pre["hits"] * SYSTEM_PROMPT:
+        raise AssertionError(f"phase 4d: {pre['hits']} hits, {pre['cow_copies']} "
+                             f"copy-on-write clones")
+    cmp = compare_runs("phase 4d warm", "the cold run", cold_run, warm_run, cfg,
+                       params, prompts, atol=0.25)
+    cold = dict(tokens=cold_run["tokens"], first_logits=cold_run["first_logits"])
+    for run in runs.values():
+        run.pop("first_logits")
+    wall = time.perf_counter() - t0
+    say(f"  phase 4d wall {wall} s")
+    return dict(runs=runs, compare=cmp, wall_s=wall), cold
+
+
+def phase_layouts(cfg, params, dev, prompts, main, main_logits, cold_4d):
+    """Phase 4e: the contiguous and ``auto`` layouts, with the prefill of
+    contiguous admissions through the flash kernel (``attn_impl =
+    flash_cuda``).  (i) Phase 4's traffic on the contiguous layout, whose
+    padded prompt lengths phase 3c checked the flash kernel at: one flash
+    launch a layer an admission, every decode call a graph replay
+    (none captured in the run), first-token logits within 0.25 of phase
+    4's.  (ii) Phase 4d's traffic three times on one ``auto`` engine with
+    the prefix cache: the paged kernels launched, the pool audit clean;
+    the VPE's ``kv_layout`` and ``prefix_reuse`` decisions printed."""
+    import torch
+    from repro_torch.core import VPE, pad_to_bucket
+    t0 = time.perf_counter()
+    cfg_f = dataclasses.replace(cfg, attn_impl="flash_cuda")
+    say(f"[4e] contiguous and auto layouts: {cfg.name} at full width, "
+        f"attn_impl=flash_cuda; (i) phase 4's traffic, contiguous")
+    engine = serving_engine(cfg_f, params, dev, 1, kv_layout="contiguous")
+    warm = np.arange(1, 200, dtype=np.int32)
+    pads = {min(pad_to_bucket(len(p), minimum=engine.min_prompt_pad), engine.max_len)
+            for p in [*prompts, warm]}
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    if heads != SERVE_FLASH_HEADS or not pads <= {c[0] for c in SERVE_FLASH_CASES}:
+        raise AssertionError(f"phase 4e(i): flash prefill at {heads} heads, padded "
+                             f"lengths {sorted(pads)}, not among phase 3c's checks")
+    warm_up(engine, warm)
+    slot_bytes = sum(engine.cache[k].numel() * engine.cache[k].element_size()
+                     for k in "kv")
+    say(f"  engine: slot cache {slot_bytes} B, {engine.graphs.captures} decode "
+        f"graphs captured in the warm-up")
+    run = serve_traffic(engine, cfg_f, prompts, "phase 4e(i)",
+                        kernels=("flash_attention",))
+    flash = run["launches"]["flash_attention"]
+    if run["captures_in_run"] or flash != cfg.num_layers * REQUESTS:
+        raise AssertionError(f"phase 4e(i): {run['captures_in_run']} captures in "
+                             f"the run, {flash} flash launches for {REQUESTS} "
+                             f"admissions x {cfg.num_layers} layers")
+    contiguous = dict(run=run, compare=compare_runs(
+        "phase 4e(i)", "phase 4", dict(main, first_logits=main_logits), run, cfg,
+        params, prompts, atol=0.25))
+    run.pop("first_logits")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts_d, warm = prefix_traffic(cfg.vocab_size)
+    say("  (ii) phase 4d's traffic three times, kv_layout=auto, prefix_blocks "
+        f"{PREFIX_BLOCKS}")
+    engine = serving_engine(cfg_f, params, dev, 1, kv_layout="auto",
+                            prefix_blocks=PREFIX_BLOCKS,
+                            vpe=VPE(controller_kwargs=dict(min_samples=2,
+                                                           trial_samples=2)))
+    warm_up(engine, warm)
+    passes, launches = [], {}
+    for k in range(3):
+        run = serve_traffic(engine, cfg_f, prompts_d, f"phase 4e(ii) pass {k}",
+                            rid0=100 * (k + 1), kernels=("paged_decode_attention",))
+        if run["captures_in_run"]:
+            raise AssertionError(f"phase 4e(ii) pass {k}: {run['captures_in_run']} "
+                                 f"captures in the timed run")
+        run["compare"] = compare_runs(f"phase 4e(ii) pass {k}", "phase 4d cold",
+                                      cold_4d, run, cfg, params, prompts_d)
+        run.pop("first_logits")
+        say(f"  pass {k}: {run['prefix']['paged_admits']} paged admissions of "
+            f"{REQUESTS}, TTFT mean {run['mean_ttft_s']} s, decode "
+            f"{run['decode_tok_per_s']} tok/s")
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        passes.append(run)
+    say(f"  launches over the three passes: {launches}")
+    if launches["paged_prefill_attention"] <= 0 or launches["paged_decode_attention"] <= 0:
+        raise AssertionError(f"phase 4e(ii): paged kernels not launched: {launches}")
+    decisions = {}
+    say("  kv_layout and prefix_reuse decisions (bucket: kept, tried, history):")
+    for (op, bucket), d in sorted(engine.vpe.controller._decisions.items(), key=repr):
+        if op in ("kv_layout", "prefix_reuse"):
+            decisions[f"{op} {bucket}"] = (d.selected, d.tried)
+            say(f"    {op} {bucket}: kept {d.selected}, tried {d.tried}, "
+                f"{[f'{ev} {v}: {detail}' for ev, v, detail in d.history]}")
+    wall = time.perf_counter() - t0
+    say(f"  phase 4e wall {wall} s")
+    return dict(contiguous=contiguous, auto=dict(passes=passes, launches=launches,
+                                                  decisions=decisions), wall_s=wall)
+
+
+def run_engine(cfg, params, dev, impls, prompts, new_tokens, eos=None, warm=None,
+               force_paged=False, **kw):
+    """Serve ``prompts`` (rids 0...) on a new engine, the paged layout unless
+    ``kw`` says otherwise, after a 2-token request for each prompt in
+    ``warm`` (rids < 0: they fill the prefix tree); ``force_paged`` pins
+    an ``auto`` engine's warm admissions to the paged layout.  Returns
+    each request's tokens; raises unless the pool holds only tree pages
+    after the drain."""
+    from repro_torch.core import VPE, kv_layout_buckets
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
+    kw = {"kv_layout": "paged", **kw}
     eng = ContinuousBatchingEngine(cfg, params, decode_impl=impls[0],
-                                   prefill_kernel=impls[1], device=dev, **kw)
+                                   prefill_kernel=impls[1], device=dev,
+                                   vpe=VPE() if force_paged else None, **kw)
+    if force_paged:
+        for bucket in kv_layout_buckets(kw["max_len"], eng.num_slots,
+                                        levels=eng.occupancy_levels):
+            eng.vpe.controller.force("kv_layout", bucket, "paged")
+    for j, p in enumerate(warm or ()):
+        eng.submit(Request(rid=-1 - j, prompt=p, max_new_tokens=2))
+        eng.run()
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens, eos_id=eos))
     done = eng.run()
     eng.check_kv()
-    if not eng.pages.drained:
-        raise AssertionError("page pool not drained")
-    return {r.rid: r.out for r in done}
+    tree = eng.prefix_cache.owned_pages() if eng.prefix_cache else []
+    if eng.pages is not None and eng.pages.num_live != len(tree):
+        raise AssertionError("page pool not drained to the tree's pages")
+    if force_paged and not eng.stats.paged_admits:
+        raise AssertionError("no admission went paged under the forced flip")
+    return {r.rid: r.out for r in done if r.rid >= 0}
 
 
 def phase_reduced_parity(dev):
@@ -799,6 +1078,48 @@ def phase_reduced_parity(dev):
             f"{ref0.index(eos)}): tokens end at the first EOS: {got == want_eos}")
         if got != want_eos:
             raise AssertionError(f"{impls} EOS run: {got} != {want_eos}")
+    # the layouts and the prefix cache: prompts sharing 37 tokens (2 full
+    # blocks and 5 of a third, so paged warm admissions clone it), the
+    # contiguous prefill through the flash kernel (its f32 body)
+    cfg_f = dataclasses.replace(cfg, attn_impl="flash_cuda")
+    system = rng.integers(0, cfg.vocab_size, 37).astype(np.int32)
+    shared = [np.concatenate([system, rng.integers(0, cfg.vocab_size, int(n))
+                              .astype(np.int32)]) for n in rng.integers(3, 40, 6)]
+    shared.append(prompts[0])        # no shared prefix: a cold admission
+    cold = run_engine(cfg_f, params, dev, ("cuda", "cuda"), shared, 12, **kw)
+    runs = {
+        "paged, warm": dict(prefix_blocks=16, warm=shared[:1]),
+        "contiguous": dict(kv_layout="contiguous"),
+        "contiguous, warm": dict(kv_layout="contiguous", prefix_blocks=16,
+                                 warm=shared[:1]),
+        "contiguous, warm, H=4": dict(kv_layout="contiguous", prefix_blocks=16,
+                                      warm=shared[:1], decode_horizon=4),
+        "auto, warm, forced paged": dict(kv_layout="auto", prefix_blocks=16,
+                                         warm=shared[:1], force_paged=True),
+        "auto, warm, forced paged, H=4": dict(kv_layout="auto", prefix_blocks=16,
+                                              warm=shared[:1], force_paged=True,
+                                              decode_horizon=4)}
+    for label, extra in runs.items():
+        got = run_engine(cfg_f, params, dev, ("cuda", "cuda"), shared, 12,
+                         **{**kw, **extra})
+        say(f"  {label}: tokens == cold paged: {got == cold}")
+        if got != cold:
+            raise AssertionError(f"{label}: {got} != {cold}")
+    # copy-on-write: two resident requests share a prefix that ends inside a
+    # cached block; the truncated one clones the block, and neither's
+    # tokens move (nor a third serving's of the full prompt)
+    template = rng.integers(0, cfg.vocab_size, 56).astype(np.int32)
+    pair = [template, template[:40].copy()]
+    want = run_engine(cfg_f, params, dev, ("cuda", "cuda"), pair, 12, **kw)
+    got = run_engine(cfg_f, params, dev, ("cuda", "cuda"), pair, 12,
+                     prefix_blocks=16, warm=[template], **kw)
+    after = run_engine(cfg_f, params, dev, ("cuda", "cuda"), pair[:1], 12,
+                       prefix_blocks=16, warm=pair, **kw)
+    ok = got == want and after[0] == want[0]
+    say(f"  copy-on-write tail shared by two resident requests: tokens "
+        f"unchanged, and a later serving's of the full prompt: {ok}")
+    if not ok:
+        raise AssertionError(f"copy-on-write runs: {got}, {after} != {want}")
 
 
 def first_step_logits(cfg, params, dev, prompts, kernel, decode_impl, tokens=None):
@@ -955,8 +1276,9 @@ def phase_trace(cfg, params, dev, trace_dir):
     profiled call of phases 4 and 4b."""
     from repro_torch.core import VPE
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
-    kw = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS, prefill_chunk=CHUNK,
-              decode_impl="cuda", prefill_kernel="cuda", device=dev, vpe=VPE())
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS, kv_layout="paged",
+              prefill_chunk=CHUNK, decode_impl="cuda", prefill_kernel="cuda",
+              device=dev, vpe=VPE())
     prompts = traffic(cfg.vocab_size, seed=5)
     say("[6] traces (torch.profiler)")
     out = {}
@@ -1011,8 +1333,9 @@ def flash_inputs(gen, dtype, Hq, Hkv, S, T, D):
 def phase_flash_checks(dev):
     """The flash kernel against its plain version: bf16 and f32, danube and
     qwen3 heads, causal on and off, window none / 1024 / 4096, S = T and
-    S < T, T off the tile; then the gradient of ``attention_flash`` (kernel
-    forward) against autograd through ``attention_chunked``."""
+    S < T, T off the tile, and the contiguous admission's prefill shapes
+    (:data:`SERVE_FLASH_CASES`); then the gradient of ``attention_flash``
+    (kernel forward) against autograd through ``attention_chunked``."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1020,17 +1343,18 @@ def phase_flash_checks(dev):
     say("[3c] flash kernel against its plain version (B=1)")
     gen = torch.Generator(dev).manual_seed(6)
     err = 0.0
+    cases = [(h, c) for h in FLASH_HEADS for c in FLASH_CASES] + [
+        (SERVE_FLASH_HEADS, c) for c in SERVE_FLASH_CASES]
     for dtype in (torch.bfloat16, torch.float32):
-        for Hq, Hkv, D in FLASH_HEADS:
-            for S, T, causal, window in FLASH_CASES:
-                q, k, v = flash_inputs(gen, dtype, Hq, Hkv, S, T, D)
-                got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
-                want = ref.attention_ref(q, k, v, causal=causal, window=window)
-                torch.cuda.synchronize()
-                name = (f"flash {str(dtype)[6:]} Hq={Hq} Hkv={Hkv} D={D} S={S} "
-                        f"T={T} causal={causal} window={window}")
-                err = max(err, check_close(name, got, want, *flash_tolerance(dtype)))
-                del q, k, v, got, want
+        for (Hq, Hkv, D), (S, T, causal, window) in cases:
+            q, k, v = flash_inputs(gen, dtype, Hq, Hkv, S, T, D)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            name = (f"flash {str(dtype)[6:]} Hq={Hq} Hkv={Hkv} D={D} S={S} "
+                    f"T={T} causal={causal} window={window}")
+            err = max(err, check_close(name, got, want, *flash_tolerance(dtype)))
+            del q, k, v, got, want
     # the autograd wiring of attention_flash: kernel forward, and a backward
     # that is attention_chunked's VJP on both sides, so the gradients agree
     # exactly and test the wiring, not the kernel; the forward outputs
@@ -1619,8 +1943,13 @@ def main(argv=None) -> int:
         "calls, L2 flushed before each)")
     times["flash_attention"] = phase_flash_time(dev, get_config(TRAIN_ARCH))
     cfg, params, prompts, main_run = phase_main_path(dev)
+    main_logits = main_run.pop("first_logits")
     fused = phase_fused_horizons(cfg, params, dev, prompts, main_run)
+    fused.pop("first_logits")
     auto = phase_auto_horizon(cfg, params, dev, prompts, main_run)
+    prefix, cold_4d = phase_prefix_cache(cfg, params, dev)
+    layouts = phase_layouts(cfg, params, dev, prompts, main_run, main_logits, cold_4d)
+    del main_logits, cold_4d
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
     traces = phase_trace(cfg, params, dev, args.trace) if args.trace else None
@@ -1655,7 +1984,8 @@ def main(argv=None) -> int:
         args.report.write_text(json.dumps(
             dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                  kernel_times=times, check_errors=errors, main_path=main_run,
-                 fused_horizons=fused, auto_horizon=auto,
+                 fused_horizons=fused, auto_horizon=auto, prefix_cache=prefix,
+                 layouts=layouts,
                  full_width_logits=logits, traces=traces, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,

@@ -17,6 +17,7 @@ from .dispatch import VPE, VPEFunction, block_until_ready
 from .profiler import Profiler, SampleSet, Welford
 from .registry import OpEntry, Registry, Variant
 from .shape_class import (bucket_label, decode_horizon_bucket,
+                          kv_layout_bucket, kv_layout_buckets,
                           occupancy_bucket, pad_to_bucket,
                           prefill_chunk_bucket, prefix_len_bucket,
                           queue_depth_bucket, shape_bucket)
@@ -26,5 +27,5 @@ __all__ = [
     "Profiler", "SampleSet", "Welford", "Registry", "OpEntry", "Variant",
     "shape_bucket", "bucket_label", "occupancy_bucket", "pad_to_bucket",
     "prefix_len_bucket", "prefill_chunk_bucket", "queue_depth_bucket",
-    "decode_horizon_bucket",
+    "decode_horizon_bucket", "kv_layout_bucket", "kv_layout_buckets",
 ]

@@ -9,7 +9,7 @@ tables of the two packages can be compared entry by entry.
 from __future__ import annotations
 
 import math
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 from torch.utils import _pytree as pytree
 
@@ -53,6 +53,10 @@ def bucket_label(bucket: Tuple) -> str:
         if b == 0:
             return "plen0"
         return f"plen[{2 ** (b - 1)},{2 ** b})tok"
+    if bucket and bucket[0] == "kvl":
+        _, pb, level, total = bucket
+        plen = "plen0" if pb == 0 else f"plen[{2 ** (pb - 1)},{2 ** pb})"
+        return f"{plen}xocc{level}/{total}slots"
     if bucket and bucket[0] == "pfc":
         _, pb, level, total = bucket
         plen = "plen0" if pb == 0 else f"plen[{2 ** (pb - 1)},{2 ** pb})"
@@ -81,6 +85,25 @@ def prefix_len_bucket(matched: int) -> Tuple:
     if matched <= 0:
         return ("plen", 0)
     return ("plen", int(math.floor(math.log2(matched))) + 1)
+
+
+def kv_layout_bucket(matched: int, active: int, total: int, *,
+                     levels: int = 4) -> Tuple:
+    """Dispatch key for the serve engine's ``kv_layout`` axis: matched
+    prefix-length bucket × occupancy level (aliasing a long match saves a
+    long copy; the indirection's cost moves with how busy the slots are)."""
+    p = prefix_len_bucket(matched)
+    o = occupancy_bucket(active, total, levels=levels)
+    return ("kvl", p[1], o[1], total)
+
+
+def kv_layout_buckets(max_len: int, total: int, *, levels: int = 4) -> List[Tuple]:
+    """Every distinct :func:`kv_layout_bucket` of a warm admission (matched
+    1..max_len-1 tokens, 0..total active slots), in first-seen order: the
+    keys to force when pinning the ``kv_layout`` axis for all of them."""
+    return list(dict.fromkeys(
+        kv_layout_bucket(m, occ, total, levels=levels)
+        for m in range(1, max_len) for occ in range(total + 1)))
 
 
 def prefill_chunk_bucket(prompt_len: int, active: int, total: int, *,

@@ -1,12 +1,15 @@
-"""Serving launcher of the port: continuous batching over the paged KV layout.
+"""Serving launcher of the port: the wave scheduler, or continuous batching.
 
-    python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] \\
-        --continuous --kv-layout paged [--prefill-chunk 128] \\
-        [--decode-horizon 16|auto] [--decode-impl cuda --prefill-kernel cuda] \\
-        [--device cpu]
+    python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] --continuous \\
+        [--kv-layout contiguous|paged|auto] [--prefix-cache --prefix-blocks 64] \\
+        [--prefill-chunk 128] [--decode-horizon 16|auto] \\
+        [--decode-impl cuda --prefill-kernel cuda] [--device cpu]
 
-The flags are those of ``repro.launch.serve`` for the subset this slice
-ports; the others are rejected with the ROADMAP item that ports them.
+Without ``--continuous`` requests run in waves (``ServeLoop`` +
+``WaveScheduler``, the baseline).  The flags are those of
+``repro.launch.serve`` for the subset the port has; the others are
+rejected with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -21,11 +24,11 @@ from repro_torch.configs import get_config
 from repro_torch.core import VPE
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.serve_loop import (LATER, SERVE_AXES,
-                                            ContinuousBatchingEngine, Request)
+                                            ContinuousBatchingEngine, Request,
+                                            ServeLoop, WaveScheduler)
 
 # flags of repro.launch.serve outside this slice -> ROADMAP item
 _LATER_FLAGS = {
-    "--prefix-cache": "prefix_cache", "--prefix-blocks": "prefix_cache",
     "--spec-draft": "speculation",
     "--priority": "preemption", "--page-budget": "preemption",
     "--swap": "preemption", "--slo-weight": "preemption",
@@ -47,14 +50,22 @@ def main(argv=None) -> None:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true",
-                    help="token-level continuous batching (required: the "
-                         "wave scheduler is not ported yet)")
+                    help="token-level continuous batching (default: waves)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-tree shared-prefix KV cache (continuous only)")
+    ap.add_argument("--prefix-blocks", type=int, default=64,
+                    help="cached-prefix page headroom for --prefix-cache")
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--kv-layout", choices=["contiguous", "paged", "auto"],
-                    default="paged")
+                    default="contiguous",
+                    help="slot KV layout: contiguous per-slot regions, paged "
+                         "block tables over the unified page pool, or auto "
+                         "(a VPE axis per matched-length x occupancy bucket)")
     ap.add_argument("--prefill-chunk", default="whole",
-                    help="prefill chunk size in tokens, or 'whole'")
+                    help="prefill chunk size in tokens of paged admissions, "
+                         "or 'whole' ('auto', the measured axis, is not "
+                         "ported: the engine names its ROADMAP item)")
     ap.add_argument("--chunks-per-step", type=int, default=None)
     ap.add_argument("--decode-horizon", default="1",
                     help="decode steps fused into one device call per "
@@ -64,9 +75,10 @@ def main(argv=None) -> None:
     ap.add_argument("--decode-impl",
                     choices=SERVE_AXES["serve_decode_impl"] + ["auto"],
                     default="auto",
-                    help="decode attention: gathered pages (grouped/flat), "
-                         "the CUDA paged-decode kernel (cuda), or the "
-                         "measured VPE axis (auto)")
+                    help="decode attention: the contiguous cache or "
+                         "gathered pages (grouped/flat), the CUDA paged-"
+                         "decode kernel (cuda; grouped on a contiguous "
+                         "cache), or the measured VPE axis (auto)")
     ap.add_argument("--prefill-kernel",
                     choices=SERVE_AXES["prefill_kernel"] + ["auto"],
                     default="auto",
@@ -82,20 +94,13 @@ def main(argv=None) -> None:
                      f"{LATER[_LATER_FLAGS[flag]]}")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if not args.continuous:
-        ap.error("the wave scheduler is not ported yet (ROADMAP queue 1, "
-                 f"item {LATER['contiguous']}): pass --continuous")
-    if args.kv_layout != "paged":
-        item = "contiguous" if args.kv_layout == "contiguous" else "auto_layout"
-        ap.error(f"--kv-layout {args.kv_layout} is not ported yet: ROADMAP "
-                 f"queue 1, item {LATER[item]}")
     try:
         horizon = (args.decode_horizon if args.decode_horizon == "auto"
                    else int(args.decode_horizon))
     except ValueError:
         ap.error(f"--decode-horizon must be a step count or 'auto', got "
                  f"{args.decode_horizon!r}")
-    chunk = ("whole" if args.prefill_chunk == "whole"
+    chunk = (args.prefill_chunk if args.prefill_chunk in ("whole", "auto")
              else int(args.prefill_chunk))
 
     device = resolve_device(args.device)
@@ -110,12 +115,25 @@ def main(argv=None) -> None:
         prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
         max_new_tokens=args.new_tokens)
         for i in range(args.requests)]
+    if not args.continuous:
+        serve = ServeLoop(cfg, params, max_len=args.max_len, batch=args.batch,
+                          device=device)
+        sched = WaveScheduler(serve)
+        for r in reqs:
+            sched.submit(r)
+        done = sched.run()
+        st = serve.stats
+        print(f"completed {len(done)} requests; decode throughput "
+              f"{st.decode_tok_per_s:.1f} tok/s (prefill {st.prefill_s:.2f}s, "
+              f"decode {st.decode_s:.2f}s)")
+        return
     vpe = VPE()
     engine = ContinuousBatchingEngine(
         cfg, params, slots=args.batch, max_len=args.max_len, vpe=vpe,
-        block_size=args.block_size, prefill_chunk=chunk,
-        chunks_per_step=args.chunks_per_step, decode_horizon=horizon,
-        decode_impl=args.decode_impl,
+        prefix_blocks=args.prefix_blocks if args.prefix_cache else 0,
+        block_size=args.block_size, kv_layout=args.kv_layout,
+        prefill_chunk=chunk, chunks_per_step=args.chunks_per_step,
+        decode_horizon=horizon, decode_impl=args.decode_impl,
         prefill_kernel=args.prefill_kernel, device=device)
     for r in reqs:
         engine.submit(r)

@@ -1,7 +1,8 @@
 """Model facade: family dispatch for the serving and training surfaces of
 the port.
 
-The subset of ``repro.models.model`` the paged serving path and the
+The subset of ``repro.models.model`` the serving paths (the contiguous,
+paged and ``auto`` KV layouts, and the wave path's lockstep cache) and the
 training loop need.  Only the dense family is ported; the other families
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
@@ -70,6 +71,84 @@ def loss_fn(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor]
 
 
 # -- serving ------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device) -> Dict:
+    return family_module(cfg).init_cache(cfg, batch, max_len, device)
+
+
+def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int,
+                    device: torch.device) -> Dict:
+    return family_module(cfg).init_slot_cache(cfg, slots, max_len, device)
+
+
+def prefill(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor],
+            cache: Dict) -> Tuple[Dict, torch.Tensor]:
+    """batch {"tokens": (B, S)}: the lockstep cache filled in place, and the
+    last position's logits (B, 1, V)."""
+    return family_module(cfg).prefill(cfg, params, batch["tokens"], cache)
+
+
+def prefill_slot_kv(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
+                    true_len: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return family_module(cfg).prefill_slot_kv(cfg, params, tokens, true_len)
+
+
+def prefill_suffix_kv(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
+                      prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                      prefix_len: int, true_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return family_module(cfg).prefill_suffix_kv(
+        cfg, params, tokens, prefix_k, prefix_v, prefix_len, true_len)
+
+
+def decode_step(cfg: ModelConfig, params: Any, cache: Dict,
+                tokens: torch.Tensor, decode_impl: str = "grouped",
+                advance: Optional[torch.Tensor] = None
+                ) -> Tuple[Dict, torch.Tensor]:
+    """One decode step over a contiguous cache (lockstep or per slot)."""
+    return family_module(cfg).decode_step(cfg, params, cache, tokens,
+                                          decode_impl=decode_impl,
+                                          advance=advance)
+
+
+def decode_step_mixed(cfg: ModelConfig, params: Any, cache: Dict, pool: Dict,
+                      tokens: torch.Tensor, use_paged: torch.Tensor,
+                      live: torch.Tensor, decode_impl: str = "grouped",
+                      advance: Optional[torch.Tensor] = None
+                      ) -> Tuple[Dict, Dict, torch.Tensor]:
+    """Decode step of ``kv_layout="auto"``: returns (cache, pool, logits)."""
+    return family_module(cfg).decode_step_mixed(
+        cfg, params, cache, pool, tokens, use_paged, live,
+        decode_impl=decode_impl, advance=advance)
+
+
+def decode_steps_slots(cfg: ModelConfig, params: Any, cache: Dict,
+                       tokens: torch.Tensor, live: torch.Tensor,
+                       eos_ids: torch.Tensor, budget: torch.Tensor,
+                       horizon: int, decode_impl: str = "grouped"
+                       ) -> Tuple[Dict, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused decode over the contiguous slot cache: returns (cache,
+    tok_block (B, H), valid (B, H), final_tok (B,))."""
+    return family_module(cfg).decode_steps_slots(
+        cfg, params, cache, tokens, live, eos_ids, budget, horizon,
+        decode_impl=decode_impl)
+
+
+def decode_steps_mixed(cfg: ModelConfig, params: Any, cache: Dict, pool: Dict,
+                       tokens: torch.Tensor, use_paged: torch.Tensor,
+                       live: torch.Tensor, eos_ids: torch.Tensor,
+                       budget: torch.Tensor, horizon: int,
+                       decode_impl: str = "grouped"
+                       ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Fused decode of ``kv_layout="auto"``: returns (cache, pool,
+    tok_block, valid, final_tok)."""
+    return family_module(cfg).decode_steps_mixed(
+        cfg, params, cache, pool, tokens, use_paged, live, eos_ids, budget,
+        horizon, decode_impl=decode_impl)
+
 
 def init_page_pool(cfg: ModelConfig, num_pages: int, block_size: int,
                    device: torch.device) -> Dict:

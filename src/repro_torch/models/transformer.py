@@ -1,5 +1,6 @@
 """Decoder-only transformer, dense family: parameters, the whole-sequence
-training forward and the paged serving steps.
+training forward and the serving steps of the three KV layouts
+(contiguous slot cache, paged pool, and ``auto``'s both at once).
 
 The counterpart of the dense half of ``repro.models.transformer``.  The
 parameter dict has the reference's layout — per-layer weights stacked on a
@@ -135,6 +136,31 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
 
 # -- serving ------------------------------------------------------------------------
 
+def _cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """SWA archs keep a ring buffer of window size in the lockstep cache."""
+    if cfg.window is not None:
+        return min(max_len, cfg.window)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device) -> kvcache.Cache:
+    """Lockstep cache of the wave path (scalar length; a ring for SWA)."""
+    return kvcache.init_kv_cache(cfg.num_layers, batch, cfg.num_kv_heads,
+                                 _cache_len(cfg, max_len), cfg.head_dim,
+                                 device=device)
+
+
+def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int,
+                    device: torch.device) -> kvcache.Cache:
+    """Per-slot contiguous cache for continuous batching: ``length`` is
+    (slots,), always the full ``max_len`` (slot insertion needs absolute
+    positions, so no ring)."""
+    return kvcache.init_kv_cache(cfg.num_layers, slots, cfg.num_kv_heads,
+                                 max_len, cfg.head_dim, per_slot=True,
+                                 device=device)
+
+
 def init_page_pool(cfg: ModelConfig, num_pages: int, block_size: int,
                    device: torch.device) -> kvcache.Cache:
     """Unified paged KV pool (+1 trash row) in the COMPUTE dtype."""
@@ -202,6 +228,105 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = layers.rmsnorm(x, params["final_norm"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ head).float()
+
+
+def _prompt_attention(cfg: ModelConfig, s: AttnSpec, attn_impl: Optional[str]):
+    """The causal prompt attention ``ATTENTION_VARIANTS[attn_impl or
+    cfg.attn_impl]`` (``flash_cuda`` launches the flash kernel)."""
+    attn = layers.ATTENTION_VARIANTS[attn_impl or cfg.attn_impl]
+    return lambda q, k, v: attn(q, k, v, causal=True, window=s.window)
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            cache: Dict, attn_impl: Optional[str] = None
+            ) -> Tuple[Dict, torch.Tensor]:
+    """Run the prompts (B, S), write their K/V into the lockstep ``cache``
+    in place (a ring keeps the trailing window) and set its length to S.
+    Returns (cache, last-position logits (B, 1, V))."""
+    B, S = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(S, device=dev)
+    s = attn_spec(cfg)
+    attn_call = _prompt_attention(cfg, s, attn_impl)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    for l in range(cfg.num_layers):
+        x, k, v = _layer_kv_fwd(cfg, s, _layer(params, l), x, positions,
+                                attn_call)
+        kc, vc = cache["k"][l], cache["v"][l]
+        T_eff = kc.shape[2]
+        if T_eff < S:       # ring cache: keep the trailing window
+            k, v = k[:, :, -T_eff:], v[:, :, -T_eff:]
+        kvcache.update_layer_cache(kc, vc, k, v, zero)
+    cache["length"].fill_(S)
+    return cache, _logits(cfg, params, x[:, -1:])
+
+
+def prefill_slot_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                    true_len: int, attn_impl: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill ONE prompt for slot insertion.  tokens: (1, S_pad) right-
+    padded; ``true_len`` real tokens.  Returns the stacked K/V (L, 1, Hkv,
+    S_pad, D) for :func:`kvcache.insert_slot_kv` and the (1, V) logits at
+    position ``true_len - 1`` (causality keeps the padding out of every
+    real position)."""
+    S = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(S, device=tokens.device)
+    s = attn_spec(cfg)
+    attn_call = _prompt_attention(cfg, s, attn_impl)
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        x, k, v = _layer_kv_fwd(cfg, s, _layer(params, l), x, positions,
+                                attn_call)
+        ks.append(k)
+        vs.append(v)
+    logits = _logits(cfg, params, x[:, true_len - 1:true_len])[:, 0, :]
+    return torch.stack(ks), torch.stack(vs), logits
+
+
+def prefill_suffix_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                      prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                      prefix_len: int, true_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill ONLY a prompt's suffix against cached prefix K/V.
+
+    prefix_k/v: (L, 1, Hkv, P_pad, D) gathered pages, valid below
+    ``prefix_len``; tokens: (1, S_pad) right-padded suffix at absolute
+    positions ``prefix_len + i``.  Suffix attention is causal (and
+    sliding-window when the arch has one) over prefix and suffix keys,
+    through :func:`_prefix_attention`.  Returns the suffix's stacked K/V
+    (L, 1, Hkv, S_pad, D), to insert at ``prefix_len``, and the (1, V)
+    logits at suffix position ``true_len - 1``."""
+    S = tokens.shape[1]
+    P_pad = prefix_k.shape[3]
+    dev = tokens.device
+    x = params["embed"][tokens.long()]
+    positions = prefix_len + torch.arange(S, device=dev)
+    s = attn_spec(cfg)
+    # prefix columns [0, P_pad) at their own positions (valid below
+    # prefix_len), suffix columns at prefix_len + local index
+    cols = torch.arange(P_pad + S, device=dev)
+    col_abs = torch.where(cols < P_pad, cols, prefix_len + cols - P_pad)
+    col_valid = (cols >= P_pad) | (cols < prefix_len)
+    row_abs = prefix_len + torch.arange(S, device=dev)
+    mask = col_valid[None, :] & (col_abs[None, :] <= row_abs[:, None])
+    if s.window is not None:
+        mask &= col_abs[None, :] > row_abs[:, None] - s.window
+    mask = mask[None]                        # (1, S, P_pad + S)
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        def attn_call(q, k, v, pk=prefix_k[l], pv=prefix_v[l]):
+            k_full = torch.cat([pk.to(k.dtype), k], dim=2)
+            v_full = torch.cat([pv.to(v.dtype), v], dim=2)
+            return _prefix_attention(q, k_full, v_full, mask)
+
+        x, k, v = _layer_kv_fwd(cfg, s, _layer(params, l), x, positions,
+                                attn_call)
+        ks.append(k)
+        vs.append(v)
+    logits = _logits(cfg, params, x[:, true_len - 1:true_len])[:, 0, :]
+    return torch.stack(ks), torch.stack(vs), logits
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Dict,
@@ -288,6 +413,90 @@ def _post_attn(cfg: ModelConfig, lp: Params, x: torch.Tensor, o: torch.Tensor
     return x + layers.swiglu(_sub(lp, "ffn_"), h)
 
 
+def decode_step(cfg: ModelConfig, params: Params, cache: Dict,
+                tokens: torch.Tensor, decode_impl: Optional[str] = None,
+                advance: Optional[torch.Tensor] = None
+                ) -> Tuple[Dict, torch.Tensor]:
+    """One decode step over a contiguous cache; tokens (B, 1).
+
+    A scalar ``length`` is the lockstep batch of the wave path (ring
+    caches for SWA); a per-slot ``(B,)`` length is continuous batching:
+    every row writes and attends at its own position, and a free slot
+    decodes garbage into its own rows that the host discards.  K/V and
+    lengths are written in place; lengths move by ``advance`` (by one
+    when None) — a slot frozen mid-horizon re-writes its own frozen
+    position.  Returns (cache, logits (B, 1, V))."""
+    B = tokens.shape[0]
+    x = params["embed"][tokens.long()]
+    length = cache["length"]
+    per_slot = length.ndim == 1
+    positions = length[:, None] if per_slot else length.expand(B)[:, None]
+    s = attn_spec(cfg)
+    attn_fn = kvcache.DECODE_ATTN_VARIANTS[decode_impl or "grouped"]
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        kc, vc = cache["k"][l], cache["v"][l]
+        ring = (not per_slot and cfg.window is not None
+                and kc.shape[2] <= cfg.window)
+        rw = kc.shape[2] if ring else None
+        h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
+        q, k, v = layers.attn_qkv(_sub(lp, "attn_"), s, h, positions)
+        kvcache.update_layer_cache(kc, vc, k, v, length, ring_window=rw)
+        o = attn_fn(q, kc, vc, length, window=cfg.window, ring_window=rw)
+        x = _post_attn(cfg, lp, x, o)
+    logits = _logits(cfg, params, x)
+    length.add_(1 if advance is None else advance)
+    return cache, logits
+
+
+def decode_step_mixed(cfg: ModelConfig, params: Params, cache: Dict,
+                      pool: Dict, tokens: torch.Tensor, use_paged: torch.Tensor,
+                      live: torch.Tensor, decode_impl: Optional[str] = None,
+                      advance: Optional[torch.Tensor] = None
+                      ) -> Tuple[Dict, Dict, torch.Tensor]:
+    """Decode step of ``kv_layout="auto"``: each slot is in EITHER layout.
+
+    cache: the contiguous slot cache plus the block table "bt"; use_paged:
+    (B,) int mask of the slots that decode through the pool.  QKV and FFN
+    run once; both attention reads are computed and selected per slot
+    (each read of a slot in the other layout is garbage the select
+    drops).  Writes go to both: the contiguous write stays in the slot's
+    own rows, the paged append goes to the trash page for every slot not
+    live and paged.  ``cuda`` reads the pages through the decode kernel,
+    and the contiguous read is its grouped rung.  Returns (cache, pool,
+    logits)."""
+    x = params["embed"][tokens.long()]
+    length = cache["length"]
+    bt = cache["bt"]
+    positions = length[:, None]
+    trash = pool["k"].shape[1] - 1
+    paged_live = live * use_paged
+    s = attn_spec(cfg)
+    impl = decode_impl or "grouped"
+    use_kernel = impl in kvcache.PAGED_KERNEL_IMPLS
+    attn_fn = kvcache.DECODE_ATTN_VARIANTS[impl]
+    sel = use_paged[:, None, None, None] > 0
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        kc, vc = cache["k"][l], cache["v"][l]
+        pk, pv = pool["k"][l], pool["v"][l]
+        h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
+        q, k, v = layers.attn_qkv(_sub(lp, "attn_"), s, h, positions)
+        kvcache.update_layer_cache(kc, vc, k, v, length)
+        kvcache.append_token_paged(pk, pv, k, v, bt, length, paged_live, trash)
+        if use_kernel:
+            o_p = kvcache.paged_decode_attention_kernel(
+                q, pk, pv, bt, length, window=cfg.window, read_dtype=kc.dtype)
+        else:
+            kg, vg = kvcache.paged_gather_layer(pk, pv, bt, out_dtype=kc.dtype)
+            o_p = attn_fn(q, kg, vg, length, window=cfg.window)
+        o_c = attn_fn(q, kc, vc, length, window=cfg.window)
+        x = _post_attn(cfg, lp, x, torch.where(sel, o_p, o_c))
+    logits = _logits(cfg, params, x)
+    length.add_(1 if advance is None else advance)
+    return cache, pool, logits
+
+
 def decode_step_paged(cfg: ModelConfig, params: Params, pool: Dict,
                       cache: Dict, tokens: torch.Tensor, live: torch.Tensor,
                       decode_impl: Optional[str] = None,
@@ -342,12 +551,13 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Dict,
 # Up to H decode steps back to back on the device: the greedy argmax of
 # step j feeds step j+1's embedding without a host round trip, and a stop
 # mask (per-slot EOS id, per-slot token budget) freezes a finished slot —
-# its appends go to the trash page and its length stops — so nothing it
-# does after its stop is observable.  Each step is the SAME single step
+# its page appends go to the trash page, its contiguous writes re-write its
+# own frozen position, and its length stops — so nothing it does after
+# its stop is observable.  Each step is the SAME single step of the layout
 # above with ``advance`` = the not-yet-stopped mask, which makes a horizon
 # token-exact with H single steps.  The reference scans this loop inside
 # one jit; here it is a Python loop, which the serve engine captures once
-# per (decode-attention variant, H) in a CUDA graph and replays
+# per (layout, decode-attention variant, H) in a CUDA graph and replays
 # (:mod:`repro_torch.runtime.decode_graphs`).
 
 def _horizon_loop(step_fn, tokens: torch.Tensor, live: torch.Tensor,
@@ -384,6 +594,43 @@ def _horizon_loop(step_fn, tokens: torch.Tensor, live: torch.Tensor,
         toks.append(nxt)
         emits.append(step_live)
     return torch.stack(toks, dim=1), torch.stack(emits, dim=1), tok
+
+
+def decode_steps_slots(cfg: ModelConfig, params: Params, cache: Dict,
+                       tokens: torch.Tensor, live: torch.Tensor,
+                       eos_ids: torch.Tensor, budget: torch.Tensor,
+                       horizon: int, decode_impl: Optional[str] = None
+                       ) -> Tuple[Dict, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused H-step decode over the contiguous slot cache (updated in
+    place).  Returns (cache, tok_block (B, H), valid (B, H), final_tok
+    (B,)) — see :func:`_horizon_loop` for the stop contract."""
+    def step_fn(tok, step_live):
+        return decode_step(cfg, params, cache, tok, decode_impl=decode_impl,
+                           advance=step_live)[1]
+
+    toks, valid, tok = _horizon_loop(step_fn, tokens, live, eos_ids, budget,
+                                     horizon)
+    return cache, toks, valid, tok
+
+
+def decode_steps_mixed(cfg: ModelConfig, params: Params, cache: Dict,
+                       pool: Dict, tokens: torch.Tensor, use_paged: torch.Tensor,
+                       live: torch.Tensor, eos_ids: torch.Tensor,
+                       budget: torch.Tensor, horizon: int,
+                       decode_impl: Optional[str] = None
+                       ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Fused H-step decode of ``kv_layout="auto"`` (both reads selected per
+    slot, as :func:`decode_step_mixed`); cache and pool updated in place.
+    Returns (cache, pool, tok_block, valid, final_tok)."""
+    def step_fn(tok, step_live):
+        return decode_step_mixed(cfg, params, cache, pool, tok, use_paged,
+                                 step_live, decode_impl=decode_impl,
+                                 advance=step_live)[2]
+
+    toks, valid, tok = _horizon_loop(step_fn, tokens, live, eos_ids, budget,
+                                     horizon)
+    return cache, pool, toks, valid, tok
 
 
 def decode_steps_paged(cfg: ModelConfig, params: Params, pool: Dict,

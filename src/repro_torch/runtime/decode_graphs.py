@@ -5,25 +5,33 @@ The counterpart of the reference engine's per-(variant, H) jit cache
 ``_fused_fn``).  JAX compiles a decode call once and dispatches it once;
 PyTorch runs eagerly, so one decode step of the port issues some sixty
 small operations a layer from the host, and the card waits on the host.
-A :class:`DecodeGraphs` owns one engine's decode calls: each is
-:func:`repro_torch.models.model.decode_steps_paged` over the engine's
-buffers, captured in a ``torch.cuda.CUDAGraph`` at the first call of its
-(decode-attention variant, H) and replayed from then on — one launch a
-call.  On the CPU the same function runs eagerly.
+A :class:`DecodeGraphs` owns one engine's decode calls: each is the fused
+decode function of the engine's KV layout over its buffers
+(:func:`repro_torch.models.model.decode_steps_paged`, ``_slots`` for the
+contiguous layout, ``_mixed`` for ``auto``), captured in a
+``torch.cuda.CUDAGraph`` at the first call of its (decode-attention
+variant, H) and replayed from then on — one launch a call.  The layout is
+fixed for the object's life, so each engine has a graph per (layout,
+variant, H).  On the CPU the same function runs eagerly.
 
 A graph reads and writes fixed addresses, so every tensor it touches
 lives as long as the engine and is written in place, never rebound: the
-(4, B) int32 input block (the rows ``tok``, ``live``, ``eos`` with -1 for
-none, ``budget``), the block table and lengths of the cache, the page
-pool and the weights.  The captured call ends by copying its final tokens
-into ``tok``, so a steady decode needs no upload.
+(5, B) int32 input block (the rows ``tok``, ``live``, ``eos`` with -1 for
+none, ``paged``, the ``auto`` layout's per-slot mask of slots that decode
+through the pool, and ``budget``), the cache (the contiguous K/V and
+lengths, and the block table), the page pool and the weights.  The
+captured call ends by copying its final tokens into ``tok``, so a steady
+decode needs no upload.
 
-Capture has no side effect: the warm-up that precedes it (one eager call
-on the capture stream, which sets up cuBLAS for that stream and raises
-the decode kernel's shared-memory limit outside the capture) and the
-capture itself run with ``live`` at zero — every append goes to the trash
-page and no length moves — and the real mask is restored after.  A
-failed capture or replay raises; there is no eager retry.
+Capture changes nothing a later read sees: the warm-up that precedes it
+(one eager call on the capture stream, which sets up cuBLAS for that
+stream and raises the decode kernel's shared-memory limit outside the
+capture) and the capture itself run with ``live`` at zero, so no length
+moves and every page append goes to the trash page.  A contiguous write
+still lands in each slot's own rows at its current length: a position
+the slot's next real step writes before it reads it, or one that its
+length masks.  The real mask is restored after.  A failed capture or
+replay raises; there is no eager retry.
 
 Launch counts: the decode kernel's wrapper counts its calls in Python,
 so it counts the warm-up's launches and the capture's recorded calls, and
@@ -50,7 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.models import model as model_lib
 
-INPUT_ROWS = ("tok", "live", "eos", "budget")
+INPUT_ROWS = ("tok", "live", "eos", "paged", "budget")
 
 
 @dataclasses.dataclass
@@ -61,20 +69,25 @@ class _Graph:
 
 
 class DecodeGraphs:
-    """One engine's decode calls, captured per (variant, H) on the card.
+    """One engine's decode calls, captured per (variant, H) on the card
+    for the engine's one layout.
 
-    ``inputs`` is the engine's (4, B) int32 block of decode inputs, rows
-    in :data:`INPUT_ROWS` order; ``pool`` and ``cache`` are its page pool
-    and paged cache.  None of them may be rebound while this object
-    lives."""
+    ``layout`` is the engine's KV layout (``"contiguous"``, ``"paged"`` or
+    ``"auto"``); ``cache`` its
+    cache (paged: block table and lengths; contiguous: the slot cache;
+    ``auto``: the slot cache with the block table); ``pool`` its page pool
+    (None for the contiguous layout); ``inputs`` its (5, B) int32 block of
+    decode inputs, rows in :data:`INPUT_ROWS` order.  None of them may be
+    rebound while this object lives."""
 
-    def __init__(self, cfg: ModelConfig, params, pool: Dict, cache: Dict,
-                 inputs: torch.Tensor) -> None:
+    def __init__(self, cfg: ModelConfig, params, layout: str, cache: Dict,
+                 inputs: torch.Tensor, pool: Optional[Dict] = None) -> None:
         self.cfg = cfg
         self.params = params
+        self.layout = layout
         self.pool = pool
         self.cache = cache
-        self.tok, self.live, self.eos, self.budget = inputs.unbind(0)
+        self.tok, self.live, self.eos, self.paged, self.budget = inputs.unbind(0)
         self.device = inputs.device
         self.graphs: Dict[Tuple[str, int], _Graph] = {}
         self.captures = 0
@@ -90,9 +103,18 @@ class DecodeGraphs:
         """One decode call over the engine's buffers; returns the (2, B, H)
         token block and valid mask, and leaves the final tokens in
         ``tok``."""
-        _, _, toks, valid, final = model_lib.decode_steps_paged(
-            self.cfg, self.params, self.pool, self.cache, self.tok[:, None],
-            self.live, self.eos, self.budget, horizon, decode_impl=impl)
+        args = (self.tok[:, None], self.live, self.eos, self.budget, horizon)
+        if self.layout == "paged":
+            *_, toks, valid, final = model_lib.decode_steps_paged(
+                self.cfg, self.params, self.pool, self.cache, *args,
+                decode_impl=impl)
+        elif self.layout == "contiguous":
+            *_, toks, valid, final = model_lib.decode_steps_slots(
+                self.cfg, self.params, self.cache, *args, decode_impl=impl)
+        else:
+            *_, toks, valid, final = model_lib.decode_steps_mixed(
+                self.cfg, self.params, self.cache, self.pool,
+                self.tok[:, None], self.paged, *args[1:], decode_impl=impl)
         self.tok.copy_(final)
         return torch.stack((toks, valid))
 

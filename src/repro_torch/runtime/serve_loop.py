@@ -1,41 +1,63 @@
-"""Serving runtime: token-level continuous batching over the paged KV layout.
+"""Serving runtime: the wave baseline and token-level continuous batching.
 
-The counterpart of ``repro.runtime.serve_loop.ContinuousBatchingEngine``,
-restricted to the main serving path: greedy decoding of a dense model with
-``kv_layout="paged"``.  A request is *placed* (pages allocated, block-table
-row installed), prefilled in chunks that read every earlier position in
-place through its block table, then decoded until EOS or its token
-budget retires it and frees its slot for the next
-request in the queue.  A decode call advances every decoding slot by
-one token, or by up to H tokens in one fused horizon (``decode_horizon``):
-H single steps on the device, the greedy token of each feeding the next,
-with the pages the horizon can write reserved before the call and those a
-stopped slot left unused returned after it.
+The counterpart of ``repro.runtime.serve_loop``.  ``ServeLoop.generate`` is
+the simple batch API (one prefill, N decode steps, every row in lockstep)
+and :class:`WaveScheduler` the baseline batcher on it: a wave of requests
+runs to completion before the next starts.
 
-Three measured implementation axes (VPE, the paper's profile-guided
-dispatch) pick the attention backends and the horizon when left at
-``"auto"``:
+:class:`ContinuousBatchingEngine` serves greedy decoding of a dense model
+over a fixed pool of decode slots; a finished request frees its slot
+mid-decode and the next queued request enters it.  Each slot holds its KV
+in one of two layouts (``kv_layout``):
 
-* ``serve_decode_impl`` — ``grouped``/``flat`` attend over gathered pages,
-  ``cuda`` scores pages in place through the decode kernel; keyed by slot
-  occupancy and fed from the fenced wall of each decode step;
+* ``"contiguous"`` — a region of the per-slot cache.  Admission prefills
+  the whole prompt at once and copies its K/V in; a warm prefix is copied
+  in from cached pages and only the suffix is prefilled.
+* ``"paged"`` — a block table of page ids into the unified page pool that
+  the prefix tree shares.  Admission only *places* the request: matched
+  pages are aliased (zero-copy, copy-on-write on a partially matched tail
+  block), pages covering the rest are allocated, the block-table row is
+  installed; the prompt is then prefilled in chunks, between decode
+  steps, that read every earlier position in place through the table.
+  A cold prompt's full blocks are adopted into the tree zero-copy.
+* ``"auto"`` — both structures, and the layout of each admission is a
+  measured VPE decision; the decode step computes both reads and selects
+  per slot.
+
+With ``prefix_blocks > 0`` a radix-tree shared-prefix cache
+(:class:`~repro_torch.runtime.prefix_cache.PrefixCache`) sits in front of
+admission: the longest cached prefix of the prompt is matched and pinned
+for the request's residency, and admission is prefix-aware (the best match
+in the queue's front window goes first; a request is jumped at most
+``max_skip`` times).  A decode call advances every decoding slot by one
+token, or by up to H tokens in one fused horizon (``decode_horizon``).
+
+Measured implementation axes (VPE, the paper's profile-guided dispatch):
+
+* ``serve_decode_impl`` — ``grouped``/``flat`` attend over the contiguous
+  cache or gathered pages, ``cuda`` scores pages in place through the
+  decode kernel (on a contiguous cache it is ``grouped``); keyed by slot
+  occupancy and fed from the wall of each decode call;
+* ``prefix_reuse`` — reuse the cached prefix or recompute it; keyed by
+  matched length and fed from the admission's TTFT contribution;
+* ``kv_layout`` (``auto`` only) — keyed by matched length × occupancy and
+  fed at retire from the admission wall plus the request's share of the
+  decode calls;
 * ``prefill_kernel`` — ``gather`` or the ``cuda`` multi-query kernel for
-  chunked prefill; keyed by prompt length × occupancy and fed from the
-  summed chunk walls of an admission;
+  chunked prefill; keyed by prompt length × occupancy;
 * ``decode_horizon`` — ``1`` or a fused horizon from ``horizon_choices``;
-  keyed by queue depth × occupancy and fed from the per-token wall of the
-  whole decode span.
+  keyed by queue depth × occupancy and fed from per-token walls.
 
 A pinned ``"cuda"`` runs the kernel — or raises; there is no fallback
-ladder.  On a CUDA device the kernels are built and launched once in the
-constructor, so no timed step pays for ``nvcc`` or a first load, and every
-decode call replays a CUDA graph captured at the first call of its
-(decode-attention variant, H) (:mod:`repro_torch.runtime.decode_graphs`,
-the counterpart of the reference's per-(variant, H) jit).  The call that
-captured is the counterpart of a call that compiled: it is counted in
-``stats.tainted_steps`` and feeds no axis.
+ladder.  On a CUDA device the kernels the layout runs are built and
+launched once in the constructor, so no timed step pays for ``nvcc`` or a
+first load, and every decode call replays a CUDA graph captured at the
+first call of its (layout, decode-attention variant, H)
+(:mod:`repro_torch.runtime.decode_graphs`, the counterpart of the
+reference's jit cache).  A call that captured is the counterpart of a call
+that compiled: it is counted in ``stats.tainted_steps`` and feeds no axis.
 
-Features of the reference engine outside this slice raise ``ValueError``
+Features of the reference engine outside this port raise ``ValueError``
 naming the ROADMAP item that ports them.
 """
 
@@ -50,28 +72,30 @@ import torch
 
 from repro_torch import DeviceLike, fence, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import (VPE, decode_horizon_bucket, occupancy_bucket,
-                              pad_to_bucket, prefill_chunk_bucket)
+from repro_torch.core import (VPE, decode_horizon_bucket, kv_layout_bucket,
+                              occupancy_bucket, pad_to_bucket,
+                              prefill_chunk_bucket, prefix_len_bucket)
 from repro_torch.models import kvcache
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.decode_graphs import INPUT_ROWS, DecodeGraphs
 from repro_torch.runtime.page_pool import PagePool
+from repro_torch.runtime.prefix_cache import PrefixCache
 
 # serve-engine implementation axes (first = default)
 SERVE_AXES: Dict[str, List[str]] = {
-    "serve_decode_impl": [*kvcache.DECODE_ATTN_VARIANTS,
-                          *kvcache.PAGED_KERNEL_IMPLS],
+    "serve_decode_impl": list(kvcache.DECODE_ATTN_VARIANTS),
+    "prefix_reuse": ["reuse", "recompute"],
+    "kv_layout": ["contiguous", "paged"],
     "prefill_kernel": ["gather", "cuda"],
 }
 
+KV_LAYOUTS = ("contiguous", "paged", "auto")
+
 PRIORITY_CLASSES = ("interactive", "batch")
 
-# reference engine features outside this slice -> the ROADMAP item (queue
-# 1, "Modules still to port", item 8) that ports each
+# reference engine features outside this port -> the ROADMAP item (queue
+# 1, "Modules still to port", label 8) that ports each
 LATER = {
-    "contiguous": "8(a) contiguous layout",
-    "prefix_cache": "8(b) prefix cache",
-    "auto_layout": "8(c) auto layout",
     "chunk_axis": "8(d) measured prefill-chunk axis",
     "preemption": "8(f) preemption, priority scheduling and swap",
     "speculation": "8(g) speculation",
@@ -99,6 +123,12 @@ def _intake_error(req: "Request", max_len: int) -> Optional[str]:
     return None
 
 
+class _PagePressure(RuntimeError):
+    """The free list and prefix-tree eviction could not supply a page.
+    Placement rolls back and requeues on it; decode growth lets it
+    propagate, since the preemption that would recover is not ported."""
+
+
 @dataclasses.dataclass
 class ServeStats:
     prefill_s: float = 0.0
@@ -108,9 +138,20 @@ class ServeStats:
     decode_steps: int = 0
     ttft_s: List[float] = dataclasses.field(default_factory=list)
     queue_wait_s: List[float] = dataclasses.field(default_factory=list)
-    # placement wall per admission (page allocation + block-table install)
+    # shared-prefix cache (0 when the cache is off): lookups, admissions
+    # that reused a cached prefix, prompt tokens served from cached pages
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    prefix_tokens_saved: int = 0
+    # KV-placement wall per admission: contiguous, the copy of the prompt's
+    # (or the cached prefix's) K/V into the slot region; paged, aliasing,
+    # copy-on-write and the block-table install
     kv_place_s: List[float] = dataclasses.field(default_factory=list)
     paged_admits: int = 0
+    cow_copies: int = 0              # partially matched tail blocks cloned
+    placement_rollbacks: int = 0     # placements undone for want of pages
+    sched_skips: int = 0             # queue entries jumped by prefix-aware
+                                     # admission
     prefill_chunks: int = 0          # chunked-prefill calls
     # decode service interruption per engine step: the wall of the
     # admission + prefill-chunk phase ahead of a decode step, recorded
@@ -158,13 +199,22 @@ class ServeStats:
     def failed_requests(self) -> int:
         return sum(self.failed_by_reason.values())
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        return (self.prefix_hits / self.prefix_lookups
+                if self.prefix_lookups else 0.0)
+
     def summary(self) -> str:
         s = (f"{self.tokens_out} tok, {self.total_tok_per_s:.1f} tok/s agg "
              f"({self.decode_tok_per_s:.1f} decode), "
              f"ttft {self.mean_ttft_s * 1e3:.1f}ms, "
              f"queue {self.mean_queue_wait_s * 1e3:.1f}ms")
+        if self.prefix_lookups:
+            s += (f", prefix-cache {self.prefix_hits}/{self.prefix_lookups} "
+                  f"hits ({self.prefix_tokens_saved} tok saved)")
         if self.paged_admits:
-            s += f", paged {self.paged_admits} admits"
+            s += (f", paged {self.paged_admits} admits "
+                  f"({self.cow_copies} cow)")
         if self.prefill_chunks:
             s += f", {self.prefill_chunks} prefill chunks"
         if self.horizon_calls:
@@ -175,6 +225,48 @@ class ServeStats:
                            for k, v in sorted(self.failed_by_reason.items()))
             s += f", {self.failed_requests} failed ({by})"
         return s
+
+
+class ServeLoop:
+    """Batch generation: one prefill of B prompts into a lockstep cache,
+    then ``max_new_tokens`` greedy decode steps for all rows together."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int = 256,
+                 batch: int = 4, device: DeviceLike = "cuda") -> None:
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params are on {params['embed'].device}, the "
+                             f"serve loop on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.batch = batch
+        self.stats = ServeStats()
+
+    def generate(self, batch_in: Dict[str, np.ndarray],
+                 max_new_tokens: int) -> np.ndarray:
+        """batch_in: {"tokens": (B, S)} -> (B, max_new_tokens) int32."""
+        tokens = torch.as_tensor(np.asarray(batch_in["tokens"], np.int32),
+                                 device=self.device)
+        B = tokens.shape[0]
+        cache = model_lib.init_cache(self.cfg, B, self.max_len, self.device)
+        t0 = time.perf_counter()
+        cache, logits = model_lib.prefill(self.cfg, self.params,
+                                          {"tokens": tokens}, cache)
+        fence(self.device)
+        self.stats.prefill_s += time.perf_counter() - t0
+        out = []
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+        t0 = time.perf_counter()
+        for _ in range(max_new_tokens):
+            out.append(tok)
+            cache, logits = model_lib.decode_step(self.cfg, self.params,
+                                                  cache, tok)
+            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+        new = torch.cat(out, dim=1).cpu().numpy()      # the fence
+        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.tokens_out += B * max_new_tokens
+        return new
 
 
 @dataclasses.dataclass
@@ -194,8 +286,12 @@ class Request:
     queue_wait_s: float = 0.0
     ttft_s: float = 0.0
     done_t: float = 0.0
-    # priority class (validated at intake; this slice admits in FIFO
-    # order), lifecycle status ("queued" -> "running" -> "done" |
+    # the prefix-cache pin held while resident, and the times a later
+    # request was admitted ahead of this one (bounded by max_skip)
+    cache_handle: Optional[Any] = None
+    skips: int = 0
+    # priority class (validated at intake; priority-aware scheduling is
+    # not ported), lifecycle status ("queued" -> "running" -> "done" |
     # "failed") and the terminal error code + message of a failed request
     priority: str = "batch"
     status: str = "queued"
@@ -203,13 +299,50 @@ class Request:
     error_detail: Optional[str] = None
 
 
+class WaveScheduler:
+    """Wave batching over a fixed decode batch (the baseline).
+
+    A wave of ``serve.batch`` requests runs to completion — left-padded to
+    the longest prompt and decoded for the wave's longest
+    ``max_new_tokens`` — before the next wave starts.  No mid-decode
+    admission: this is what :class:`ContinuousBatchingEngine` is measured
+    against."""
+
+    def __init__(self, serve: ServeLoop) -> None:
+        self.serve = serve
+        self.queue: List[Request] = []
+        self.completed: List[Request] = []
+
+    def submit(self, req: Request) -> None:
+        req.submit_t = time.perf_counter()
+        self.queue.append(req)
+
+    def run(self) -> List[Request]:
+        B = self.serve.batch
+        while self.queue:
+            wave, self.queue = self.queue[:B], self.queue[B:]
+            span = max(len(r.prompt) for r in wave)
+            toks = np.zeros((len(wave), span), np.int32)
+            for i, r in enumerate(wave):
+                toks[i, -len(r.prompt):] = r.prompt  # left-pad
+            new = self.serve.generate({"tokens": toks},
+                                      max(r.max_new_tokens for r in wave))
+            for i, r in enumerate(wave):
+                r.out = [int(t) for t in new[i, :r.max_new_tokens]]
+                r.done = True
+                r.status = "done"
+                self.completed.append(r)
+        return self.completed
+
+
 @dataclasses.dataclass
 class _Slot:
     req: Optional[Request] = None
     tok: int = 0                 # last generated token (next decode input)
+    layout: str = "contiguous"   # KV layout this residency decodes through
     pos: int = 0                 # host mirror of cache["length"][slot]
     pages: List[int] = dataclasses.field(default_factory=list)
-    # chunked-prefill state: an admission is placed at once and then
+    # chunked-prefill state: a paged admission is placed at once and then
     # prefilled chunk by chunk between decode steps
     prefilling: bool = False
     fill_pos: int = 0            # prompt positions already prefilled
@@ -218,6 +351,17 @@ class _Slot:
     # and in auto mode the bucket its chunk walls feed
     kernel: str = "gather"
     kernel_bucket: Optional[Tuple] = None
+    place_wall: float = 0.0      # the paged placement span of this admission
+    # prefix_reuse sample, fed when the prefill completes
+    reuse_bucket: Optional[Tuple] = None
+    reuse_variant: str = "reuse"
+    # kv_layout sample (auto mode), fed at retire: the admission wall
+    # (placement + prefill) plus this request's share of each decode call
+    # that did not capture its graph, extrapolated over the calls that did
+    admit_wall: float = 0.0
+    admit_bucket: Optional[Tuple] = None
+    steps_resident: int = 0
+    clean_step_shares: List[float] = dataclasses.field(default_factory=list)
 
     @property
     def free(self) -> bool:
@@ -229,9 +373,13 @@ class ContinuousBatchingEngine:
 
     Engine iteration (:meth:`step`):
 
-    1. **admit** — while a slot is free and the queue is non-empty, the
-       oldest request is placed: pages covering its prompt are allocated
-       and its block-table row installed; the slot starts prefilling;
+    1. **admit** — while a slot is free and the queue is non-empty, pick a
+       request (prefix-aware when the cache is on).  A *contiguous*
+       admission prefills the whole prompt (or, warm, its suffix) and
+       copies its K/V into the slot; a *paged* admission is only placed —
+       matched pages aliased, a partial tail cloned copy-on-write, pages
+       for the rest allocated, the block-table row installed — and the
+       slot starts prefilling;
     2. **prefill chunks** — at most ``chunks_per_step`` chunks run,
        round-robin over prefilling slots; each reads every earlier
        position through the slot's block table and writes its own K/V
@@ -241,39 +389,43 @@ class ContinuousBatchingEngine:
        by up to H in a fused horizon (free and prefilling slots decode
        garbage that is discarded);
     4. **retire** — a request hitting EOS or ``max_new_tokens`` completes
-       and frees its slot and pages at once.
+       and frees its slot at once (its private pages too; pages the tree
+       adopted live on through the tree's reference).
 
-    ``prefill_chunk`` is the chunk size in tokens, or ``"whole"`` for one
-    chunk per prompt.  ``decode_horizon`` is a step count >= 1, or
-    ``"auto"`` for the measured axis over 1 and ``horizon_choices``.
-    ``device`` defaults to ``"cuda"`` and must hold ``params``; ``"cpu"``
-    runs the kernels' plain versions.
+    ``kv_layout`` is ``"contiguous"`` (the default, as the reference's),
+    ``"paged"`` or ``"auto"``; ``prefix_blocks`` > 0 turns the prefix
+    cache on (``partial_match``: paged admissions may also match the
+    leading tokens of one more block, cloned copy-on-write;
+    ``sched_window``/``max_skip``: the prefix-aware admission window and
+    its starvation bound).  ``prefill_chunk`` is the chunk size in tokens
+    of paged admissions, or ``"whole"`` for one chunk per prompt.
+    ``decode_horizon`` is a step count >= 1, or ``"auto"`` for the
+    measured axis over 1 and ``horizon_choices``.  ``device`` defaults to
+    ``"cuda"`` and must hold ``params``; ``"cpu"`` runs the kernels'
+    plain versions.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
                  max_len: int = 256, vpe: Optional[VPE] = None,
                  occupancy_levels: int = 4, min_prompt_pad: int = 16,
-                 block_size: int = 16, kv_layout: str = "paged",
+                 prefix_blocks: int = 0, block_size: int = 16,
+                 kv_layout: str = "contiguous", partial_match: bool = True,
+                 max_skip: int = 4, sched_window: int = 16,
                  prefill_chunk: Any = "whole",
                  chunks_per_step: Optional[int] = None,
                  decode_horizon: Any = 1,
                  horizon_choices: Tuple[int, ...] = (4, 16),
                  decode_impl: str = "auto", prefill_kernel: str = "auto",
-                 prefix_blocks: int = 0, spec_draft: Any = "off",
+                 spec_draft: Any = "off",
                  page_budget: Optional[int] = None, swap: bool = False,
                  fault_plan: Any = None, max_queue_depth: Optional[int] = None,
                  mesh_shape: Tuple[int, int] = (1, 1),
                  device: DeviceLike = "cuda") -> None:
         if not model_lib.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} has no slot-serving path")
-        if kv_layout == "contiguous":
-            raise not_ported("kv_layout='contiguous'", "contiguous")
-        if kv_layout == "auto":
-            raise not_ported("kv_layout='auto'", "auto_layout")
-        if kv_layout != "paged":
-            raise ValueError(f"kv_layout must be 'paged', got {kv_layout!r}")
-        if prefix_blocks:
-            raise not_ported("prefix_blocks > 0", "prefix_cache")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
+                             f"got {kv_layout!r}")
         if spec_draft != "off":
             raise not_ported(f"spec_draft={spec_draft!r}", "speculation")
         if page_budget is not None or swap:
@@ -306,9 +458,10 @@ class ContinuousBatchingEngine:
         if prefill_kernel != "auto" and prefill_kernel not in SERVE_AXES["prefill_kernel"]:
             raise ValueError(f"prefill_kernel must be 'auto' or one of "
                              f"{SERVE_AXES['prefill_kernel']}, got {prefill_kernel!r}")
-        if max_len % block_size:
-            raise ValueError(f"max_len ({max_len}) must be a multiple of "
-                             f"block_size ({block_size})")
+        paged_capable = kv_layout in ("paged", "auto")
+        if paged_capable and max_len % block_size:
+            raise ValueError(f"paged layouts need max_len ({max_len}) divisible "
+                             f"by block_size ({block_size})")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -321,6 +474,10 @@ class ContinuousBatchingEngine:
         self.occupancy_levels = occupancy_levels
         self.min_prompt_pad = min_prompt_pad
         self.block_size = block_size
+        self.kv_layout = kv_layout
+        self.partial_match = partial_match
+        self.max_skip = max_skip
+        self.sched_window = sched_window
         self.prefill_chunk = 0 if prefill_chunk == "whole" else int(prefill_chunk)
         self.chunks_per_step = chunks_per_step
         self.decode_horizon = (decode_horizon if decode_horizon == "auto"
@@ -331,18 +488,24 @@ class ContinuousBatchingEngine:
         self.stats = ServeStats()
         self.queue: List[Request] = []
         self.completed: List[Request] = []
+        # set to a dict to keep each admission's prompt-last-position
+        # logits (V,) by request id, on the engine's device
+        self.first_logits: Optional[Dict[int, torch.Tensor]] = None
         self.slots = [_Slot() for _ in range(slots)]
         self._chunk_rr = 0           # round-robin cursor over prefilling slots
         self._masks_dirty = True
         self._axis = "serve_decode_impl"
         if vpe is not None and not vpe.registry.has_op(self._axis):
             # a pinned decode_impl registers the axis as a SYSTEM op:
-            # samples are recorded under the name that ran, never trialed
+            # samples are recorded under the name that ran, never trialed.
+            # Without pages the kernel variant is grouped: not offered.
             vpe.registry.register_op(self._axis, system=(decode_impl != "auto"))
-            for i, name in enumerate(SERVE_AXES[self._axis]):
+            names = [n for n in SERVE_AXES[self._axis]
+                     if paged_capable or n not in kvcache.PAGED_KERNEL_IMPLS]
+            for i, name in enumerate(names):
                 vpe.registry.register_variant(
                     self._axis, name, fn=(lambda name=name: name), default=(i == 0))
-        if vpe is not None and prefill_kernel == "auto" \
+        if vpe is not None and paged_capable and prefill_kernel == "auto" \
                 and not vpe.registry.has_op("prefill_kernel"):
             vpe.registry.register_op("prefill_kernel")
             for i, name in enumerate(SERVE_AXES["prefill_kernel"]):
@@ -360,31 +523,84 @@ class ContinuousBatchingEngine:
                 vpe.registry.register_variant(
                     "decode_horizon", name, fn=(lambda name=name: name),
                     default=(i == 0))
-        # -- KV storage: the worst case of every slot holding max_len
-        # positions plus one partial page each, so placement and decode
-        # growth never run out of pages
-        self.nb_max = max_len // block_size
-        self.pages = PagePool(slots * self.nb_max + slots)
-        self.page_pool = model_lib.init_page_pool(cfg, self.pages.num_pages,
-                                                  block_size, self.device)
-        self.cache = model_lib.init_paged_cache(cfg, slots, max_len, block_size,
-                                                self.pages.trash_id, self.device)
+        if vpe is not None and kv_layout == "auto" \
+                and not vpe.registry.has_op("kv_layout"):
+            vpe.registry.register_op("kv_layout")
+            for i, name in enumerate(SERVE_AXES["kv_layout"]):
+                vpe.registry.register_variant(
+                    "kv_layout", name, fn=(lambda name=name: name),
+                    default=(i == 0))
+        # -- KV storage: a paged-capable pool holds the worst case of every
+        # slot's block table (x2 under auto, where contiguous admissions
+        # pin tree pages no table owns) plus one pinned partial page a
+        # slot, plus the prefix cache's headroom, so placement and decode
+        # growth never run dry
+        self.nb_max = max_len // block_size if paged_capable else 0
+        self.pages: Optional[PagePool] = None
+        self.page_pool: Optional[kvcache.Cache] = None
+        if paged_capable:
+            n_pages = (slots * self.nb_max * (2 if kv_layout == "auto" else 1)
+                       + slots + max(prefix_blocks, 0))
+            self.pages = PagePool(n_pages)
+            self.page_pool = model_lib.init_page_pool(cfg, n_pages, block_size,
+                                                      self.device)
+        if kv_layout == "paged":
+            self.cache = model_lib.init_paged_cache(
+                cfg, slots, max_len, block_size, self.pages.trash_id, self.device)
+        elif kv_layout == "auto":
+            self.cache = {
+                **model_lib.init_slot_cache(cfg, slots, max_len, self.device),
+                "bt": model_lib.init_paged_cache(
+                    cfg, slots, max_len, block_size, self.pages.trash_id,
+                    self.device)["bt"]}
+        else:
+            self.cache = model_lib.init_slot_cache(cfg, slots, max_len,
+                                                   self.device)
+        # -- shared-prefix KV cache: on paged-capable engines the tree's
+        # pages are the pool's (one id space); on the contiguous layout it
+        # owns a block pool of its own, in the compute dtype
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.block_pool: Optional[kvcache.Cache] = None
+        if prefix_blocks > 0:
+            if paged_capable:
+                self.prefix_cache = PrefixCache(self.pages.num_pages, block_size,
+                                                pool=self.pages)
+            else:
+                self.prefix_cache = PrefixCache(prefix_blocks, block_size)
+                self.block_pool = kvcache.init_block_pool(
+                    prefix_blocks, cfg.num_layers, cfg.num_kv_heads, block_size,
+                    cfg.head_dim, dtype=getattr(torch, cfg.dtype),
+                    device=self.device)
+            if vpe is not None and not vpe.registry.has_op("prefix_reuse"):
+                vpe.registry.register_op("prefix_reuse")
+                for i, name in enumerate(SERVE_AXES["prefix_reuse"]):
+                    vpe.registry.register_variant(
+                        "prefix_reuse", name, fn=(lambda name=name: name),
+                        default=(i == 0))
         # device-side decode inputs, rows INPUT_ROWS (tok, live, eos,
-        # budget): rewritten in place from the host slot mirrors only
-        # after an admission / prefill completion / retire (and the budget
-        # before a fused call); a steady decode call feeds its own final
-        # tokens back into ``tok`` on the device.  These, the cache and the
-        # pool are never rebound: the decode graphs replay over them.
+        # paged, budget): rewritten in place from the host slot mirrors
+        # only after an admission / prefill completion / retire (and the
+        # budget before each call); a steady decode call feeds its own
+        # final tokens back into ``tok`` on the device.  These, the cache
+        # and the pool are never rebound: the decode graphs replay over
+        # them.
         self._inputs = torch.zeros((len(INPUT_ROWS), slots), dtype=torch.int32,
                                    device=self.device)
-        self.graphs = DecodeGraphs(cfg, params, self.page_pool, self.cache,
-                                   self._inputs)
+        self.graphs = DecodeGraphs(cfg, params, kv_layout, self.cache,
+                                   self._inputs, pool=self.page_pool)
         if self.device.type == "cuda":
-            # build and load the kernels now, and launch each once: the
-            # port's capability check, which raises instead of degrading
-            from repro_torch.kernels.paged_attention import prepare
-            prepare(self.page_pool["k"].dtype, cfg.num_heads, cfg.num_kv_heads,
-                    cfg.head_dim, block_size, self.device)
+            # build and load the kernels the layout runs now, and launch
+            # each once: the port's capability check, which raises
+            # instead of degrading
+            if paged_capable:
+                from repro_torch.kernels.paged_attention import prepare
+                prepare(self.page_pool["k"].dtype, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim, block_size, self.device)
+            if kv_layout != "paged" and cfg.attn_impl == "flash_cuda":
+                from repro_torch.kernels.flash_attention import \
+                    prepare as prepare_flash
+                prepare_flash(getattr(torch, cfg.dtype), cfg.num_heads,
+                              cfg.num_kv_heads, cfg.head_dim, self.device)
 
     # -- request intake ----------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -423,10 +639,17 @@ class ContinuousBatchingEngine:
                    if s.req is not None and not s.prefilling)
 
     def check_kv(self) -> None:
-        """Page audit: pool refcounts must be exactly the live block
-        tables' pages.  Raises AssertionError on a leak or a dangling
-        reference."""
+        """Page audit: the tree's invariants hold, and pool refcounts are
+        exactly tree ownership plus the live block tables' pages.  Raises
+        AssertionError on a leak or a dangling reference."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.check()
+        if self.pages is None:
+            return
         owners: Dict[int, int] = {}
+        if self.prefix_cache is not None:
+            for pid in self.prefix_cache.owned_pages():
+                owners[pid] = owners.get(pid, 0) + 1
         for s in self.slots:
             for pid in s.pages:
                 owners[pid] = owners.get(pid, 0) + 1
@@ -434,22 +657,196 @@ class ContinuousBatchingEngine:
 
     # -- admission ---------------------------------------------------------
     def _pop_next(self) -> Request:
-        """Plain FIFO (priority-aware scheduling comes with item 8(f))."""
-        return self.queue.pop(0)
+        """The next request to admit: the longest cached prefix in the
+        queue's front ``sched_window`` (FIFO without a prefix cache), so
+        requests sharing a resident prefix are co-scheduled.  Every jumped
+        request's ``skips`` ticks; one skipped ``max_skip`` times goes
+        next, so request i is admitted within ``(max_skip + 1) * (i + 1)``
+        admissions.  (Priority classes come with item 8(f).)"""
+        if len(self.queue) == 1:
+            return self.queue.pop(0)
+        forced = next((j for j, r in enumerate(self.queue)
+                       if r.skips >= self.max_skip), None)
+        if forced is not None:
+            best = forced
+        elif self.prefix_cache is None:
+            best = 0
+        else:
+            best, best_len = 0, -1
+            for j, r in enumerate(self.queue[:self.sched_window]):
+                m = self.prefix_cache.probe(r.prompt,
+                                            max_match=len(r.prompt) - 1)
+                if m > best_len:
+                    best, best_len = j, m
+        for r in self.queue[:best]:
+            r.skips += 1
+        self.stats.sched_skips += best
+        return self.queue.pop(best)
 
     def _admit(self) -> None:
         while self.queue:
+            # re-scan each time: a request finishing at prefill (e.g.
+            # max_new_tokens == 1) frees its slot for the next in queue
             i = next((j for j, s in enumerate(self.slots) if s.free), None)
             if i is None:
                 return
+            slot = self.slots[i]
             req = self._pop_next()
-            now = time.perf_counter()
-            req.admit_step = self.stats.decode_steps
-            req.queue_wait_s = now - req.submit_t
-            self.stats.queue_wait_s.append(req.queue_wait_s)
+            if req.admit_step < 0:
+                # first admission only: one rolled back keeps its record
+                req.admit_step = self.stats.decode_steps
+                req.queue_wait_s = time.perf_counter() - req.submit_t
+                self.stats.queue_wait_s.append(req.queue_wait_s)
             req.status = "running"
-            self._place_paged(i, req, occ=self.num_active)
+            prompt = np.asarray(req.prompt, np.int32)
+            S = len(prompt)
+            occ = self.num_active           # occupancy excluding this slot
+            matched = 0
+            if self.prefix_cache is not None:
+                # never match the whole prompt: the prefill must produce
+                # the first token's logits.  A partial tail match needs a
+                # layout that can clone the block copy-on-write.
+                allow_partial = (self.partial_match
+                                 and self.kv_layout in ("paged", "auto"))
+                req.cache_handle = self.prefix_cache.acquire(
+                    prompt, max_match=S - 1, allow_partial=allow_partial)
+                matched = req.cache_handle.matched_len
+                self.stats.prefix_lookups += 1
+            # the layout sees the raw match; hits and the prefix_reuse axis
+            # see what the chosen layout can reuse (contiguous: full blocks)
+            layout, lbucket = self._select_layout(matched)
+            use_matched = (matched if layout == "paged"
+                           else self.block_size * len(req.cache_handle.nodes)
+                           if req.cache_handle is not None else 0)
+            variant, rbucket = "reuse", None
+            if use_matched:
+                self.stats.prefix_hits += 1
+                if self.vpe is not None:
+                    rbucket = prefix_len_bucket(use_matched)
+                    variant = self.vpe.controller.select("prefix_reuse", rbucket)
+            slot.req = req
+            slot.layout = layout
+            slot.admit_bucket = lbucket
+            if layout == "paged":
+                # placement only; the prompt runs as chunks between decode
+                # steps (:meth:`_run_prefill_chunks`)
+                try:
+                    self._place_paged(i, req,
+                                      use_matched if variant == "reuse" else 0,
+                                      rbucket, variant, occ)
+                except _PagePressure:
+                    self._unadmit(i, req)
+                    return
+                continue
+            # -- contiguous: the whole admission at once
+            t0 = time.perf_counter()
+            if use_matched and variant == "reuse":
+                first, k_all, v_all, base = self._prefill_from_prefix(
+                    i, prompt, req.cache_handle)
+                self.stats.prefix_tokens_saved += use_matched
+            else:
+                first, k_all, v_all, base = self._prefill_full(i, prompt)
+            fence(self.device)
+            dt = time.perf_counter() - t0
+            self.stats.prefill_s += dt
+            if rbucket is not None:
+                # the admission's TTFT contribution feeds the reuse axis
+                self.vpe.profiler.record("prefix_reuse", variant, rbucket, dt)
+                self.vpe.controller.on_sample("prefix_reuse", rbucket, variant)
+            slot.admit_wall = dt
+            self._enter_decode(i, first)
+            # the first token is out: the prompt's new full blocks enter
+            # the tree off the TTFT path
+            self._cache_extend(req, k_all, v_all, base, slot)
+            self._retire_if_done(i)
 
+    def _unadmit(self, i: int, req: Request) -> None:
+        """Undo an admission whose placement rolled back: free the slot,
+        unpin the prefix handle, put the request back at the queue head."""
+        slot = self.slots[i]
+        slot.req = None
+        slot.prefilling = False
+        slot.admit_bucket = None
+        slot.reuse_bucket = None
+        if req.cache_handle is not None:
+            self.prefix_cache.release(req.cache_handle)
+            req.cache_handle = None
+        req.status = "queued"
+        self.queue.insert(0, req)
+        self._masks_dirty = True
+
+    def _select_layout(self, matched: int) -> Tuple[str, Optional[Tuple]]:
+        """This admission's KV layout and, under ``auto``, its bucket."""
+        if self.kv_layout != "auto":
+            return self.kv_layout, None
+        bucket = kv_layout_bucket(matched, self.num_active, self.num_slots,
+                                  levels=self.occupancy_levels)
+        if self.vpe is None:
+            return "contiguous", bucket
+        return self.vpe.controller.select("kv_layout", bucket), bucket
+
+    def _first_token(self, i: int, logits: torch.Tensor) -> int:
+        """Slot ``i``'s first generated token: the greedy argmax of its
+        prompt's last-position logits (1, V), which are kept in
+        :attr:`first_logits` when that is a dict."""
+        if self.first_logits is not None:
+            self.first_logits[self.slots[i].req.rid] = logits[0].detach().clone()
+        return int(torch.argmax(logits[0]))
+
+    # -- contiguous admission ------------------------------------------------
+    def _prefill_full(self, i: int, prompt: np.ndarray):
+        """Cold: run the whole prompt and insert it at slot position 0."""
+        S = len(prompt)
+        pad = min(pad_to_bucket(S, minimum=self.min_prompt_pad), self.max_len)
+        toks = np.zeros((1, pad), np.int32)
+        toks[0, :S] = prompt
+        k, v, logits = model_lib.prefill_slot_kv(
+            self.cfg, self.params, torch.from_numpy(toks).to(self.device), S)
+        # fence the prefill before the placement timer, or its compute
+        # would be booked as placement
+        fence(self.device)
+        t0 = time.perf_counter()
+        kvcache.insert_slot_kv(self.cache, k, v, i, S)
+        fence(self.device)
+        self.stats.kv_place_s.append(time.perf_counter() - t0)
+        return self._first_token(i, logits), k, v, 0
+
+    def _prefill_from_prefix(self, i: int, prompt: np.ndarray, handle):
+        """Warm: gather the matched full blocks, COPY them into the slot's
+        region, prefill only the suffix and insert it after them.  Page
+        ids are padded to a power-of-two count with a repeated pinned id
+        (the reference's gather shapes); the padding's columns lie past
+        the prefix and are masked, and the suffix write covers them."""
+        S = len(prompt)
+        bs = self.block_size
+        P = bs * len(handle.nodes)
+        nb = P // bs
+        nb_pad = min(pad_to_bucket(nb, minimum=1), self.max_len // bs)
+        ids = torch.tensor(handle.block_ids + [handle.block_ids[0]] * (nb_pad - nb),
+                           dtype=torch.int64, device=self.device)
+        t0 = time.perf_counter()
+        pk, pv = self._gather_prefix(ids)
+        kvcache.insert_slot_kv_at(self.cache, pk, pv, i, 0, S)
+        fence(self.device)
+        self.stats.kv_place_s.append(time.perf_counter() - t0)
+        sl = S - P
+        pad_s = min(pad_to_bucket(sl, minimum=self.min_prompt_pad),
+                    self.max_len - P)
+        toks = np.zeros((1, pad_s), np.int32)
+        toks[0, :sl] = prompt[P:]
+        k, v, logits = model_lib.prefill_suffix_kv(
+            self.cfg, self.params, torch.from_numpy(toks).to(self.device),
+            pk, pv, P, sl)
+        kvcache.insert_slot_kv_at(self.cache, k, v, i, P, S)
+        return self._first_token(i, logits), k, v, P
+
+    def _gather_prefix(self, ids: torch.Tensor):
+        """Cached prefix pages from whichever pool holds the tree's pages."""
+        if self.pages is not None:
+            return kvcache.gather_pages(self.page_pool, ids)
+        return kvcache.gather_blocks(self.block_pool, ids)
+
+    # -- paged admission -----------------------------------------------------
     def _bt_row(self, pages: List[int]) -> np.ndarray:
         """A slot's full (nb_max,) block-table row, trash-padded past its
         allocated pages."""
@@ -458,31 +855,98 @@ class ContinuousBatchingEngine:
         return row
 
     def _alloc_page(self) -> int:
+        """A page from the free list, evicting cached prefixes when it is
+        dry; :class:`_PagePressure` when nothing is left (the pool is
+        sized for the worst case, and preemption is not ported)."""
         pid = self.pages.alloc()
-        if pid is None:     # the pool is sized for the worst case
-            raise RuntimeError("page pool exhausted; preemption is ROADMAP "
-                               f"queue 1, item {LATER['preemption']}")
+        while pid is None:
+            if self.prefix_cache is None or not self.prefix_cache.evict(1):
+                raise _PagePressure(
+                    "page pool exhausted; preemption is ROADMAP queue 1, "
+                    f"item {LATER['preemption']}")
+            pid = self.pages.alloc()
         return pid
 
-    def _place_paged(self, i: int, req: Request, occ: int) -> None:
-        """Placement only: allocate pages covering the prompt and install
-        the slot's block-table row (length stays 0 until the prefill
-        completes — the live mask keeps the slot out of decode meanwhile).
-        The prompt's compute runs as chunks (:meth:`_run_prefill_chunks`)."""
+    def _release_slot_pages(self, i: int) -> None:
+        """Drop the slot's page references (pages the tree adopted or this
+        slot aliased live on through the tree's own reference)."""
+        for pid in self.slots[i].pages:
+            self.pages.unref(pid)
+        self.slots[i].pages = []
+
+    def _suffix_page_ids(self, base: int, S: int, cow_page: Optional[int],
+                         acquired: List[int]) -> List[int]:
+        """Pages covering prompt positions ``[base, S)``: ``cow_page`` (the
+        clone of a partially matched block) first when ``base`` is
+        mid-block, fresh allocations after it, each appended to
+        ``acquired`` as it is taken (the caller's rollback list)."""
+        bs = self.block_size
+        ids = []
+        b = base // bs
+        while b * bs < S:
+            if cow_page is not None and b == base // bs and base % bs:
+                pid = cow_page
+            else:
+                pid = self._alloc_page()
+                acquired.append(pid)
+            ids.append(pid)
+            b += 1
+        return ids
+
+    def _place_paged(self, i: int, req: Request, reuse_matched: int,
+                     rbucket, variant: str, occ: int) -> None:
+        """Placement only, O(1) in matched length: alias the matched full
+        pages (one pool reference each), clone a partially matched tail
+        block copy-on-write (the first chunk writes into it mid-block),
+        allocate pages for the rest of the prompt, install the block-table
+        row (length stays 0 until the prefill completes — the live mask
+        keeps the slot out of decode meanwhile).
+
+        All or nothing: if the pool runs dry midway, every reference taken
+        is returned before :class:`_PagePressure` reaches :meth:`_admit`."""
         slot = self.slots[i]
         S = len(req.prompt)
+        handle = req.cache_handle
         t0 = time.perf_counter()
-        slot.pages = [self._alloc_page() for _ in range(-(-S // self.block_size))]
-        self.cache["bt"][i] = torch.from_numpy(self._bt_row(slot.pages)).to(self.device)
+        aliased: List[int] = []
+        acquired: List[int] = []
+        try:
+            if reuse_matched:
+                P = handle.matched_len
+                for pid in handle.block_ids:          # full blocks: zero-copy
+                    self.pages.ref(pid)
+                    aliased.append(pid)
+                cow = None
+                if handle.partial_len:
+                    cow = self._alloc_page()
+                    acquired.append(cow)
+                    kvcache.copy_page(self.page_pool, handle.partial_block_id,
+                                      cow)
+                    self.stats.cow_copies += 1
+                pages = aliased + self._suffix_page_ids(P, S, cow, acquired)
+            else:
+                P = 0
+                pages = self._suffix_page_ids(0, S, None, acquired)
+        except _PagePressure:
+            for pid in aliased + acquired:
+                self.pages.unref(pid)
+            self.stats.placement_rollbacks += 1
+            raise
+        if P:
+            self.stats.prefix_tokens_saved += P
+        slot.pages = pages
+        self.cache["bt"][i] = torch.from_numpy(self._bt_row(pages)).to(self.device)
         self.cache["length"][i] = 0
-        fence(self.device)
+        fence(self.device)                     # the COW copy, if any
         dt = time.perf_counter() - t0
         self.stats.kv_place_s.append(dt)
         self.stats.prefill_s += dt
         self.stats.paged_admits += 1
-        slot.req = req
         slot.prefilling = True
-        slot.fill_pos = 0
+        slot.fill_pos = P
+        slot.place_wall = dt
+        slot.reuse_bucket = rbucket
+        slot.reuse_variant = variant
         slot.chunk_walls = []
         slot.kernel, slot.kernel_bucket = self._select_prefill_kernel(S, occ)
         self._masks_dirty = True
@@ -527,8 +991,9 @@ class ContinuousBatchingEngine:
         return ran
 
     def _run_one_chunk(self, i: int) -> None:
-        """One chunk of slot ``i``'s prompt; the final chunk yields the
-        first generated token."""
+        """One chunk of slot ``i``'s prompt, from ``fill_pos`` (after a
+        warm placement: the matched length, mid-block after a partial
+        match); the final chunk yields the first generated token."""
         slot = self.slots[i]
         prompt = slot.req.prompt
         S = len(prompt)
@@ -557,19 +1022,64 @@ class ContinuousBatchingEngine:
 
     def _finish_prefill(self, i: int, logits: torch.Tensor) -> None:
         """Last chunk done: first token out, device length installed, the
-        summed chunk walls fed to the ``prefill_kernel`` controller."""
+        admission's samples fed (``prefix_reuse``: placement + chunk walls;
+        ``prefill_kernel``: the chunk walls), and the prompt's fresh full
+        blocks adopted into the prefix tree zero-copy."""
         slot = self.slots[i]
         req = slot.req
-        first = int(torch.argmax(logits[0]))
+        first = self._first_token(i, logits)
         self.cache["length"][i] = len(req.prompt)
-        if self.vpe is not None and slot.kernel_bucket is not None:
-            self.vpe.profiler.record("prefill_kernel", slot.kernel,
-                                     slot.kernel_bucket, sum(slot.chunk_walls))
-            self.vpe.controller.on_sample("prefill_kernel", slot.kernel_bucket,
-                                          slot.kernel)
+        slot.admit_wall = slot.place_wall + sum(slot.chunk_walls)
+        if self.vpe is not None:
+            if slot.reuse_bucket is not None:
+                self.vpe.profiler.record("prefix_reuse", slot.reuse_variant,
+                                         slot.reuse_bucket, slot.admit_wall)
+                self.vpe.controller.on_sample("prefix_reuse",
+                                              slot.reuse_bucket,
+                                              slot.reuse_variant)
+            if slot.kernel_bucket is not None:
+                self.vpe.profiler.record("prefill_kernel", slot.kernel,
+                                         slot.kernel_bucket,
+                                         sum(slot.chunk_walls))
+                self.vpe.controller.on_sample("prefill_kernel",
+                                              slot.kernel_bucket, slot.kernel)
+        slot.reuse_bucket = None
         slot.kernel_bucket = None
         self._enter_decode(i, first)
+        self._cache_extend(req, None, None, 0, slot)
         self._retire_if_done(i)
+
+    def _cache_extend(self, req: Request, k_all, v_all, base: int,
+                      slot: _Slot) -> None:
+        """Insert the prompt's not-yet-cached full blocks into the tree.
+        A paged slot hands its OWN pages to the tree (one more pool
+        reference each, no device traffic); a contiguous slot copies its
+        freshly computed K/V (``k_all``/``v_all`` cover positions ``[base,
+        ...)``) into tree pages — paid only when a prefix is first seen."""
+        if self.prefix_cache is None:
+            return
+        if slot.layout == "paged":
+            self.prefix_cache.extend_adopt(
+                req.cache_handle, req.prompt,
+                {j: pid for j, pid in enumerate(slot.pages)})
+            return
+        fresh = self.prefix_cache.extend(req.cache_handle, req.prompt)
+        if not fresh:
+            return
+        if self.pages is not None:
+            # auto mode: the tree's pages are the unified pool's — one
+            # masked scatter fills them all
+            ids = torch.tensor([bid for bid, _ in fresh], dtype=torch.int64)
+            starts = torch.tensor([st for _, st in fresh], dtype=torch.int64)
+            kvcache.write_pages(self.page_pool, k_all, v_all, ids, starts,
+                                base, len(req.prompt) - base)
+        else:
+            for bid, start in fresh:
+                kvcache.write_block(self.block_pool, k_all, v_all, bid,
+                                    start - base, self.block_size)
+        # fence the page writes, or their device time leaks into the next
+        # decode call's sample
+        fence(self.device)
 
     def _enter_decode(self, i: int, first: int) -> None:
         """Emit the first generated token (TTFT) and start decoding."""
@@ -583,6 +1093,8 @@ class ContinuousBatchingEngine:
         slot.prefilling = False
         slot.tok = first
         slot.pos = len(req.prompt)
+        slot.steps_resident = 0
+        slot.clean_step_shares = []
         self._masks_dirty = True
 
     def _retire_if_done(self, i: int) -> None:
@@ -596,23 +1108,48 @@ class ContinuousBatchingEngine:
             req.status = "done"
             req.done_step = self.stats.decode_steps
             req.done_t = time.perf_counter()
-            for pid in slot.pages:
-                self.pages.unref(pid)
-            slot.pages = []
+            if slot.layout == "paged":
+                self._release_slot_pages(i)
+            if req.cache_handle is not None:
+                # unpin: the matched and inserted blocks become evictable
+                self.prefix_cache.release(req.cache_handle)
+                req.cache_handle = None
+            if slot.admit_bucket is not None and self.vpe is not None:
+                # the kv_layout sample: admission wall + this request's
+                # decode share from the calls that did not capture,
+                # extrapolated over all its steps; a residency whose every
+                # call captured has no clean signal and is dropped
+                comp, ok = 0.0, True
+                if slot.steps_resident:
+                    if slot.clean_step_shares:
+                        comp = (sum(slot.clean_step_shares)
+                                / len(slot.clean_step_shares)
+                                * slot.steps_resident)
+                    else:
+                        ok = False
+                if ok:
+                    self.vpe.profiler.record("kv_layout", slot.layout,
+                                             slot.admit_bucket,
+                                             slot.admit_wall + comp)
+                    self.vpe.controller.on_sample("kv_layout",
+                                                  slot.admit_bucket, slot.layout)
+            slot.admit_bucket = None
             self.completed.append(req)
             slot.req = None   # freed mid-decode; refilled next admission
             self._masks_dirty = True
 
     # -- decode -------------------------------------------------------------
     def _grow_block_tables(self, span: int, remaining: Dict[int, int]) -> None:
-        """Before a decode call: reserve, for every decoding slot, the
-        pages covering its write range ``[pos, pos + min(span,
+        """Before a decode call: reserve, for every decoding paged slot,
+        the pages covering its write range ``[pos, pos + min(span,
         remaining))`` — mid-horizon there is no host to allocate a page —
         and install every splice in ONE scatter.  At ``span=1`` a page
-        comes exactly when the next token starts a fresh block."""
+        comes exactly when the next token starts a fresh block.  (A tail
+        page is private — copy-on-write at placement — so appends need no
+        copy.)"""
         splices: List[Tuple[int, int, int]] = []
         for i, slot in enumerate(self.slots):
-            if slot.free or slot.prefilling:
+            if slot.free or slot.prefilling or slot.layout != "paged":
                 continue
             upto = slot.pos + min(span, remaining[i])
             last_col = (upto - 1) // self.block_size
@@ -626,8 +1163,8 @@ class ContinuousBatchingEngine:
             self.cache["bt"][idx[0], idx[1]] = idx[2].to(torch.int32)
 
     def _rollback_reserved(self, i: int) -> None:
-        """Return a slot's reserved-but-unwritten horizon pages to the
-        pool (a stop froze the slot before it reached them): the pages
+        """Return a paged slot's reserved-but-unwritten horizon pages to
+        the pool (a stop froze the slot before it reached them): the pages
         covering ``[0, pos)`` stay, every page past them goes back."""
         slot = self.slots[i]
         keep = -(-slot.pos // self.block_size)      # ceil
@@ -636,25 +1173,34 @@ class ContinuousBatchingEngine:
             self.stats.reserved_pages_rolled_back += 1
 
     def _refresh_device_masks(self) -> None:
-        """Rewrite the tok, live and eos rows of the device inputs from the
-        host slot mirrors, in place and in one copy — only after an
-        admission, prefill completion or retire dirtied them."""
+        """Rewrite the tok, live, eos and paged rows of the device inputs
+        from the host slot mirrors, in place and in one copy — only after
+        an admission, prefill completion or retire dirtied them."""
         if not self._masks_dirty:
             return
         rows = np.array([
             [s.tok for s in self.slots],
             [0 if (s.free or s.prefilling) else 1 for s in self.slots],
             [-1 if (s.req is None or s.req.eos_id is None) else s.req.eos_id
-             for s in self.slots]], np.int32)
-        self._inputs[:3].copy_(torch.from_numpy(rows))
+             for s in self.slots],
+            [1 if s.layout == "paged" else 0 for s in self.slots]], np.int32)
+        self._inputs[:4].copy_(torch.from_numpy(rows))
         self._masks_dirty = False
 
+    def _resolve_impl(self, name: str) -> str:
+        """The decode variant that runs: the kernel variant is grouped on
+        an engine without pages (the contiguous layout's rung)."""
+        if name in kvcache.PAGED_KERNEL_IMPLS and self.pages is None:
+            return "grouped"
+        return name
+
     def _select_decode_impl(self, bucket: Tuple) -> str:
+        """The variant name this call records: a pinned name (resolved),
+        or the controller's per-call selection, trials included — the
+        eager analogue of the paper's patched function pointer."""
         if self.decode_impl != "auto":
-            return self.decode_impl
+            return self._resolve_impl(self.decode_impl)
         if self.vpe is not None:
-            # per-call selection, in-flight trials included — the eager
-            # analogue of the paper's patched function pointer
             return self.vpe.controller.select(self._axis, bucket)
         return SERVE_AXES[self._axis][0]
 
@@ -674,14 +1220,6 @@ class ContinuousBatchingEngine:
         name = self.vpe.controller.select("decode_horizon", bucket)
         return int(name), bucket, name
 
-    def _commit(self, i: int, new_toks: List[int]) -> None:
-        """Append a decoding slot's new tokens to its request and mirrors."""
-        slot = self.slots[i]
-        slot.req.out.extend(new_toks)
-        slot.tok = new_toks[-1]
-        slot.pos += len(new_toks)
-        self.stats.tokens_out += len(new_toks)
-
     def _decode(self, H: int, hbucket, hname,
                 remaining: Dict[int, int], t_h: float) -> None:
         """One decode call of H steps (H = 1 is a single step): reserve
@@ -689,7 +1227,8 @@ class ContinuousBatchingEngine:
         steps on the device, fence once on the (slots, H) token block,
         commit each slot's valid tokens, roll its unused reserved pages
         back and retire it if it stopped."""
-        self._grow_block_tables(span=H, remaining=remaining)
+        if self.pages is not None:
+            self._grow_block_tables(span=H, remaining=remaining)
         self._refresh_device_masks()
         budget = np.zeros((self.num_slots,), np.int32)
         for i, rem in remaining.items():
@@ -697,11 +1236,11 @@ class ContinuousBatchingEngine:
         self.graphs.budget.copy_(torch.from_numpy(budget))
         bucket = occupancy_bucket(len(remaining), self.num_slots,
                                   levels=self.occupancy_levels)
-        impl = self._select_decode_impl(bucket)
+        name = self._select_decode_impl(bucket)
         t0 = time.perf_counter()
         # greedy argmax on the device; only the (slots, H) token block and
         # valid mask cross to the host, and that copy is the call's fence
-        toks, emits, captured = self.graphs.run(impl, H)
+        toks, emits, captured = self.graphs.run(self._resolve_impl(name), H)
         dt = time.perf_counter() - t0
         self.stats.decode_s += dt
         self.stats.decode_steps += H
@@ -713,13 +1252,23 @@ class ContinuousBatchingEngine:
             self.stats.horizon_tokens += valid_total
         if self.vpe is not None and not captured:
             # the decode-attention axis keeps per-STEP units
-            self.vpe.profiler.record(self._axis, impl, bucket, dt / H)
-            self.vpe.controller.on_sample(self._axis, bucket, impl)
+            self.vpe.profiler.record(self._axis, name, bucket, dt / H)
+            self.vpe.controller.on_sample(self._axis, bucket, name)
+        share = dt / max(valid_total, 1)
         for i in remaining:
+            slot = self.slots[i]
             # a slot stops at most once, so its valid tokens are a prefix
             e = int(emits[i].sum())
-            self._commit(i, [int(t) for t in toks[i, :e]])
-            self._rollback_reserved(i)
+            new_toks = [int(t) for t in toks[i, :e]]
+            slot.req.out.extend(new_toks)
+            slot.tok = new_toks[-1]
+            slot.pos += e
+            slot.steps_resident += e
+            if not captured:
+                slot.clean_step_shares.extend([share] * e)
+            self.stats.tokens_out += e
+            if slot.layout == "paged":
+                self._rollback_reserved(i)
             self._retire_if_done(i)
         if self.vpe is not None and hbucket is not None and not captured \
                 and valid_total:

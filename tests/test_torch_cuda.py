@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version, the
 wrappers' argument checks and launch counts, the engine's kernel path
 against its gather path, the decode CUDA graphs against the eager loop and
-fused horizons against single steps, a training step with the flash kernel, and the
+fused horizons against single steps, the prefix cache warm against cold on
+each KV layout, the contiguous and ``auto`` decode graphs, the flash kernel
+in contiguous admissions, a training step with the flash kernel, and the
 paper's six algorithms under the VPE with the matmul and conv2d kernels.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
@@ -292,8 +294,9 @@ def test_cuda_engine_kernels_equal_gather_path(cuda_device):
     out = {}
     for impls in (("grouped", "gather"), ("cuda", "cuda")):
         eng = tserve.ContinuousBatchingEngine(
-            cfg, params, slots=2, max_len=64, block_size=8, prefill_chunk=8,
-            decode_impl=impls[0], prefill_kernel=impls[1], device=cuda_device)
+            cfg, params, slots=2, max_len=64, block_size=8, kv_layout="paged",
+            prefill_chunk=8, decode_impl=impls[0], prefill_kernel=impls[1],
+            device=cuda_device)
         tpa.reset_launch_counts()
         for i, p in enumerate(prompts):
             eng.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=6))
@@ -311,7 +314,8 @@ def test_cuda_engine_kernels_equal_gather_path(cuda_device):
 
 
 def _decode_state(cfg, dev, seed):
-    """A (4, B) decode-input block, a pool of random K/V and a cache whose
+    """A (5, B) decode-input block (rows INPUT_ROWS: tok, live, eos,
+    paged, budget), a pool of random K/V and a cache whose
     distinct pages cover two 16-step horizons of every slot: slot 0 live,
     slot 1 live with a budget of 2, slot 2 not live."""
     rng = np.random.default_rng(seed)
@@ -325,7 +329,8 @@ def _decode_state(cfg, dev, seed):
         rng.permutation(n_pages).reshape(B, nb).astype(np.int32)))
     cache["length"].copy_(torch.tensor([5, 20, 0], dtype=torch.int32))
     inputs = torch.tensor([rng.integers(0, cfg.vocab_size, B), [1, 1, 0],
-                           [-1, -1, -1], [16, 2, 0]], dtype=torch.int32, device=dev)
+                           [-1, -1, -1], [1, 1, 1], [16, 2, 0]],
+                          dtype=torch.int32, device=dev)
     return pool, cache, inputs
 
 
@@ -349,7 +354,7 @@ def test_cuda_decode_graph_replay_equals_eager(cuda_device, impl, horizon):
     params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
     pool, cache, inputs = _decode_state(cfg, cuda_device, seed=horizon)
     e_pool, e_cache, e_inputs = _clone(pool), _clone(cache), inputs.clone()
-    graphs = DecodeGraphs(cfg, params, pool, cache, inputs)
+    graphs = DecodeGraphs(cfg, params, "paged", cache, inputs, pool=pool)
 
     def pointers():
         return [t.data_ptr() for t in (inputs, graphs.tok, graphs.live, graphs.eos,
@@ -364,7 +369,7 @@ def test_cuda_decode_graph_replay_equals_eager(cuda_device, impl, horizon):
         counted += tpa.paged_attention_cuda.launches - mark
         _, _, e_toks, e_valid, e_final = tmodel.decode_steps_paged(
             cfg, params, e_pool, e_cache, e_inputs[0][:, None], e_inputs[1],
-            e_inputs[2], e_inputs[3], horizon, decode_impl=impl)
+            e_inputs[2], e_inputs[4], horizon, decode_impl=impl)
         e_inputs[0].copy_(e_final)
         np.testing.assert_array_equal(valid, e_valid.cpu().numpy())
         np.testing.assert_array_equal(toks * valid, (e_toks * e_valid).cpu().numpy())
@@ -401,7 +406,7 @@ def test_cuda_decode_graph_capture_failure_raises(cuda_device):
         params = tmodel.init_params(cfg, torch.Generator(dev).manual_seed(0))
         pool = tmodel.init_page_pool(cfg, 8, 8, dev)
         cache = tmodel.init_paged_cache(cfg, 2, 32, 8, 8, dev)
-        inputs = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+        inputs = torch.zeros((5, 2), dtype=torch.int32, device=dev)
         inputs[1] = 1
         real = tmodel.decode_steps_paged
         def syncing(*args, **kw):
@@ -409,7 +414,7 @@ def test_cuda_decode_graph_capture_failure_raises(cuda_device):
             out[2].sum().item()          # a host sync: illegal under capture
             return out
         tmodel.decode_steps_paged = syncing
-        graphs = DecodeGraphs(cfg, params, pool, cache, inputs)
+        graphs = DecodeGraphs(cfg, params, "paged", cache, inputs, pool=pool)
         try:
             graphs.run("grouped", 4)
         except RuntimeError as e:    # torch.AcceleratorError is one
@@ -440,9 +445,9 @@ def test_cuda_engine_fused_horizon_equals_single_step(cuda_device):
     out = {}
     for horizon in (1, 16):
         eng = tserve.ContinuousBatchingEngine(
-            cfg, params, slots=2, max_len=96, block_size=8, prefill_chunk=8,
-            decode_horizon=horizon, decode_impl="cuda", prefill_kernel="cuda",
-            device=cuda_device)
+            cfg, params, slots=2, max_len=96, block_size=8, kv_layout="paged",
+            prefill_chunk=8, decode_horizon=horizon, decode_impl="cuda",
+            prefill_kernel="cuda", device=cuda_device)
         tpa.reset_launch_counts()
         for i, p in enumerate(prompts):
             eng.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=24))
@@ -466,6 +471,108 @@ def _flash_inputs(case, dev, dtype, seed):
             rng.standard_normal((B, Hkv, T, D)),
             rng.standard_normal((B, Hkv, T, D)))
     return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrs]
+
+
+def _shared_prompts(vocab, seed, n=5):
+    """Prompts sharing 29 tokens (3 full 8-token blocks and 5 of a fourth),
+    each with a suffix of its own."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 29).astype(np.int32)
+    return [np.concatenate([system, rng.integers(0, vocab, int(m)).astype(np.int32)])
+            for m in rng.integers(3, 20, n)]
+
+
+def _serve(eng, prompts, new_tokens, warm=()):
+    for j, p in enumerate(warm):
+        eng.submit(tserve.Request(rid=-1 - j, prompt=p, max_new_tokens=2))
+        eng.run()
+    for i, p in enumerate(prompts):
+        eng.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+    out = {r.rid: r.out for r in eng.run() if r.rid >= 0}
+    eng.check_kv()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous", "auto"])
+def test_cuda_engine_prefix_cache_warm_equals_cold(cuda_device, layout):
+    """Reduced qwen3-8b in f32 on the card, decode and prefill kernels
+    pinned: with the prefix cache warm (the tree filled by one request),
+    each layout gives the tokens of a cold engine without the cache; the
+    paged warm admissions clone the partially matched block, and the pool
+    ends holding the tree's pages only."""
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    prompts = _shared_prompts(cfg.vocab_size, 13)
+    kw = dict(slots=2, max_len=64, block_size=8, prefill_chunk=8, decode_impl="cuda",
+              prefill_kernel="cuda", device=cuda_device)
+    cold = _serve(tserve.ContinuousBatchingEngine(cfg, params, kv_layout="paged", **kw),
+                  prompts, 8)
+    eng = tserve.ContinuousBatchingEngine(cfg, params, kv_layout=layout,
+                                          prefix_blocks=16, **kw)
+    assert _serve(eng, prompts, 8, warm=prompts[:1]) == cold
+    st = eng.stats
+    assert st.prefix_hits == len(prompts) and st.prefix_tokens_saved >= 24 * len(prompts)
+    if layout == "paged":
+        assert st.cow_copies >= 1
+    if eng.pages is not None:
+        assert eng.pages.num_live == len(eng.prefix_cache.owned_pages())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "auto"])
+def test_cuda_layout_decode_graphs_captured_once(cuda_device, layout):
+    """Reduced qwen3-8b in f32, ``decode_impl="cuda"``: the contiguous and
+    ``auto`` engines capture one graph per (layout, variant, H) used and
+    replay it thereafter (a second pass of the traffic captures nothing);
+    the graphs stand for one decode-kernel call a layer a step on ``auto``
+    (its paged read) and none on the contiguous layout (the kernel variant
+    is grouped there); the tokens are those of the paged engine."""
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    prompts = _shared_prompts(cfg.vocab_size, 14)
+    kw = dict(slots=2, max_len=96, block_size=8, prefill_chunk=8, decode_impl="cuda",
+              prefill_kernel="cuda", decode_horizon=4, device=cuda_device)
+    want = _serve(tserve.ContinuousBatchingEngine(cfg, params, kv_layout="paged",
+                                                  **kw), prompts, 13)
+    eng = tserve.ContinuousBatchingEngine(cfg, params, kv_layout=layout, **kw)
+    assert _serve(eng, prompts, 13) == want
+    st, g = eng.stats, eng.graphs
+    keys = {("grouped" if layout == "contiguous" else "cuda", h)
+            for h in st.horizon_hist}
+    assert g.layout == layout and set(g.graphs) == keys and g.captures == len(keys) == st.tainted_steps
+    calls = cfg.num_layers if layout == "auto" else 0
+    assert g.replays == sum(st.horizon_hist.values())
+    assert g.replayed_calls == st.decode_steps * calls
+    captures = g.captures
+    eng.stats = tserve.ServeStats()
+    assert _serve(eng, prompts, 13) == want
+    assert g.captures == captures and eng.stats.tainted_steps == 0
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_admission_launches_flash(cuda_device):
+    """``attn_impl="flash_cuda"`` on the contiguous layout: a cold admission
+    prefills through the flash kernel, one launch a layer; a warm one
+    prefills its suffix against the cached prefix (no flash launch); the
+    tokens are those of the reference attention's engine."""
+    import dataclasses
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    prompts = _shared_prompts(cfg.vocab_size, 15, n=3)
+    kw = dict(slots=2, max_len=64, kv_layout="contiguous", prefix_blocks=8,
+              block_size=8, device=cuda_device)
+    want = _serve(tserve.ContinuousBatchingEngine(cfg, params, **kw), prompts, 6)
+    cfg_f = dataclasses.replace(cfg, attn_impl="flash_cuda")
+    eng = tserve.ContinuousBatchingEngine(cfg_f, params, **kw)
+    tfa.reset_launch_counts()
+    eng.submit(tserve.Request(rid=-1, prompt=prompts[0], max_new_tokens=2))
+    eng.run()
+    assert tfa.flash_attention_cuda.launches == cfg.num_layers
+    tfa.reset_launch_counts()
+    assert _serve(eng, prompts, 6) == want
+    assert eng.stats.prefix_hits == len(prompts)
+    assert tfa.flash_attention_cuda.launches == 0
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
-"""Port serving engine against the ``repro`` engine: equal greedy tokens on
-the same weights and traffic (the setup of tests/test_kernels.py's engine
-parity test, single-step decode), for both pinned backend pairs; chunked
-≡ whole-prompt prefill; clean page accounting; the measured axes; the
-launcher; and an import-isolation check in a fresh interpreter."""
+"""Port serving engine on the paged layout against the ``repro`` engine:
+equal greedy tokens on the same weights and traffic (the setup of
+tests/test_kernels.py's engine parity test, single-step decode), for both
+pinned backend pairs; chunked ≡ whole-prompt prefill; clean page
+accounting; the measured axes; the launcher; and an import-isolation check
+in a fresh interpreter (which also serves the contiguous and ``auto``
+layouts with the prefix cache)."""
 
 import os
 import re
@@ -27,7 +29,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.runtime import serve_loop as tserve  # noqa: E402
 
 torch.set_num_threads(1)
-ENGINE = dict(slots=2, max_len=48, block_size=8)
+ENGINE = dict(slots=2, max_len=48, block_size=8, kv_layout="paged")
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +71,7 @@ def _port(setup, **kw):
 def test_tokens_equal_reference_engine(setup, jax_impls, port_impls):
     cfg, _, jp, _ = setup
     jeng = jserve.ContinuousBatchingEngine(
-        cfg, jp, kv_layout="paged", prefill_chunk=8, decode_horizon=1,
+        cfg, jp, prefill_chunk=8, decode_horizon=1,
         decode_impl=jax_impls[0], prefill_kernel=jax_impls[1], **ENGINE)
     want = _run(jeng, jserve, cfg.vocab_size)
     got, _ = _port(setup, prefill_chunk=8, decode_impl=port_impls[0],
@@ -135,8 +137,7 @@ def test_intake_failures_do_not_raise(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_layout="contiguous"), "8(a)"), (dict(prefix_blocks=8), "8(b)"),
-    (dict(kv_layout="auto"), "8(c)"), (dict(prefill_chunk="auto"), "8(d)"),
+    (dict(prefill_chunk="auto"), "8(d)"),
     (dict(spec_draft="auto"), "8(g)"), (dict(swap=True), "8(f)"),
     (dict(page_budget=12), "8(f)"), (dict(spec_draft=4), "8(g)"),
     (dict(max_queue_depth=3), "8(h)"), (dict(mesh_shape=(1, 2)), "8(i)")])
@@ -166,17 +167,16 @@ def test_engine_device_defaults_to_cuda(setup):
 def test_launcher(capsys):
     tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--continuous", "--device",
                   "cpu", "--requests", "3", "--new-tokens", "3",
-                  "--max-len", "48", "--prefill-chunk", "8",
+                  "--max-len", "48", "--kv-layout", "paged", "--prefill-chunk", "8",
                   "--decode-impl", "cuda", "--prefill-kernel", "cuda"])
     out = capsys.readouterr().out
     assert "completed 3 requests" in out
     assert "op/bucket decision table" in out
     for argv, item in ((["--swap"], "8(f)"), (["--mesh", "1,2"], "8(i)"),
-                       (["--kv-layout", "auto"], "8(c)"),
-                       (["--spec-draft", "4"], "8(g)"), ([], "8(a)")):
+                       (["--spec-draft", "4"], "8(g)")):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
-                          *(["--continuous"] if argv else []), *argv])
+                          "--continuous", *argv])
         assert f"item {item}" in capsys.readouterr().err
 
 
@@ -195,21 +195,31 @@ def test_port_imports_neither_jax_nor_repro():
         cfg = get_config("qwen3-8b").reduced()
         params = model.init_params(cfg, torch.Generator("cpu").manual_seed(0))
         eng = ContinuousBatchingEngine(cfg, params, slots=2, max_len=32,
-                                       block_size=8, prefill_chunk=8,
-                                       decode_impl="cuda", prefill_kernel="cuda",
-                                       device="cpu")
+                                       block_size=8, kv_layout="paged",
+                                       prefill_chunk=8, decode_impl="cuda",
+                                       prefill_kernel="cuda", device="cpu")
         eng.submit(Request(rid=0, prompt=np.arange(9, dtype=np.int32),
                            max_new_tokens=3))
         assert len(eng.run()[0].out) == 3
         eng = ContinuousBatchingEngine(cfg, params, slots=2, max_len=32,
-                                       block_size=8, decode_horizon=4,
-                                       decode_impl="cuda", prefill_kernel="cuda",
-                                       device="cpu")
+                                       block_size=8, kv_layout="paged",
+                                       decode_horizon=4, decode_impl="cuda",
+                                       prefill_kernel="cuda", device="cpu")
         eng.submit(Request(rid=1, prompt=np.arange(9, dtype=np.int32),
                            max_new_tokens=6))
         assert len(eng.run()[0].out) == 6
         assert eng.stats.horizon_calls == 1
+        for layout in ("contiguous", "auto"):
+            eng = ContinuousBatchingEngine(cfg, params, slots=2, max_len=32,
+                                           block_size=8, kv_layout=layout,
+                                           prefix_blocks=4, device="cpu")
+            for rid in (2, 3):
+                eng.submit(Request(rid=rid, prompt=np.arange(19, dtype=np.int32),
+                                   max_new_tokens=2))
+                eng.run()
+            assert eng.stats.prefix_hits == 1
         assert "repro_torch.runtime.decode_graphs" in sys.modules
+        assert "repro_torch.runtime.prefix_cache" in sys.modules
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)

@@ -25,7 +25,7 @@ from repro.core import queue_depth_bucket as j_queue_bucket  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.runtime import serve_loop as jserve  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import VPE, bucket_label  # noqa: E402
+from repro_torch.core import VPE, bucket_label, kv_layout_buckets  # noqa: E402
 from repro_torch.core import decode_horizon_bucket, queue_depth_bucket  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -57,6 +57,7 @@ def port_engine(setup, **kw):
     _, tcfg, _, tp = setup
     kw.setdefault("slots", 2)
     kw.setdefault("max_len", MAX_LEN)
+    kw.setdefault("kv_layout", "paged")
     return tserve.ContinuousBatchingEngine(tcfg, tp, device="cpu", **kw)
 
 
@@ -337,37 +338,57 @@ def test_bucket_functions_equal_reference():
 
 
 def test_decode_buffers_keep_their_addresses(setup):
-    """The decode inputs, block table, lengths and pool keep their data
-    pointers across admissions, prefill completions, retires and steps —
-    the addresses a captured graph replays over."""
+    """The decode inputs (the auto layout's ``paged`` mask row included),
+    block table, lengths, slot cache and pool keep their data pointers
+    across admissions, prefill completions, retires and steps — the
+    addresses a captured graph replays over — on the paged layout, and on
+    the contiguous and ``auto`` layouts with the prefix cache (warm
+    admissions copy into the slot cache, or alias and clone pages)."""
     _, tcfg, _, _ = setup
-    eng = port_engine(setup, prefill_chunk=4, decode_horizon=4)
+    for layout in ("paged", "contiguous", "auto"):
+        kw = dict(prefix_blocks=8, vpe=VPE()) if layout != "paged" else {}
+        eng = port_engine(setup, prefill_chunk=4, decode_horizon=4,
+                          kv_layout=layout, block_size=8, **kw)
+        if layout == "auto":     # paged for every warm admission
+            for bucket in kv_layout_buckets(MAX_LEN, 2):
+                eng.vpe.controller.force("kv_layout", bucket, "paged")
 
-    def pointers():
-        g = eng.graphs
-        return [t.data_ptr() for t in (eng._inputs, g.tok, g.live, g.eos, g.budget,
-                                       eng.cache["bt"], eng.cache["length"],
-                                       eng.page_pool["k"], eng.page_pool["v"])]
+        def pointers():
+            g = eng.graphs
+            tensors = [eng._inputs, g.tok, g.live, g.eos, g.paged, g.budget,
+                       *eng.cache.values()]
+            if eng.page_pool is not None:
+                tensors += [eng.page_pool["k"], eng.page_pool["v"]]
+            return [t.data_ptr() for t in tensors]
 
-    before = pointers()
-    graphs = eng.graphs
-    for r in make_reqs(tserve, tcfg.vocab_size, eos=(None, 7, None)):
-        eng.submit(r)
-    events = set()
-    while eng.queue or eng.num_active:
-        admits, done = len(eng.stats.queue_wait_s), len(eng.completed)
-        prefilled = eng.stats.prefill_tokens
-        eng.step()
-        events.update(e for e, moved in (
-            ("admit", len(eng.stats.queue_wait_s) > admits),
-            ("prefill done", eng.stats.prefill_tokens > prefilled),
-            ("retire", len(eng.completed) > done)) if moved)
-        assert pointers() == before
-        assert eng.graphs is graphs and graphs.pool is eng.page_pool \
-            and graphs.cache is eng.cache
-    assert events == {"admit", "prefill done", "retire"}
-    assert eng.stats.horizon_calls > 0
-    assert graphs.captures == 0 and graphs.pool_bytes() == 0   # CPU: eager
+        before = pointers()
+        graphs = eng.graphs
+        reqs = make_reqs(tserve, tcfg.vocab_size, eos=(None, 7, None))
+        if layout != "paged":    # a shared 16-token prefix: warm admissions
+            for r in reqs[1:]:
+                r.prompt = np.concatenate([reqs[0].prompt, reqs[0].prompt, r.prompt])
+            reqs[0].prompt = np.concatenate([reqs[0].prompt, reqs[0].prompt])
+        for r in reqs:
+            eng.submit(r)
+        events = set()
+        while eng.queue or eng.num_active:
+            admits, done = len(eng.stats.queue_wait_s), len(eng.completed)
+            prefilled = eng.stats.prefill_tokens
+            eng.step()
+            events.update(e for e, moved in (
+                ("admit", len(eng.stats.queue_wait_s) > admits),
+                ("prefill done", eng.stats.prefill_tokens > prefilled),
+                ("retire", len(eng.completed) > done)) if moved)
+            assert pointers() == before, layout
+            assert eng.graphs is graphs and graphs.cache is eng.cache \
+                and graphs.pool is eng.page_pool
+        assert events == {"admit", "prefill done", "retire"}
+        assert eng.stats.horizon_calls > 0
+        assert graphs.captures == 0 and graphs.pool_bytes() == 0   # CPU: eager
+        if layout != "paged":
+            assert eng.stats.prefix_hits > 0
+        if layout == "auto":
+            assert 0 < eng.stats.paged_admits < len(reqs)
 
 
 @pytest.mark.parametrize("horizon", ["16", "auto"])
@@ -375,7 +396,7 @@ def test_launcher_decode_horizon(capsys, horizon):
     from repro_torch.launch import serve as tlaunch
     tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--continuous", "--device",
                   "cpu", "--requests", "3", "--new-tokens", "20", "--max-len",
-                  "48", "--decode-horizon", horizon])
+                  "48", "--kv-layout", "paged", "--decode-horizon", horizon])
     out = capsys.readouterr().out
     assert "completed 3 requests" in out
     if horizon == "16":

@@ -60,8 +60,8 @@ def main(argv=None) -> int:
     kw = {} if args.horizon == 1 else dict(decode_horizon=args.horizon)
     engine = ContinuousBatchingEngine(
         cfg, params, vpe=VPE(), slots=SLOTS, max_len=MAX_LEN, block_size=BS,
-        prefill_chunk=CHUNK, decode_impl="cuda", prefill_kernel="cuda",
-        device=dev, **kw)
+        kv_layout="paged", prefill_chunk=CHUNK, decode_impl="cuda",
+        prefill_kernel="cuda", device=dev, **kw)
     rng = np.random.default_rng(5)
     for i, n in enumerate(rng.integers(64, 513, SLOTS)):
         engine.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
