@@ -53,14 +53,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    within 0.25 of phase 4's; (ii) phase 4d's traffic three times on one
    ``auto`` engine with the prefix cache, the paged kernels launched, the
    VPE's ``kv_layout`` and ``prefix_reuse`` decisions printed;
+4f. page pressure: phase 4's engine and traffic (odd requests
+   ``interactive``, even ones ``batch``) with ``page_budget=72`` against a
+   worst case of 260, (i) resuming preempted requests by recompute and (ii)
+   by swap; every request done, TTFT recorded once a request, the pool
+   audit-clean and drained, at least one preemption in (i), as many
+   swap-ins as swap-outs in (ii), no capture in a timed pass, and a swap
+   round trip at this width bit-exact (gather, pinned host memory, scatter
+   into other pages, gather again); TTFT by class, decode tok/s, the
+   preemption, swap and rollback counters, each swap's wall and the first
+   token parting from phase 4 printed; then (iii) phase 4's traffic with
+   ``prefill_chunk="auto"`` under a VPE, three passes, the
+   ``prefill_chunk`` decisions printed;
 5. serving parity: reduced qwen3-8b in f32, kernels against the gather
    path, greedy tokens equal, and fused horizons of 4 and 16 steps against
    single steps for both decode variants, plus an EOS that stops a horizon
    midway (tokens end at the first EOS); then, token for token, the prefix
    cache warm against cold, paged against contiguous against ``auto`` (its
    warm admissions forced paged), contiguous H = 4 against H = 1, and a
-   copy-on-write tail shared by two resident requests; full width in
-   bf16, first-step logits of the two;
+   copy-on-write tail shared by two resident requests, and a page budget
+   near the floor (9 pages) with preemption by recompute and by swap at H =
+   1 and 16 against the unpressured tokens; full width in bf16, first-step
+   logits of the two;
 7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
    master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
    with the VPE free until it concludes its ``attn_impl`` trial, then with
@@ -533,24 +547,27 @@ def serving_engine(cfg, params, dev, horizon, **kw):
     ``"auto"``)."""
     from repro_torch.core import VPE
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine
-    kw = {"kv_layout": "paged", "vpe": VPE(), **kw}
+    kw = {"kv_layout": "paged", "vpe": VPE(), "prefill_chunk": CHUNK, **kw}
     return ContinuousBatchingEngine(
         cfg, params, slots=SLOTS, max_len=MAX_LEN, block_size=BS,
-        prefill_chunk=CHUNK, decode_horizon=horizon, decode_impl="cuda",
-        prefill_kernel="cuda", device=dev, **kw)
+        decode_horizon=horizon, decode_impl="cuda", prefill_kernel="cuda",
+        device=dev, **kw)
 
 
 def serve_traffic(engine, cfg, prompts, label, rid0=0,
-                  kernels=("paged_decode_attention", "paged_prefill_attention")):
+                  kernels=("paged_decode_attention", "paged_prefill_attention"),
+                  priority=None):
     """Serve the traffic on ``engine`` with the launch counts zeroed just
-    before and read just after; raise if a gate fails.  Returns the run's
+    before and read just after; raise if a gate fails.  ``priority`` maps a
+    request's index to its class (``batch`` without it).  Returns the run's
     record, with each request's first-token logits (the prompt's last
     position, on the card) under ``first_logits``.  Decode launches are the
     decode wrapper's own calls in the run plus the calls the graph replays
     stand for (``replayed_calls``); the profiled call of
     :func:`steady_window` shows that a replay launches the kernels.  Each
     kernel in ``kernels`` must have been launched; the pool must hold
-    nothing but the prefix tree's pages after the drain."""
+    nothing but the prefix tree's pages after the drain; each request's
+    TTFT is recorded once."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -565,7 +582,8 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
     before = (graphs.captures, graphs.replays, graphs.replayed_calls)
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
-        engine.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=NEW_TOKENS))
+        engine.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=NEW_TOKENS,
+                              priority=priority(i) if priority else "batch"))
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -592,6 +610,9 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
     if len(done) != len(prompts) or any(r.status != "done" for r in done):
         raise AssertionError(f"{label}: requests not completed: "
                              f"{[(r.rid, r.status, r.error) for r in done]}")
+    if len(st.ttft_s) != len(prompts) or not all(r.ttft_recorded for r in done):
+        raise AssertionError(f"{label}: {len(st.ttft_s)} TTFTs recorded for "
+                             f"{len(prompts)} requests")
     for r in done:
         if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"{label}: request {r.rid}: tokens {r.out}")
@@ -629,6 +650,14 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
                     tokens_saved=st.prefix_tokens_saved, cow_copies=st.cow_copies,
                     paged_admits=st.paged_admits, sched_skips=st.sched_skips,
                     kv_place_s=list(st.kv_place_s)),
+        pressure=dict(preemptions=st.preemptions,
+                      decode_preemptions=st.decode_preemptions,
+                      swap_outs=st.swap_outs, swap_ins=st.swap_ins,
+                      swapped_pages=st.swapped_pages,
+                      placement_rollbacks=st.placement_rollbacks,
+                      swap_out_s=list(st.swap_out_s), swap_in_s=list(st.swap_in_s),
+                      by_request={r.rid - rid0: r.preemptions for r in done}),
+        ttft_by_request={r.rid - rid0: r.ttft_s for r in done},
         tokens={r.rid - rid0: r.out for r in done}, first_logits=first_logits)
 
 
@@ -1008,14 +1037,149 @@ def phase_layouts(cfg, params, dev, prompts, main, main_logits, cold_4d):
                                                   decisions=decisions), wall_s=wall)
 
 
+PAGE_BUDGET = 72
+
+
+def interactive_odd(i):
+    """Phase 4f's classes: odd requests interactive, even ones batch."""
+    return "interactive" if i % 2 else "batch"
+
+
+def swap_roundtrip(engine, dev):
+    """A swap round trip on ``engine``'s drained full-width pool: pages 0-2
+    (K/V of the traffic just served) copied by ``swap_out_pages`` into
+    pinned host memory, scattered by ``swap_in_pages`` into pages 3-5 (the
+    trash page padding the ids to 4, with a negative start), gathered
+    again; whether the filled 43 positions came back bit for bit, and the
+    fenced walls of the two halves."""
+    import torch
+    from repro_torch.models import kvcache
+    pool, filled = engine.page_pool, 3 * BS - 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k, v = kvcache.swap_out_pages(pool, torch.tensor([0, 1, 2, 0], device=dev))
+    t1 = time.perf_counter()
+    kvcache.swap_in_pages(pool, k, v, torch.tensor([3, 4, 5, engine.pages.trash_id]),
+                          torch.tensor([0, BS, 2 * BS, -BS]), filled)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    want = kvcache.gather_pages(pool, torch.tensor([0, 1, 2], device=dev))
+    back = kvcache.gather_pages(pool, torch.tensor([3, 4, 5], device=dev))
+    exact = k.is_pinned() and all(
+        torch.equal(b[..., :filled, :], w[..., :filled, :])
+        and torch.equal(h[..., :filled, :], w[..., :filled, :].cpu())
+        for b, w, h in zip(back, want, (k, v)))
+    return dict(exact=exact, bytes=2 * k.numel() * k.element_size(),
+                swap_out_s=t1 - t0, swap_in_s=t2 - t1)
+
+
+def phase_pressure(cfg, params, dev, prompts, main, main_logits):
+    """Phase 4f: page pressure on phase 4's engine and traffic, odd
+    requests interactive and even ones batch, ``page_budget=72`` (the floor
+    is 66, the worst case 260): (i) preempted requests resume by recompute,
+    (ii) by swap.  Gates: every request done with its TTFT recorded once,
+    the pool audit-clean and drained, no capture in a timed pass, at least
+    one preemption in (i), swap-ins equal to swap-outs (at least one) in
+    (ii), a swap round trip bit-exact.  Tokens against phase 4's are printed
+    with the margin where they part (bf16 logits tie).  Then (iii): phase
+    4's traffic three times with ``prefill_chunk="auto"`` under a VPE; the
+    ``prefill_chunk`` decisions printed."""
+    import torch
+    from repro_torch.core import VPE
+    t0 = time.perf_counter()
+    page_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * BS * cfg.head_dim * 2
+    say(f"[4f] page pressure: {cfg.name} at full width, phase 4's traffic, odd "
+        f"requests interactive, even batch; page_budget {PAGE_BUDGET} (floor "
+        f"{NB + 2}, worst case {SLOTS * NB + SLOTS}), {page_bytes} B a page, pool "
+        f"{PAGE_BUDGET * page_bytes} B")
+    ref = dict(main, first_logits=main_logits)
+    runs = {}
+    for label, swap in (("recompute", False), ("swap", True)):
+        engine = serving_engine(cfg, params, dev, 1, page_budget=PAGE_BUDGET, swap=swap)
+        warm_up(engine, np.arange(1, 200, dtype=np.int32))
+        run = serve_traffic(engine, cfg, prompts, f"phase 4f {label}",
+                            priority=interactive_odd)
+        pr = run["pressure"]
+        ttft = {c: [run["ttft_by_request"][r] for r in sorted(run["ttft_by_request"])
+                    if interactive_odd(r) == c] for c in ("interactive", "batch")}
+        run["ttft_by_class"] = {c: dict(mean=float(np.mean(x)), max=max(x))
+                                for c, x in ttft.items()}
+        say(f"  ({label}) preemptions {pr['preemptions']} ({pr['decode_preemptions']} "
+            f"decoding; by request {pr['by_request']}), swaps out/in "
+            f"{pr['swap_outs']}/{pr['swap_ins']} ({pr['swapped_pages']} pages), "
+            f"placement rollbacks {pr['placement_rollbacks']}; swap-out wall "
+            f"{pr['swap_out_s']} s, swap-in wall {pr['swap_in_s']} s")
+        say(f"  ({label}) TTFT interactive mean {run['ttft_by_class']['interactive']} "
+            f"s, batch {run['ttft_by_class']['batch']} s; decode "
+            f"{run['decode_tok_per_s']} tok/s")
+        if run["captures_in_run"]:
+            raise AssertionError(f"phase 4f {label}: a capture in the timed run")
+        if not swap and pr["preemptions"] < 1:
+            raise AssertionError("phase 4f recompute: no preemption under the budget")
+        if swap and (pr["swap_outs"] < 1 or pr["swap_outs"] != pr["swap_ins"]):
+            raise AssertionError(f"phase 4f swap: {pr['swap_outs']} swap-outs, "
+                                 f"{pr['swap_ins']} swap-ins")
+        run["compare"] = compare_runs(f"phase 4f {label}", "phase 4", ref, run, cfg,
+                                      params, prompts)
+        if swap:
+            rt = swap_roundtrip(engine, dev)
+            say(f"  swap round trip of 3 pages ({rt['bytes']} B) at this width: "
+                f"bit-exact {rt['exact']}, out {rt['swap_out_s']} s, in "
+                f"{rt['swap_in_s']} s")
+            if not rt["exact"]:
+                raise AssertionError("phase 4f: the swap round trip is not bit-exact")
+            run["roundtrip"] = rt
+        run.pop("first_logits")
+        runs[label] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("  (iii) phase 4's traffic three times, prefill_chunk=auto over whole, 128, "
+        "512, 2048")
+    engine = serving_engine(cfg, params, dev, 1, prefill_chunk="auto",
+                            vpe=VPE(controller_kwargs=dict(min_samples=1,
+                                                           trial_samples=2)))
+    warm_up(engine, np.arange(1, 200, dtype=np.int32))
+    passes = []
+    for k in range(3):
+        run = serve_traffic(engine, cfg, prompts, f"phase 4f(iii) pass {k}",
+                            rid0=100 * (k + 1))
+        if run["captures_in_run"]:
+            raise AssertionError(f"phase 4f(iii) pass {k}: a capture in the timed run")
+        run["compare"] = compare_runs(f"phase 4f(iii) pass {k}", "phase 4", ref, run,
+                                      cfg, params, prompts)
+        run.pop("first_logits")
+        say(f"  pass {k}: {run['prefill_chunks']} prefill chunks, TTFT mean "
+            f"{run['mean_ttft_s']} s, decode {run['decode_tok_per_s']} tok/s")
+        passes.append(run)
+    decisions = {}
+    say("  prefill_chunk decisions (bucket: kept, tried, history):")
+    for (op, bucket), d in sorted(engine.vpe.controller._decisions.items(), key=repr):
+        if op == "prefill_chunk":
+            decisions[str(bucket)] = (d.selected, d.tried)
+            say(f"    {bucket}: kept {d.selected}, tried {d.tried}, "
+                f"{[f'{ev} {v}: {detail}' for ev, v, detail in d.history]}")
+    if not decisions:
+        raise AssertionError("phase 4f(iii): the prefill_chunk axis made no decision")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    say(f"  phase 4f wall {wall} s")
+    return dict(runs=runs, chunk_axis=dict(passes=passes, decisions=decisions),
+                page_budget=PAGE_BUDGET, page_bytes=page_bytes, wall_s=wall)
+
+
 def run_engine(cfg, params, dev, impls, prompts, new_tokens, eos=None, warm=None,
-               force_paged=False, **kw):
+               force_paged=False, priority=None, stats=None, **kw):
     """Serve ``prompts`` (rids 0...) on a new engine, the paged layout unless
     ``kw`` says otherwise, after a 2-token request for each prompt in
     ``warm`` (rids < 0: they fill the prefix tree); ``force_paged`` pins
-    an ``auto`` engine's warm admissions to the paged layout.  Returns
-    each request's tokens; raises unless the pool holds only tree pages
-    after the drain."""
+    an ``auto`` engine's warm admissions to the paged layout; ``priority``
+    maps a request's index to its class; the engine's stats are appended
+    to ``stats`` when it is a list.  Returns each request's tokens; raises
+    unless every request is done and the pool holds only tree pages after
+    the drain."""
     from repro_torch.core import VPE, kv_layout_buckets
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
     kw = {"kv_layout": "paged", **kw}
@@ -1030,14 +1194,19 @@ def run_engine(cfg, params, dev, impls, prompts, new_tokens, eos=None, warm=None
         eng.submit(Request(rid=-1 - j, prompt=p, max_new_tokens=2))
         eng.run()
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens, eos_id=eos))
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens, eos_id=eos,
+                           priority=priority(i) if priority else "batch"))
     done = eng.run()
+    if any(r.status != "done" for r in done):
+        raise AssertionError(f"requests not done: {[(r.rid, r.status) for r in done]}")
     eng.check_kv()
     tree = eng.prefix_cache.owned_pages() if eng.prefix_cache else []
     if eng.pages is not None and eng.pages.num_live != len(tree):
         raise AssertionError("page pool not drained to the tree's pages")
     if force_paged and not eng.stats.paged_admits:
         raise AssertionError("no admission went paged under the forced flip")
+    if stats is not None:
+        stats.append(eng.stats)
     return {r.rid: r.out for r in done if r.rid >= 0}
 
 
@@ -1057,6 +1226,25 @@ def phase_reduced_parity(dev):
         f"gather) == (cuda, cuda): {gather == kernels}")
     if gather != kernels:
         raise AssertionError(f"tokens differ:\n gather {gather}\n kernels {kernels}")
+    # page pressure: 9 pages (the floor is 8), odd requests interactive;
+    # preempted requests resume by recompute or from host memory, at H = 1
+    # and 16, and give the unpressured tokens
+    for horizon in (1, 16):
+        for swap in (False, True):
+            st = []
+            got = run_engine(cfg, params, dev, ("cuda", "cuda"), prompts, 12,
+                             page_budget=9, swap=swap, decode_horizon=horizon,
+                             priority=interactive_odd, stats=st, **kw)
+            st = st[0]
+            say(f"  page_budget 9, H={horizon}, {'swap' if swap else 'recompute'}: "
+                f"{st.preemptions} preemptions ({st.decode_preemptions} decoding), "
+                f"swaps {st.swap_outs}/{st.swap_ins}, tokens == unpressured: "
+                f"{got == kernels}")
+            if got != kernels or st.preemptions < 1 or st.swap_outs != st.swap_ins \
+                    or (swap and st.swap_outs < 1):
+                raise AssertionError(f"page pressure H={horizon} swap={swap}: {got} "
+                                     f"!= {kernels}, or {st.preemptions} preemptions, "
+                                     f"swaps {st.swap_outs}/{st.swap_ins}")
     # fused horizons against single steps, both decode variants; then an EOS
     # whose first occurrence in request 0 is its fifth token or later, so it
     # stops a horizon midway: each request's tokens end at its first EOS
@@ -1949,6 +2137,7 @@ def main(argv=None) -> int:
     auto = phase_auto_horizon(cfg, params, dev, prompts, main_run)
     prefix, cold_4d = phase_prefix_cache(cfg, params, dev)
     layouts = phase_layouts(cfg, params, dev, prompts, main_run, main_logits, cold_4d)
+    pressure = phase_pressure(cfg, params, dev, prompts, main_run, main_logits)
     del main_logits, cold_4d
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
@@ -1985,7 +2174,7 @@ def main(argv=None) -> int:
             dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                  kernel_times=times, check_errors=errors, main_path=main_run,
                  fused_horizons=fused, auto_horizon=auto, prefix_cache=prefix,
-                 layouts=layouts,
+                 layouts=layouts, pressure=pressure,
                  full_width_logits=logits, traces=traces, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,

@@ -20,7 +20,8 @@ from .shape_class import (bucket_label, decode_horizon_bucket,
                           kv_layout_bucket, kv_layout_buckets,
                           occupancy_bucket, pad_to_bucket,
                           prefill_chunk_bucket, prefix_len_bucket,
-                          queue_depth_bucket, shape_bucket)
+                          queue_depth_bucket, shape_bucket,
+                          slo_pressure_bucket)
 
 __all__ = [
     "VPE", "VPEFunction", "block_until_ready", "Controller", "Decision",
@@ -28,4 +29,5 @@ __all__ = [
     "shape_bucket", "bucket_label", "occupancy_bucket", "pad_to_bucket",
     "prefix_len_bucket", "prefill_chunk_bucket", "queue_depth_bucket",
     "decode_horizon_bucket", "kv_layout_bucket", "kv_layout_buckets",
+    "slo_pressure_bucket",
 ]

@@ -9,7 +9,7 @@ tables of the two packages can be compared entry by entry.
 from __future__ import annotations
 
 import math
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 from torch.utils import _pytree as pytree
 
@@ -41,33 +41,50 @@ def shape_bucket(*args: Any, granularity: float = 1.0) -> Tuple:
     return (b, tuple(sorted(set(ranks))))
 
 
+def _split_slo(bucket: Tuple) -> Tuple[Tuple, Optional[Tuple]]:
+    """Split a trailing :func:`slo_pressure_bucket` segment off a composite
+    dispatch key (the serve engine appends it to the ``decode_horizon``,
+    ``prefill_chunk`` and ``prefill_kernel`` keys when ``slo_weight`` > 0)."""
+    if len(bucket) >= 4 and bucket[-3] == "slo":
+        return bucket[:-3], bucket[-3:]
+    return bucket, None
+
+
 def bucket_label(bucket: Tuple) -> str:
     """Human-readable label of the bucket kinds this package produces."""
+    bucket, slo = _split_slo(bucket)
+    suffix = ""
+    if slo is not None:
+        _, i, b = slo
+        suffix = f"xslo:i{i}b{b}"
     if bucket == ("scalar",):
-        return "scalar"
+        return "scalar" + suffix
     if bucket and bucket[0] == "occ":
         _, level, total = bucket
-        return f"occ{level}/{total}slots"
+        return f"occ{level}/{total}slots" + suffix
     if bucket and bucket[0] == "plen":
         _, b = bucket
         if b == 0:
-            return "plen0"
-        return f"plen[{2 ** (b - 1)},{2 ** b})tok"
+            return "plen0" + suffix
+        return f"plen[{2 ** (b - 1)},{2 ** b})tok" + suffix
+    if bucket and bucket[0] == "slo":
+        _, i, b = bucket
+        return f"slo:i{i}b{b}"
     if bucket and bucket[0] == "kvl":
         _, pb, level, total = bucket
         plen = "plen0" if pb == 0 else f"plen[{2 ** (pb - 1)},{2 ** pb})"
-        return f"{plen}xocc{level}/{total}slots"
+        return f"{plen}xocc{level}/{total}slots" + suffix
     if bucket and bucket[0] == "pfc":
         _, pb, level, total = bucket
         plen = "plen0" if pb == 0 else f"plen[{2 ** (pb - 1)},{2 ** pb})"
-        return f"chunk:{plen}xocc{level}/{total}slots"
+        return f"chunk:{plen}xocc{level}/{total}slots" + suffix
     if bucket and bucket[0] == "hzn":
         _, qb, level, total = bucket
         q = "q0" if qb == 0 else f"q[{2 ** (qb - 1)},{2 ** qb})"
-        return f"horizon:{q}xocc{level}/{total}slots"
+        return f"horizon:{q}xocc{level}/{total}slots" + suffix
     b, ranks = bucket
     lo, hi = 2 ** b, 2 ** (b + 1)
-    return f"[{lo},{hi})elems/rank{','.join(map(str, ranks))}"
+    return f"[{lo},{hi})elems/rank{','.join(map(str, ranks))}" + suffix
 
 
 def occupancy_bucket(active: int, total: int, *, levels: int = 4) -> Tuple:
@@ -132,6 +149,19 @@ def decode_horizon_bucket(queue_depth: int, active: int, total: int, *,
     q = queue_depth_bucket(queue_depth)
     o = occupancy_bucket(active, total, levels=levels)
     return ("hzn", q, o[1], total)
+
+
+def slo_pressure_bucket(queued_interactive: int, queued_batch: int) -> Tuple:
+    """Dispatch-key extension for SLO-aware horizon and chunk selection:
+    the queue's composition, coarsely — interactive waiters at three levels
+    (0 / 1 / 2+) x batch waiters at three levels (0 / <= 4 / more).  A long
+    device call (a fused horizon, a large prefill chunk) makes every queued
+    request wait it out, and what that wait costs depends on who waits; the
+    engine appends this key to the ``decode_horizon``, ``prefill_chunk``
+    and ``prefill_kernel`` buckets when ``slo_weight`` > 0."""
+    i = min(max(queued_interactive, 0), 2)
+    b = 0 if queued_batch <= 0 else (1 if queued_batch <= 4 else 2)
+    return ("slo", i, b)
 
 
 def pad_to_bucket(n: int, *, minimum: int = 16) -> int:

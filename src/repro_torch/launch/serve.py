@@ -3,8 +3,9 @@
     python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] [--device cpu]
     python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] --continuous \\
         [--kv-layout contiguous|paged|auto] [--prefix-cache --prefix-blocks 64] \\
-        [--prefill-chunk 128] [--decode-horizon 16|auto] \\
-        [--decode-impl cuda --prefill-kernel cuda] [--device cpu]
+        [--prefill-chunk 128|whole|auto] [--decode-horizon 16|auto] \\
+        [--decode-impl cuda --prefill-kernel cuda] \\
+        [--priority mix --page-budget 11 --swap --slo-weight 0.5] [--device cpu]
 
 Without ``--continuous`` requests run in waves (``ServeLoop`` +
 ``WaveScheduler``, the baseline).  The flags are those of
@@ -30,8 +31,6 @@ from repro_torch.runtime.serve_loop import (LATER, SERVE_AXES,
 # flags of repro.launch.serve outside this slice -> ROADMAP item
 _LATER_FLAGS = {
     "--spec-draft": "speculation",
-    "--priority": "preemption", "--page-budget": "preemption",
-    "--swap": "preemption", "--slo-weight": "preemption",
     "--deadline": "faults", "--max-queue-depth": "faults",
     "--watchdog": "faults", "--fault-seed": "faults",
     "--fault-storm": "faults", "--mesh": "mesh",
@@ -64,8 +63,9 @@ def main(argv=None) -> None:
                          "(a VPE axis per matched-length x occupancy bucket)")
     ap.add_argument("--prefill-chunk", default="whole",
                     help="prefill chunk size in tokens of paged admissions, "
-                         "or 'whole' ('auto', the measured axis, is not "
-                         "ported: the engine names its ROADMAP item)")
+                         "'whole' (one chunk a prompt), or 'auto' — a VPE "
+                         "axis over whole, 128, 512 and 2048 keyed by "
+                         "prompt length x occupancy")
     ap.add_argument("--chunks-per-step", type=int, default=None)
     ap.add_argument("--decode-horizon", default="1",
                     help="decode steps fused into one device call per "
@@ -84,6 +84,21 @@ def main(argv=None) -> None:
                     default="auto",
                     help="chunked-prefill attention: gathered pages "
                          "(gather), the CUDA kernel (cuda), or auto")
+    ap.add_argument("--priority", choices=["batch", "interactive", "mix"],
+                    default="batch",
+                    help="request priority class; 'mix' alternates "
+                         "interactive and batch")
+    ap.add_argument("--page-budget", type=int, default=None,
+                    help="pages of the paged pool, below the worst case: "
+                         "exhaustion is recovered by eviction and "
+                         "preemption (at least max_len/block_size + 2)")
+    ap.add_argument("--swap", action="store_true",
+                    help="resume preempted requests from their K/V copied "
+                         "to host memory instead of recomputing it")
+    ap.add_argument("--slo-weight", type=float, default=0.0,
+                    help="weight of the queue-wait term: fused horizons and "
+                         "prefill chunks are charged wall x (1 + w x "
+                         "class-weighted queued requests); 0 turns it off")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     args, unknown = ap.parse_known_args(argv)
@@ -110,10 +125,16 @@ def main(argv=None) -> None:
     params = model_lib.init_params(
         cfg, torch.Generator(device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
+
+    def _prio(i: int) -> str:
+        if args.priority == "mix":
+            return "interactive" if i % 2 == 0 else "batch"
+        return args.priority
+
     reqs = [Request(
         rid=i,
         prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
-        max_new_tokens=args.new_tokens)
+        max_new_tokens=args.new_tokens, priority=_prio(i))
         for i in range(args.requests)]
     if not args.continuous:
         serve = ServeLoop(cfg, params, max_len=args.max_len, batch=args.batch,
@@ -134,7 +155,8 @@ def main(argv=None) -> None:
         block_size=args.block_size, kv_layout=args.kv_layout,
         prefill_chunk=chunk, chunks_per_step=args.chunks_per_step,
         decode_horizon=horizon, decode_impl=args.decode_impl,
-        prefill_kernel=args.prefill_kernel, device=device)
+        prefill_kernel=args.prefill_kernel, page_budget=args.page_budget,
+        swap=args.swap, slo_weight=args.slo_weight, device=device)
     for r in reqs:
         engine.submit(r)
     done = engine.run()

@@ -178,7 +178,8 @@ def write_pages(pool: Cache, k_src: torch.Tensor, v_src: torch.Tensor,
     """Masked scatter of prefill K/V into pages, in place.
 
     k_src/v_src: (L, 1, Hkv, S_pad, D) covering positions ``[base, base +
-    S_pad)``; ``ids`` (nb,): target pages (distinct); ``starts`` (nb,):
+    S_pad)``; ``ids`` (nb,): target pages (distinct, apart from repeats of
+    the trash id whose whole window is invalid); ``starts`` (nb,):
     each page's block-aligned absolute start; ``valid_len``: the real
     source positions.  Columns whose position falls outside ``[base, base
     + valid_len)`` keep their pool content, so one call serves full
@@ -203,6 +204,44 @@ def copy_page(pool: Cache, src: int, dst: int) -> None:
     place."""
     for arr in (pool["k"], pool["v"]):
         arr[:, dst] = arr[:, src]
+
+
+def swap_out_pages(pool: Cache, ids: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Preemption swap-out: a victim's filled pages ``ids`` (nb,) copied to
+    host memory as (k, v) of shape (L, 1, Hkv, nb*bs, D), pages
+    concatenated in ``ids`` order — :func:`gather_pages`, the layout
+    :func:`swap_in_pages` scatters back from.  ``ids`` may be padded by
+    repeating a valid id.  On the card the copy goes to pinned memory and
+    is fenced before this returns, so the pages can be given away; on the
+    CPU the gather is already a copy the pool's later writes cannot
+    reach."""
+    k, v = gather_pages(pool, ids)
+    if k.device.type != "cuda":
+        return k, v
+    host = []
+    for t in (k, v):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    torch.cuda.current_stream(k.device).synchronize()
+    return host[0], host[1]
+
+
+def swap_in_pages(pool: Cache, k_host: torch.Tensor, v_host: torch.Tensor,
+                  ids: torch.Tensor, starts: torch.Tensor,
+                  valid_len: int) -> Cache:
+    """Preemption swap-in: scatter a :func:`swap_out_pages` result, which
+    covers positions ``[0, nb*bs)``, into fresh pages ``ids`` in place.
+    ``starts`` are their block-aligned starts; padding takes the trash id
+    and a negative start, so its whole window is invalid and the trash row
+    is rewritten with its own content.  ``valid_len`` is the preempted
+    residency's filled length: a half-filled tail block's other columns
+    keep the pool's content, as a chunk written from mid-block would."""
+    dev = pool["k"].device
+    return write_pages(pool, k_host.to(dev, non_blocking=True),
+                       v_host.to(dev, non_blocking=True), ids, starts, 0,
+                       valid_len)
 
 
 def write_chunk_paged_layer(

@@ -99,9 +99,9 @@ class PagePool:
     # -- preemption swap -------------------------------------------------
     def swap_out(self, pids: List[int]) -> int:
         """Release a preempted slot's references after its page CONTENT
-        was gathered to host memory (the device half, ``swap_out_pages``,
-        arrives with the preemption slice of the port; this is the
-        accounting half).  One reference per page is dropped — a page still aliased
+        was gathered to host memory (:func:`repro_torch.models.kvcache.
+        swap_out_pages` does the device half; this is the accounting
+        half).  One reference per page is dropped — a page still aliased
         by the prefix tree or another slot survives; private pages
         return to the free list.  Returns the number of pages actually
         freed."""

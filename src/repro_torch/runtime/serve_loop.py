@@ -45,8 +45,30 @@ Measured implementation axes (VPE, the paper's profile-guided dispatch):
   decode calls;
 * ``prefill_kernel`` — ``gather`` or the ``cuda`` multi-query kernel for
   chunked prefill; keyed by prompt length × occupancy;
+* ``prefill_chunk`` (``prefill_chunk="auto"``) — ``whole`` or a chunk size
+  from ``chunk_choices``; keyed by prompt length × occupancy and fed from
+  the summed chunk walls of an admission;
 * ``decode_horizon`` — ``1`` or a fused horizon from ``horizon_choices``;
   keyed by queue depth × occupancy and fed from per-token walls.
+
+With ``slo_weight`` > 0 the horizon and chunk axes optimize a two-term
+objective: each sample is charged ``wall × (1 + slo_weight × pressure)``,
+the pressure being the class-weighted count of queued requests, and their
+keys carry the queue's composition (:func:`slo_pressure_bucket`).
+
+**Page pressure.**  ``page_budget`` runs the paged pool below its worst
+case.  A page then comes from the free list, else from evicting a cached
+prefix, else from preempting a victim slot (prefilling victims of a lower
+class first; decode growth also takes equal-class prefills and
+lower-class decoders, and preempts the grower itself when nothing else
+is left).  A placement that cannot finish rolls back every reference it
+took and requeues its request at the head of its class.  A preempted
+request resumes exactly: greedy decode is deterministic, so it re-prefills
+:meth:`Request.effective_prompt` (its prompt and the tokens it emitted),
+or, with ``swap=True``, its filled K/V comes back from pinned host memory
+into fresh pages and the prefill resumes where it stopped.  Requests carry
+a priority class: ``interactive`` goes before ``batch`` in the admission
+window and is never preempted by it.
 
 A pinned ``"cuda"`` runs the kernel — or raises; there is no fallback
 ladder.  On a CUDA device the kernels the layout runs are built and
@@ -57,8 +79,9 @@ first call of its (layout, decode-attention variant, H)
 reference's jit cache).  A call that captured is the counterpart of a call
 that compiled: it is counted in ``stats.tainted_steps`` and feeds no axis.
 
-Features of the reference engine outside this port raise ``ValueError``
-naming the ROADMAP item that ports them.
+Features of the reference engine outside this port (speculation, faults
+and deadlines, the mesh) raise ``ValueError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -74,7 +97,8 @@ from repro_torch import DeviceLike, fence, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (VPE, decode_horizon_bucket, kv_layout_bucket,
                               occupancy_bucket, pad_to_bucket,
-                              prefill_chunk_bucket, prefix_len_bucket)
+                              prefill_chunk_bucket, prefix_len_bucket,
+                              slo_pressure_bucket)
 from repro_torch.models import kvcache
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.decode_graphs import INPUT_ROWS, DecodeGraphs
@@ -91,13 +115,16 @@ SERVE_AXES: Dict[str, List[str]] = {
 
 KV_LAYOUTS = ("contiguous", "paged", "auto")
 
+# request priority classes, best first: rank 0 (interactive) is never
+# preempted by rank 1 (batch) and goes first in the admission window; the
+# SLO pressure term weighs a queued interactive request 1.0, a batch one 0.1
 PRIORITY_CLASSES = ("interactive", "batch")
+PRIORITY_RANK: Dict[str, int] = {c: i for i, c in enumerate(PRIORITY_CLASSES)}
+SLO_CLASS_WEIGHT: Dict[str, float] = {"interactive": 1.0, "batch": 0.1}
 
 # reference engine features outside this port -> the ROADMAP item (queue
 # 1, "Modules still to port", label 8) that ports each
 LATER = {
-    "chunk_axis": "8(d) measured prefill-chunk axis",
-    "preemption": "8(f) preemption, priority scheduling and swap",
     "speculation": "8(g) speculation",
     "faults": "8(h) faults and deadlines",
     "mesh": "8(i) mesh and replicas",
@@ -124,9 +151,10 @@ def _intake_error(req: "Request", max_len: int) -> Optional[str]:
 
 
 class _PagePressure(RuntimeError):
-    """The free list and prefix-tree eviction could not supply a page.
-    Placement rolls back and requeues on it; decode growth lets it
-    propagate, since the preemption that would recover is not ported."""
+    """The free list, prefix-tree eviction and preemption could not supply
+    a page.  Internal control flow only: placement rolls back and requeues
+    on it, decode growth preempts the growing slot; it never leaves the
+    engine."""
 
 
 @dataclasses.dataclass
@@ -172,6 +200,16 @@ class ServeStats:
     horizon_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
     # decode calls that captured their CUDA graph (kept out of the VPE)
     tainted_steps: int = 0
+    # page pressure: slots preempted for pages (decode_preemptions counts
+    # the decoding ones), host swaps and the pages they moved, and the
+    # fenced wall of each swap-out and swap-in
+    preemptions: int = 0
+    decode_preemptions: int = 0
+    swap_outs: int = 0
+    swap_ins: int = 0
+    swapped_pages: int = 0
+    swap_out_s: List[float] = dataclasses.field(default_factory=list)
+    swap_in_s: List[float] = dataclasses.field(default_factory=list)
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -220,6 +258,12 @@ class ServeStats:
         if self.horizon_calls:
             s += (f", {self.horizon_calls} fused horizons "
                   f"({self.horizon_tokens} tok)")
+        if self.preemptions:
+            s += (f", {self.preemptions} preemptions "
+                  f"({self.decode_preemptions} decode)")
+        if self.swap_outs:
+            s += (f", {self.swap_outs}/{self.swap_ins} swaps out/in "
+                  f"({self.swapped_pages} pages)")
         if self.failed_by_reason:
             by = ", ".join(f"{k}:{v}"
                            for k, v in sorted(self.failed_by_reason.items()))
@@ -287,16 +331,33 @@ class Request:
     ttft_s: float = 0.0
     done_t: float = 0.0
     # the prefix-cache pin held while resident, and the times a later
-    # request was admitted ahead of this one (bounded by max_skip)
+    # request was admitted ahead of this one (bounded by its class's
+    # max_skip)
     cache_handle: Optional[Any] = None
     skips: int = 0
-    # priority class (validated at intake; priority-aware scheduling is
-    # not ported), lifecycle status ("queued" -> "running" -> "done" |
-    # "failed") and the terminal error code + message of a failed request
+    # priority class (PRIORITY_CLASSES), lifecycle status ("queued" ->
+    # "running" -> ["preempted" -> "running"]* -> "done" | "failed"), the
+    # terminal error code + message of a failed request, the times it was
+    # preempted for pages, while preempted with swap on the host copy of
+    # its filled K/V (k, v, filled), and whether its TTFT is recorded
+    # (once per request, across preemptions)
     priority: str = "batch"
     status: str = "queued"
     error: Optional[str] = None
     error_detail: Optional[str] = None
+    preemptions: int = 0
+    swap: Optional[Tuple] = None
+    ttft_recorded: bool = False
+
+    def effective_prompt(self) -> np.ndarray:
+        """The tokens a (re-)admission must have in KV before decode goes
+        on: the prompt and every token already emitted.  Greedy decode is
+        deterministic, so a preempted request resumes exactly by
+        prefilling this (the last emitted token's logits give the next)."""
+        p = np.asarray(self.prompt, np.int32)
+        if not self.out:
+            return p
+        return np.concatenate([p, np.asarray(self.out, np.int32)])
 
 
 class WaveScheduler:
@@ -346,7 +407,14 @@ class _Slot:
     # prefilled chunk by chunk between decode steps
     prefilling: bool = False
     fill_pos: int = 0            # prompt positions already prefilled
+    chunk: int = 0               # chunk size this admission runs (0 = whole)
     chunk_walls: List[float] = dataclasses.field(default_factory=list)
+    # each chunk's wall charged x (1 + slo_weight x queue pressure at the
+    # chunk): what the chunk axes are fed (the walls when slo_weight = 0)
+    chunk_costs: List[float] = dataclasses.field(default_factory=list)
+    # prefill_chunk-axis state (prefill_chunk="auto")
+    chunk_bucket: Optional[Tuple] = None
+    chunk_variant: Optional[str] = None
     # prefill_kernel-axis state: the backend this admission's chunks run,
     # and in auto mode the bucket its chunk walls feed
     kernel: str = "gather"
@@ -397,12 +465,17 @@ class ContinuousBatchingEngine:
     cache on (``partial_match``: paged admissions may also match the
     leading tokens of one more block, cloned copy-on-write;
     ``sched_window``/``max_skip``: the prefix-aware admission window and
-    its starvation bound).  ``prefill_chunk`` is the chunk size in tokens
-    of paged admissions, or ``"whole"`` for one chunk per prompt.
-    ``decode_horizon`` is a step count >= 1, or ``"auto"`` for the
-    measured axis over 1 and ``horizon_choices``.  ``device`` defaults to
-    ``"cuda"`` and must hold ``params``; ``"cpu"`` runs the kernels'
-    plain versions.
+    its starvation bound, per class with ``max_skip_by_class``).
+    ``prefill_chunk`` is the chunk size in tokens of paged admissions,
+    ``"whole"`` for one chunk per prompt, or ``"auto"`` for the measured
+    axis over ``whole`` and ``chunk_choices``.  ``decode_horizon`` is a
+    step count >= 1, or ``"auto"`` for the measured axis over 1 and
+    ``horizon_choices``.  ``page_budget`` (paged and ``auto`` only, at
+    least ``max_len / block_size + 2``) sizes the pool below its worst
+    case, ``swap`` resumes preempted requests from host memory instead of
+    recomputing them, and ``slo_weight`` >= 0 weighs the queue-wait term
+    of the horizon and chunk axes.  ``device`` defaults to ``"cuda"`` and
+    must hold ``params``; ``"cpu"`` runs the kernels' plain versions.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -413,11 +486,14 @@ class ContinuousBatchingEngine:
                  max_skip: int = 4, sched_window: int = 16,
                  prefill_chunk: Any = "whole",
                  chunks_per_step: Optional[int] = None,
+                 chunk_choices: Tuple[int, ...] = (128, 512, 2048),
                  decode_horizon: Any = 1,
                  horizon_choices: Tuple[int, ...] = (4, 16),
                  decode_impl: str = "auto", prefill_kernel: str = "auto",
                  spec_draft: Any = "off",
                  page_budget: Optional[int] = None, swap: bool = False,
+                 slo_weight: float = 0.0,
+                 max_skip_by_class: Optional[Dict[str, int]] = None,
                  fault_plan: Any = None, max_queue_depth: Optional[int] = None,
                  mesh_shape: Tuple[int, int] = (1, 1),
                  device: DeviceLike = "cuda") -> None:
@@ -428,17 +504,14 @@ class ContinuousBatchingEngine:
                              f"got {kv_layout!r}")
         if spec_draft != "off":
             raise not_ported(f"spec_draft={spec_draft!r}", "speculation")
-        if page_budget is not None or swap:
-            raise not_ported("page_budget / swap", "preemption")
         if fault_plan is not None or max_queue_depth is not None:
             raise not_ported("fault_plan / max_queue_depth", "faults")
         if tuple(mesh_shape) != (1, 1):
             raise not_ported(f"mesh_shape={tuple(mesh_shape)}", "mesh")
-        if prefill_chunk == "auto":
-            raise not_ported("prefill_chunk='auto'", "chunk_axis")
         if isinstance(prefill_chunk, str):
-            if prefill_chunk != "whole":
-                raise ValueError("prefill_chunk must be a token count or 'whole'")
+            if prefill_chunk not in ("whole", "auto"):
+                raise ValueError(
+                    "prefill_chunk must be a token count, 'whole' or 'auto'")
         elif int(prefill_chunk) < 0:
             raise ValueError("prefill_chunk must be >= 0 (0 = whole)")
         if chunks_per_step is not None and chunks_per_step < 1:
@@ -458,10 +531,27 @@ class ContinuousBatchingEngine:
         if prefill_kernel != "auto" and prefill_kernel not in SERVE_AXES["prefill_kernel"]:
             raise ValueError(f"prefill_kernel must be 'auto' or one of "
                              f"{SERVE_AXES['prefill_kernel']}, got {prefill_kernel!r}")
+        if max_skip_by_class is not None:
+            bad = set(max_skip_by_class) - set(PRIORITY_CLASSES)
+            if bad:
+                raise ValueError(f"unknown priority classes in "
+                                 f"max_skip_by_class: {sorted(bad)}")
+        if slo_weight < 0.0:
+            raise ValueError("slo_weight must be >= 0")
         paged_capable = kv_layout in ("paged", "auto")
         if paged_capable and max_len % block_size:
             raise ValueError(f"paged layouts need max_len ({max_len}) divisible "
                              f"by block_size ({block_size})")
+        if page_budget is not None and not paged_capable:
+            raise ValueError("page_budget only applies to paged/auto layouts")
+        if page_budget is not None and page_budget < max_len // block_size + 2:
+            # one max_len residency must fit in an otherwise drained pool
+            # (its table's pages, a pinned partial original and its
+            # copy-on-write clone), or a lone request could never finish
+            raise ValueError(
+                f"page_budget={page_budget} below the minimum "
+                f"{max_len // block_size + 2} (= max_len/block_size + 2) a "
+                f"single request needs to make progress")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -477,8 +567,14 @@ class ContinuousBatchingEngine:
         self.kv_layout = kv_layout
         self.partial_match = partial_match
         self.max_skip = max_skip
+        self.max_skip_by_class = max_skip_by_class
         self.sched_window = sched_window
-        self.prefill_chunk = 0 if prefill_chunk == "whole" else int(prefill_chunk)
+        self.swap = swap
+        self.slo_weight = slo_weight
+        self.prefill_chunk = (prefill_chunk if prefill_chunk == "auto"
+                              else 0 if prefill_chunk == "whole"
+                              else int(prefill_chunk))
+        self.chunk_choices = tuple(int(c) for c in chunk_choices)
         self.chunks_per_step = chunks_per_step
         self.decode_horizon = (decode_horizon if decode_horizon == "auto"
                                else int(decode_horizon))
@@ -512,6 +608,17 @@ class ContinuousBatchingEngine:
                 vpe.registry.register_variant(
                     "prefill_kernel", name, fn=(lambda name=name: name),
                     default=(i == 0))
+        if vpe is not None and paged_capable and prefill_chunk == "auto" \
+                and not vpe.registry.has_op("prefill_chunk"):
+            # "whole" (one chunk a prompt) is the incumbent; the sizes of
+            # chunk_choices are the candidates, trialed per prompt-length x
+            # occupancy bucket and fed from an admission's chunk walls
+            vpe.registry.register_op("prefill_chunk")
+            names = ["whole"] + [str(c) for c in self.chunk_choices]
+            for i, name in enumerate(names):
+                vpe.registry.register_variant(
+                    "prefill_chunk", name, fn=(lambda name=name: name),
+                    default=(i == 0))
         if vpe is not None and self.decode_horizon == "auto" \
                 and not vpe.registry.has_op("decode_horizon"):
             # "1" (the single step) is the incumbent; the fused horizons
@@ -534,13 +641,16 @@ class ContinuousBatchingEngine:
         # slot's block table (x2 under auto, where contiguous admissions
         # pin tree pages no table owns) plus one pinned partial page a
         # slot, plus the prefix cache's headroom, so placement and decode
-        # growth never run dry
+        # growth never run dry — unless ``page_budget`` sizes it below
+        # that, and eviction and preemption recover
         self.nb_max = max_len // block_size if paged_capable else 0
         self.pages: Optional[PagePool] = None
         self.page_pool: Optional[kvcache.Cache] = None
         if paged_capable:
             n_pages = (slots * self.nb_max * (2 if kv_layout == "auto" else 1)
                        + slots + max(prefix_blocks, 0))
+            if page_budget is not None:
+                n_pages = page_budget
             self.pages = PagePool(n_pages)
             self.page_pool = model_lib.init_page_pool(cfg, n_pages, block_size,
                                                       self.device)
@@ -655,29 +765,205 @@ class ContinuousBatchingEngine:
                 owners[pid] = owners.get(pid, 0) + 1
         self.pages.check(owners)
 
+    def _requeue(self, req: Request) -> None:
+        """Put a rolled-back or preempted request back in the queue: at the
+        head of its own class, behind every better class.  At the queue's
+        head a rolled-back batch request would sit before waiting
+        interactive ones, be jumped by each of them and reach its skip
+        bound ahead of traffic that outranks it; here nobody is charged a
+        skip."""
+        rank = PRIORITY_RANK[req.priority]
+        pos = next((j for j, r in enumerate(self.queue)
+                    if PRIORITY_RANK[r.priority] >= rank), len(self.queue))
+        self.queue.insert(pos, req)
+
+    # -- page accounting ---------------------------------------------------
+    def _alloc_page(self, *, exclude: int, rank: int,
+                    decode_growth: bool = False) -> int:
+        """A page from the pool, escalating while it is dry: the free list,
+        then evicting an unpinned cached prefix, then preempting a victim
+        slot (:meth:`_pick_victim`).  ``exclude`` shields the slot the page
+        is for, ``rank`` is its request's class rank, ``decode_growth``
+        marks a decoding slot's next block (mid-horizon there is no host to
+        wait for one).  :class:`_PagePressure` when nothing is left: the
+        caller recovers (placement rolls back, growth preempts the
+        grower)."""
+        pid = self.pages.alloc()
+        while pid is None:
+            if self.prefix_cache is not None and self.prefix_cache.evict(1):
+                pid = self.pages.alloc()
+                continue
+            victim = self._pick_victim(exclude, rank, decode_growth)
+            if victim is None:
+                raise _PagePressure(
+                    "page demand exceeds the free list, evictable prefixes "
+                    "and preemptible slots")
+            self._preempt_slot(victim)
+            pid = self.pages.alloc()
+        return pid
+
+    def _skip_budget(self, req: Request) -> int:
+        """The request's starvation bound: its class's ``max_skip_by_class``
+        entry, else ``max_skip``."""
+        if self.max_skip_by_class is not None:
+            return self.max_skip_by_class.get(req.priority, self.max_skip)
+        return self.max_skip
+
+    def _queue_pressure(self) -> float:
+        """Class-weighted count of queued requests: the second term of the
+        scheduler objective.  Every queued request waits out the next long
+        device call, so that call is charged ``wall x (1 + slo_weight x
+        pressure)``."""
+        return sum(SLO_CLASS_WEIGHT.get(r.priority, 1.0) for r in self.queue)
+
+    def _slo_bucket(self) -> Tuple:
+        """The queue's composition, appended to the horizon and chunk keys
+        when ``slo_weight`` > 0."""
+        ni = sum(1 for r in self.queue if r.priority == "interactive")
+        return slo_pressure_bucket(ni, len(self.queue) - ni)
+
+    def _pick_victim(self, exclude: int, rank: int,
+                     decode_growth: bool) -> Optional[int]:
+        """The slot to preempt for pages, or None.  Prefilling victims come
+        before decoding ones (a paused prefill loses only work that can be
+        placed again); within a tier the lowest class, then the latest
+        admitted, then the least filled.  An admission takes only a lower
+        class's prefill; decode growth also takes an equal class's prefill
+        and a lower class's decoder.  A slot that would free nothing (no
+        pages, no pin) is never picked."""
+        prefills: List[Tuple[int, int, int, int]] = []
+        decodes: List[Tuple[int, int, int, int]] = []
+        for j, s in enumerate(self.slots):
+            if j == exclude or s.req is None:
+                continue
+            if not s.pages and s.req.cache_handle is None:
+                continue
+            vr = PRIORITY_RANK[s.req.priority]
+            if s.prefilling:
+                if vr > rank or (decode_growth and vr >= rank):
+                    prefills.append((vr, s.req.admit_step, -s.fill_pos, j))
+            elif decode_growth and vr > rank:
+                decodes.append((vr, s.req.admit_step, -len(s.req.out), j))
+        for tier in (prefills, decodes):
+            if tier:
+                return max(tier)[3]
+        return None
+
+    def _preempt_slot(self, j: int) -> None:
+        """Preempt slot ``j``: with ``swap`` its filled K/V goes to host
+        memory first (:meth:`_swap_out`); its pages go back to the pool, its
+        prefix pin is released, and its request is requeued at the head of
+        its class (``status="preempted"``).  The slot's block-table row and
+        length stay as they were: the masks refresh before the next decode
+        call, and a slot that is not live appends to the trash page, so the
+        stale row is never written through."""
+        slot = self.slots[j]
+        req = slot.req
+        was_decoding = not slot.prefilling
+        if self.swap and slot.layout == "paged":
+            filled = slot.pos if was_decoding else slot.fill_pos
+            if filled > 0:
+                self._swap_out(j, filled)
+        if slot.layout == "paged" and slot.pages:
+            if req.swap is not None:
+                self.pages.swap_out(slot.pages)
+                slot.pages = []
+            else:
+                self._release_slot_pages(j)
+        if req.cache_handle is not None:
+            self.prefix_cache.release(req.cache_handle)
+            req.cache_handle = None
+        req.preemptions += 1
+        req.status = "preempted"
+        self.stats.preemptions += 1
+        if was_decoding:
+            self.stats.decode_preemptions += 1
+        slot.req = None
+        slot.prefilling = False
+        slot.fill_pos = 0
+        slot.pos = 0
+        slot.chunk_walls = []
+        slot.chunk_costs = []
+        slot.reuse_bucket = None
+        slot.chunk_bucket = None
+        slot.kernel_bucket = None
+        slot.admit_bucket = None
+        self._requeue(req)
+        self._masks_dirty = True
+
+    def _swap_out(self, j: int, filled: int) -> None:
+        """Copy slot ``j``'s filled K/V to host memory (pinned, fenced)
+        before its pages are given away.  The page count is padded to a
+        power of two by repeating the first id (few distinct shapes);
+        ``filled`` travels with the copy."""
+        slot = self.slots[j]
+        bs = self.block_size
+        nb = -(-filled // bs)                       # ceil
+        ids = slot.pages[:nb]
+        nb_pad = pad_to_bucket(nb, minimum=1)
+        t0 = time.perf_counter()
+        k, v = kvcache.swap_out_pages(
+            self.page_pool, torch.tensor(ids + [ids[0]] * (nb_pad - nb),
+                                         dtype=torch.int64, device=self.device))
+        slot.req.swap = (k, v, filled)
+        self.stats.swap_out_s.append(time.perf_counter() - t0)
+        self.stats.swap_outs += 1
+        self.stats.swapped_pages += nb
+
+    def _swap_in_slot(self, i: int) -> int:
+        """Scatter a swap-resumed request's host K/V into the pages its
+        placement just allocated, fenced; returns the position the prefill
+        resumes at (the preempted residency's ``filled``).  Padding takes
+        the trash id and a negative start, so it writes nothing."""
+        slot = self.slots[i]
+        req = slot.req
+        k, v, filled = req.swap
+        bs = self.block_size
+        nb = -(-filled // bs)                       # ceil
+        nb_pad = k.shape[3] // bs                   # the swap-out's padding
+        ids = slot.pages[:nb] + [self.pages.trash_id] * (nb_pad - nb)
+        starts = [b * bs for b in range(nb)] + [-bs] * (nb_pad - nb)
+        t0 = time.perf_counter()
+        kvcache.swap_in_pages(self.page_pool, k, v, torch.tensor(ids),
+                              torch.tensor(starts), filled)
+        fence(self.device)
+        self.stats.swap_in_s.append(time.perf_counter() - t0)
+        req.swap = None
+        self.stats.swap_ins += 1
+        return filled
+
     # -- admission ---------------------------------------------------------
     def _pop_next(self) -> Request:
-        """The next request to admit: the longest cached prefix in the
-        queue's front ``sched_window`` (FIFO without a prefix cache), so
-        requests sharing a resident prefix are co-scheduled.  Every jumped
-        request's ``skips`` ticks; one skipped ``max_skip`` times goes
-        next, so request i is admitted within ``(max_skip + 1) * (i + 1)``
-        admissions.  (Priority classes come with item 8(f).)"""
+        """The next request to admit.  A request jumped its class's skip
+        budget times goes first (the front-most such); otherwise the front
+        ``sched_window`` entries are narrowed to the best class present
+        (interactive before batch), and among those the longest cached
+        prefix wins (the front-most without a prefix cache), so requests
+        sharing a resident prefix are co-scheduled.  Every jumped request's
+        ``skips`` ticks, so request i is admitted within ``(max_skip + 1) *
+        (i + 1)`` admissions: priority decides who goes first, never how
+        long anyone waits."""
         if len(self.queue) == 1:
             return self.queue.pop(0)
         forced = next((j for j, r in enumerate(self.queue)
-                       if r.skips >= self.max_skip), None)
+                       if r.skips >= self._skip_budget(r)), None)
         if forced is not None:
             best = forced
-        elif self.prefix_cache is None:
-            best = 0
         else:
-            best, best_len = 0, -1
-            for j, r in enumerate(self.queue[:self.sched_window]):
-                m = self.prefix_cache.probe(r.prompt,
-                                            max_match=len(r.prompt) - 1)
-                if m > best_len:
-                    best, best_len = j, m
+            window = self.queue[:self.sched_window]
+            ranks = [PRIORITY_RANK[r.priority] for r in window]
+            best_rank = min(ranks)
+            if self.prefix_cache is None:
+                best = ranks.index(best_rank)
+            else:
+                best, best_len = 0, -1
+                for j, r in enumerate(window):
+                    if ranks[j] != best_rank:
+                        continue
+                    m = self.prefix_cache.probe(r.prompt,
+                                                max_match=len(r.prompt) - 1)
+                    if m > best_len:
+                        best, best_len = j, m
         for r in self.queue[:best]:
             r.skips += 1
         self.stats.sched_skips += best
@@ -693,28 +979,38 @@ class ContinuousBatchingEngine:
             slot = self.slots[i]
             req = self._pop_next()
             if req.admit_step < 0:
-                # first admission only: one rolled back keeps its record
+                # first admission only: a preempted or rolled-back request
+                # keeps its record
                 req.admit_step = self.stats.decode_steps
                 req.queue_wait_s = time.perf_counter() - req.submit_t
                 self.stats.queue_wait_s.append(req.queue_wait_s)
             req.status = "running"
-            prompt = np.asarray(req.prompt, np.int32)
+            # a preempted request resumes by prefilling its prompt and the
+            # tokens it already emitted
+            prompt = req.effective_prompt()
             S = len(prompt)
             occ = self.num_active           # occupancy excluding this slot
             matched = 0
             if self.prefix_cache is not None:
                 # never match the whole prompt: the prefill must produce
                 # the first token's logits.  A partial tail match needs a
-                # layout that can clone the block copy-on-write.
+                # layout that can clone the block copy-on-write.  A swap
+                # resume matches nothing: its host K/V covers the filled
+                # range whole, and the tree may have changed meanwhile.
                 allow_partial = (self.partial_match
                                  and self.kv_layout in ("paged", "auto"))
                 req.cache_handle = self.prefix_cache.acquire(
-                    prompt, max_match=S - 1, allow_partial=allow_partial)
+                    prompt, max_match=(0 if req.swap is not None else S - 1),
+                    allow_partial=allow_partial and req.swap is None)
                 matched = req.cache_handle.matched_len
                 self.stats.prefix_lookups += 1
             # the layout sees the raw match; hits and the prefix_reuse axis
-            # see what the chosen layout can reuse (contiguous: full blocks)
-            layout, lbucket = self._select_layout(matched)
+            # see what the chosen layout can reuse (contiguous: full blocks).
+            # Swapped K/V goes back only into a block table.
+            if req.swap is not None:
+                layout, lbucket = "paged", None
+            else:
+                layout, lbucket = self._select_layout(matched)
             use_matched = (matched if layout == "paged"
                            else self.block_size * len(req.cache_handle.nodes)
                            if req.cache_handle is not None else 0)
@@ -729,7 +1025,10 @@ class ContinuousBatchingEngine:
             slot.admit_bucket = lbucket
             if layout == "paged":
                 # placement only; the prompt runs as chunks between decode
-                # steps (:meth:`_run_prefill_chunks`)
+                # steps (:meth:`_run_prefill_chunks`).  When the whole
+                # ladder runs dry the placement has rolled back: requeue
+                # and stop admitting this step (resident slots go on and
+                # free pages; the floor means a lone request fits)
                 try:
                     self._place_paged(i, req,
                                       use_matched if variant == "reuse" else 0,
@@ -762,17 +1061,19 @@ class ContinuousBatchingEngine:
 
     def _unadmit(self, i: int, req: Request) -> None:
         """Undo an admission whose placement rolled back: free the slot,
-        unpin the prefix handle, put the request back at the queue head."""
+        unpin the prefix handle, requeue the request at the head of its
+        class (:meth:`_requeue`).  Its queue-wait record stands."""
         slot = self.slots[i]
         slot.req = None
         slot.prefilling = False
         slot.admit_bucket = None
         slot.reuse_bucket = None
+        slot.chunk_bucket = None
         if req.cache_handle is not None:
             self.prefix_cache.release(req.cache_handle)
             req.cache_handle = None
         req.status = "queued"
-        self.queue.insert(0, req)
+        self._requeue(req)
         self._masks_dirty = True
 
     def _select_layout(self, matched: int) -> Tuple[str, Optional[Tuple]]:
@@ -786,11 +1087,13 @@ class ContinuousBatchingEngine:
         return self.vpe.controller.select("kv_layout", bucket), bucket
 
     def _first_token(self, i: int, logits: torch.Tensor) -> int:
-        """Slot ``i``'s first generated token: the greedy argmax of its
-        prompt's last-position logits (1, V), which are kept in
-        :attr:`first_logits` when that is a dict."""
-        if self.first_logits is not None:
-            self.first_logits[self.slots[i].req.rid] = logits[0].detach().clone()
+        """Slot ``i``'s next token after a prefill: the greedy argmax of the
+        last-position logits (1, V).  A request's first such logits (not a
+        resumed residency's) are kept in :attr:`first_logits` when that is
+        a dict."""
+        req = self.slots[i].req
+        if self.first_logits is not None and not req.ttft_recorded:
+            self.first_logits[req.rid] = logits[0].detach().clone()
         return int(torch.argmax(logits[0]))
 
     # -- contiguous admission ------------------------------------------------
@@ -854,19 +1157,6 @@ class ContinuousBatchingEngine:
         row[:len(pages)] = pages
         return row
 
-    def _alloc_page(self) -> int:
-        """A page from the free list, evicting cached prefixes when it is
-        dry; :class:`_PagePressure` when nothing is left (the pool is
-        sized for the worst case, and preemption is not ported)."""
-        pid = self.pages.alloc()
-        while pid is None:
-            if self.prefix_cache is None or not self.prefix_cache.evict(1):
-                raise _PagePressure(
-                    "page pool exhausted; preemption is ROADMAP queue 1, "
-                    f"item {LATER['preemption']}")
-            pid = self.pages.alloc()
-        return pid
-
     def _release_slot_pages(self, i: int) -> None:
         """Drop the slot's page references (pages the tree adopted or this
         slot aliased live on through the tree's own reference)."""
@@ -875,11 +1165,13 @@ class ContinuousBatchingEngine:
         self.slots[i].pages = []
 
     def _suffix_page_ids(self, base: int, S: int, cow_page: Optional[int],
-                         acquired: List[int]) -> List[int]:
+                         acquired: List[int], *, exclude: int,
+                         rank: int) -> List[int]:
         """Pages covering prompt positions ``[base, S)``: ``cow_page`` (the
         clone of a partially matched block) first when ``base`` is
-        mid-block, fresh allocations after it, each appended to
-        ``acquired`` as it is taken (the caller's rollback list)."""
+        mid-block, fresh allocations after it (``exclude``/``rank`` go to
+        :meth:`_alloc_page`), each appended to ``acquired`` as it is taken
+        (the caller's rollback list)."""
         bs = self.block_size
         ids = []
         b = base // bs
@@ -887,7 +1179,7 @@ class ContinuousBatchingEngine:
             if cow_page is not None and b == base // bs and base % bs:
                 pid = cow_page
             else:
-                pid = self._alloc_page()
+                pid = self._alloc_page(exclude=exclude, rank=rank)
                 acquired.append(pid)
             ids.append(pid)
             b += 1
@@ -898,16 +1190,21 @@ class ContinuousBatchingEngine:
         """Placement only, O(1) in matched length: alias the matched full
         pages (one pool reference each), clone a partially matched tail
         block copy-on-write (the first chunk writes into it mid-block),
-        allocate pages for the rest of the prompt, install the block-table
-        row (length stays 0 until the prefill completes — the live mask
-        keeps the slot out of decode meanwhile).
+        allocate pages for the rest of the effective prompt, install the
+        block-table row (length stays 0 until the prefill completes — the
+        live mask keeps the slot out of decode meanwhile).  A swap resume
+        then scatters its host K/V into the fresh pages and its prefill
+        starts at the swapped-out fill position.
 
-        All or nothing: if the pool runs dry midway, every reference taken
-        is returned before :class:`_PagePressure` reaches :meth:`_admit`."""
+        All or nothing: if the allocation ladder runs dry midway, every
+        reference taken is returned before :class:`_PagePressure` reaches
+        :meth:`_admit`."""
         slot = self.slots[i]
-        S = len(req.prompt)
+        prompt = req.effective_prompt()
+        S = len(prompt)
         handle = req.cache_handle
         t0 = time.perf_counter()
+        rank = PRIORITY_RANK[req.priority]
         aliased: List[int] = []
         acquired: List[int] = []
         try:
@@ -918,15 +1215,17 @@ class ContinuousBatchingEngine:
                     aliased.append(pid)
                 cow = None
                 if handle.partial_len:
-                    cow = self._alloc_page()
+                    cow = self._alloc_page(exclude=i, rank=rank)
                     acquired.append(cow)
                     kvcache.copy_page(self.page_pool, handle.partial_block_id,
                                       cow)
                     self.stats.cow_copies += 1
-                pages = aliased + self._suffix_page_ids(P, S, cow, acquired)
+                pages = aliased + self._suffix_page_ids(
+                    P, S, cow, acquired, exclude=i, rank=rank)
             else:
                 P = 0
-                pages = self._suffix_page_ids(0, S, None, acquired)
+                pages = self._suffix_page_ids(0, S, None, acquired,
+                                              exclude=i, rank=rank)
         except _PagePressure:
             for pid in aliased + acquired:
                 self.pages.unref(pid)
@@ -937,6 +1236,8 @@ class ContinuousBatchingEngine:
         slot.pages = pages
         self.cache["bt"][i] = torch.from_numpy(self._bt_row(pages)).to(self.device)
         self.cache["length"][i] = 0
+        if req.swap is not None:
+            P = self._swap_in_slot(i)
         fence(self.device)                     # the COW copy, if any
         dt = time.perf_counter() - t0
         self.stats.kv_place_s.append(dt)
@@ -948,18 +1249,39 @@ class ContinuousBatchingEngine:
         slot.reuse_bucket = rbucket
         slot.reuse_variant = variant
         slot.chunk_walls = []
+        slot.chunk_costs = []
+        slot.chunk, slot.chunk_bucket, slot.chunk_variant = \
+            self._select_chunk(S, occ)
         slot.kernel, slot.kernel_bucket = self._select_prefill_kernel(S, occ)
         self._masks_dirty = True
 
+    def _select_chunk(self, S: int, occ: int):
+        """This admission's chunk size (tokens, 0 = whole) and, under
+        ``prefill_chunk="auto"`` with a VPE, its ``prefill_chunk`` bucket
+        and variant name (else None, None)."""
+        if self.prefill_chunk == "auto" and self.vpe is not None:
+            bucket = prefill_chunk_bucket(S, occ, self.num_slots,
+                                          levels=self.occupancy_levels)
+            if self.slo_weight > 0:
+                bucket = bucket + self._slo_bucket()
+            name = self.vpe.controller.select("prefill_chunk", bucket)
+            return (0 if name == "whole" else int(name)), bucket, name
+        if self.prefill_chunk == "auto":
+            return 0, None, None
+        return self.prefill_chunk, None, None
+
     def _select_prefill_kernel(self, S: int, occ: int):
         """This admission's chunk-attention backend and, in auto mode with
-        a VPE, its ``prefill_kernel`` bucket (else None)."""
+        a VPE, its ``prefill_kernel`` bucket (else None): the
+        ``prefill_chunk`` axis's key, fed from the same chunk costs."""
         if self.prefill_kernel != "auto":
             return self.prefill_kernel, None
         if self.vpe is None:
             return SERVE_AXES["prefill_kernel"][0], None
         bucket = prefill_chunk_bucket(S, occ, self.num_slots,
                                       levels=self.occupancy_levels)
+        if self.slo_weight > 0:
+            bucket = bucket + self._slo_bucket()
         return self.vpe.controller.select("prefill_kernel", bucket), bucket
 
     # -- chunked prefill ---------------------------------------------------
@@ -991,14 +1313,15 @@ class ContinuousBatchingEngine:
         return ran
 
     def _run_one_chunk(self, i: int) -> None:
-        """One chunk of slot ``i``'s prompt, from ``fill_pos`` (after a
-        warm placement: the matched length, mid-block after a partial
-        match); the final chunk yields the first generated token."""
+        """One chunk of slot ``i``'s effective prompt, from ``fill_pos``
+        (after a warm placement: the matched length, mid-block after a
+        partial match; after a swap resume: the swapped-out fill); the
+        final chunk yields the next token."""
         slot = self.slots[i]
-        prompt = slot.req.prompt
+        prompt = slot.req.effective_prompt()
         S = len(prompt)
         base = slot.fill_pos
-        chunk = self.prefill_chunk
+        chunk = slot.chunk
         clen = (S - base) if not chunk else min(chunk, S - base)
         pad = min(pad_to_bucket(clen, minimum=self.min_prompt_pad), self.max_len)
         toks = np.zeros((1, pad), np.int32)
@@ -1014,6 +1337,10 @@ class ContinuousBatchingEngine:
         fence(self.device)
         dt = time.perf_counter() - t0
         slot.chunk_walls.append(dt)
+        # the objective's second term: charge the chunk for the
+        # class-weighted queue wait it imposed while it ran
+        slot.chunk_costs.append(
+            dt * (1.0 + self.slo_weight * self._queue_pressure()))
         self.stats.prefill_s += dt
         self.stats.prefill_chunks += 1
         slot.fill_pos = base + clen
@@ -1021,14 +1348,17 @@ class ContinuousBatchingEngine:
             self._finish_prefill(i, logits)
 
     def _finish_prefill(self, i: int, logits: torch.Tensor) -> None:
-        """Last chunk done: first token out, device length installed, the
-        admission's samples fed (``prefix_reuse``: placement + chunk walls;
-        ``prefill_kernel``: the chunk walls), and the prompt's fresh full
-        blocks adopted into the prefix tree zero-copy."""
+        """Last chunk done: the next token out, device length installed,
+        the admission's samples fed (``prefix_reuse``: placement + chunk
+        walls; ``prefill_chunk`` and ``prefill_kernel``: the chunk costs —
+        no chunk call captures a graph, so none is dropped), and the
+        prompt's fresh full blocks adopted into the prefix tree
+        zero-copy."""
         slot = self.slots[i]
         req = slot.req
         first = self._first_token(i, logits)
-        self.cache["length"][i] = len(req.prompt)
+        # a resumed residency prefilled its prompt and its earlier output
+        self.cache["length"][i] = len(req.prompt) + len(req.out)
         slot.admit_wall = slot.place_wall + sum(slot.chunk_walls)
         if self.vpe is not None:
             if slot.reuse_bucket is not None:
@@ -1037,13 +1367,22 @@ class ContinuousBatchingEngine:
                 self.vpe.controller.on_sample("prefix_reuse",
                                               slot.reuse_bucket,
                                               slot.reuse_variant)
+            if slot.chunk_bucket is not None:
+                # the chunk size moves the chunk compute, not the placement
+                self.vpe.profiler.record("prefill_chunk", slot.chunk_variant,
+                                         slot.chunk_bucket,
+                                         sum(slot.chunk_costs))
+                self.vpe.controller.on_sample("prefill_chunk",
+                                              slot.chunk_bucket,
+                                              slot.chunk_variant)
             if slot.kernel_bucket is not None:
                 self.vpe.profiler.record("prefill_kernel", slot.kernel,
                                          slot.kernel_bucket,
-                                         sum(slot.chunk_walls))
+                                         sum(slot.chunk_costs))
                 self.vpe.controller.on_sample("prefill_kernel",
                                               slot.kernel_bucket, slot.kernel)
         slot.reuse_bucket = None
+        slot.chunk_bucket = None
         slot.kernel_bucket = None
         self._enter_decode(i, first)
         self._cache_extend(req, None, None, 0, slot)
@@ -1082,17 +1421,23 @@ class ContinuousBatchingEngine:
         fence(self.device)
 
     def _enter_decode(self, i: int, first: int) -> None:
-        """Emit the first generated token (TTFT) and start decoding."""
+        """Emit the token a prefill gave and start decoding; the first
+        token of a request records its TTFT (once: a resumed request's
+        first token shipped in its first residency)."""
         slot = self.slots[i]
         req = slot.req
-        req.ttft_s = time.perf_counter() - req.submit_t
-        self.stats.ttft_s.append(req.ttft_s)
+        if not req.ttft_recorded:
+            req.ttft_s = time.perf_counter() - req.submit_t
+            self.stats.ttft_s.append(req.ttft_s)
+            req.ttft_recorded = True
+        # positions in KV before this emission: prompt + earlier output
+        eff_len = len(req.prompt) + len(req.out)
         req.out.append(first)
         self.stats.tokens_out += 1
         self.stats.prefill_tokens += 1
         slot.prefilling = False
         slot.tok = first
-        slot.pos = len(req.prompt)
+        slot.pos = eff_len
         slot.steps_resident = 0
         slot.clean_step_shares = []
         self._masks_dirty = True
@@ -1143,10 +1488,16 @@ class ContinuousBatchingEngine:
         """Before a decode call: reserve, for every decoding paged slot,
         the pages covering its write range ``[pos, pos + min(span,
         remaining))`` — mid-horizon there is no host to allocate a page —
-        and install every splice in ONE scatter.  At ``span=1`` a page
-        comes exactly when the next token starts a fresh block.  (A tail
-        page is private — copy-on-write at placement — so appends need no
-        copy.)"""
+        and install every splice in ONE scatter, in place.  At ``span=1`` a
+        page comes exactly when the next token starts a fresh block.  (A
+        tail page is private — copy-on-write at placement — so appends need
+        no copy.)
+
+        Under pressure the allocation escalates (:meth:`_alloc_page`) and,
+        when even that runs dry, the grower preempts itself; its request
+        resumes exactly later.  A victim preempted in this loop may have
+        grown earlier in it, so only the splices whose slot still owns the
+        page are installed."""
         splices: List[Tuple[int, int, int]] = []
         for i, slot in enumerate(self.slots):
             if slot.free or slot.prefilling or slot.layout != "paged":
@@ -1154,10 +1505,20 @@ class ContinuousBatchingEngine:
             upto = slot.pos + min(span, remaining[i])
             last_col = (upto - 1) // self.block_size
             assert last_col < self.nb_max, (last_col, self.nb_max)
-            for col in range(len(slot.pages), last_col + 1):
-                pid = self._alloc_page()
-                slot.pages.append(pid)
-                splices.append((i, col, pid))
+            rank = PRIORITY_RANK[slot.req.priority]
+            try:
+                for col in range(len(slot.pages), last_col + 1):
+                    pid = self._alloc_page(exclude=i, rank=rank,
+                                           decode_growth=True)
+                    slot.pages.append(pid)
+                    splices.append((i, col, pid))
+            except _PagePressure:
+                # pages it took in this loop go back with the rest
+                self._preempt_slot(i)
+        splices = [(i, col, pid) for (i, col, pid) in splices
+                   if self.slots[i].req is not None
+                   and col < len(self.slots[i].pages)
+                   and self.slots[i].pages[col] == pid]
         if splices:
             idx = torch.tensor(splices, dtype=torch.int64).T.to(self.device)
             self.cache["bt"][idx[0], idx[1]] = idx[2].to(torch.int32)
@@ -1217,6 +1578,10 @@ class ContinuousBatchingEngine:
         bucket = decode_horizon_bucket(len(self.queue), n_active,
                                        self.num_slots,
                                        levels=self.occupancy_levels)
+        if self.slo_weight > 0:
+            # who waits matters too: an interactive waiter makes a long
+            # fused call expensive under the two-term objective
+            bucket = bucket + self._slo_bucket()
         name = self.vpe.controller.select("decode_horizon", bucket)
         return int(name), bucket, name
 
@@ -1226,9 +1591,17 @@ class ContinuousBatchingEngine:
         every page the call can write (one block-table scatter), run the H
         steps on the device, fence once on the (slots, H) token block,
         commit each slot's valid tokens, roll its unused reserved pages
-        back and retire it if it stopped."""
+        back and retire it if it stopped.  Growth may preempt decoding
+        slots (the grower itself included): they leave ``remaining``, and
+        the masks are refreshed, before the budget row is written and the
+        graph replays, so a victim replays with live 0 and budget 0."""
         if self.pages is not None:
             self._grow_block_tables(span=H, remaining=remaining)
+            remaining = {i: r for i, r in remaining.items()
+                         if self.slots[i].req is not None
+                         and not self.slots[i].prefilling}
+            if not remaining:
+                return
         self._refresh_device_masks()
         budget = np.zeros((self.num_slots,), np.int32)
         for i, rem in remaining.items():
@@ -1274,9 +1647,13 @@ class ContinuousBatchingEngine:
                 and valid_total:
             # per-TOKEN wall of the whole span (reservation, call, fence,
             # commit — the host work a horizon amortizes); frozen steps
-            # emit nothing, so an over-long horizon pays for itself here
+            # emit nothing, so an over-long horizon pays for itself here.
+            # The SLO charge makes the same wall cost more while queued
+            # (above all interactive) requests wait it out.
+            charge = 1.0 + self.slo_weight * self._queue_pressure()
             self.vpe.profiler.record("decode_horizon", hname, hbucket,
-                                     (time.perf_counter() - t_h) / valid_total)
+                                     (time.perf_counter() - t_h) / valid_total
+                                     * charge)
             self.vpe.controller.on_sample("decode_horizon", hbucket, hname)
 
     def step(self) -> bool:

@@ -4,7 +4,8 @@ against its gather path, the decode CUDA graphs against the eager loop and
 fused horizons against single steps, the prefix cache warm against cold on
 each KV layout, the contiguous and ``auto`` decode graphs, the flash kernel
 in contiguous admissions, a training step with the flash kernel, and the
-paper's six algorithms under the VPE with the matmul and conv2d kernels.
+paper's six algorithms under the VPE with the matmul and conv2d kernels,
+and, under a page budget, preemption and swap between graph replays.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
 entry points default to the card.  This file imports no JAX, so it runs on
@@ -462,6 +463,77 @@ def test_cuda_engine_fused_horizon_equals_single_step(cuda_device):
             == 2 * sum(st.horizon_hist) * cfg.num_layers
     assert out[16] == out[1]
     assert set(eng.stats.horizon_hist) == {1, 16}
+
+
+@pytest.mark.cuda
+def test_cuda_swap_roundtrip_bf16_pool(cuda_device):
+    """A bf16 pool of random K/V at qwen3-8b's KV heads on the card: three
+    pages copied by ``swap_out_pages`` into pinned host memory, scattered
+    back by ``swap_in_pages`` into three others up to a partial tail block
+    (the ids padded with the trash page), gathered again: bit-exact, and
+    the trash padding wrote nothing."""
+    from repro_torch.models import kvcache as tkv
+    rng = np.random.default_rng(21)
+    L, Hkv, bs, D, n_pages = 3, 8, 16, 128, 24
+    pool = tkv.init_page_pool(n_pages, L, Hkv, bs, D, dtype=torch.bfloat16,
+                              device=cuda_device)
+    for t in pool.values():
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    trash_before = [pool[k][:, n_pages].clone() for k in "kv"]
+    ids = torch.tensor([7, 2, 19], dtype=torch.int64)
+    filled = 3 * bs - 5
+    host = tkv.swap_out_pages(pool, torch.tensor([7, 2, 19, 7], device=cuda_device))
+    assert all(h.is_pinned() and h.device.type == "cpu" for h in host)
+    new_ids = [3, 11, 0, n_pages]
+    tkv.swap_in_pages(pool, host[0], host[1], torch.tensor(new_ids),
+                      torch.tensor([0, bs, 2 * bs, -bs]), filled)
+    back_k, back_v = tkv.gather_pages(pool, torch.tensor(new_ids[:3], device=cuda_device))
+    want_k, want_v = tkv.gather_pages(pool, ids.to(cuda_device))
+    assert torch.equal(back_k[..., :filled, :], want_k[..., :filled, :])
+    assert torch.equal(back_v[..., :filled, :], want_v[..., :filled, :])
+    assert torch.equal(back_k[..., :filled, :].cpu(), host[0][..., :filled, :])
+    for key, before in zip("kv", trash_before):
+        assert torch.equal(pool[key][:, n_pages], before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swap", [False, True], ids=["recompute", "swap"])
+def test_cuda_engine_under_page_budget_equals_unpressured(cuda_device, swap):
+    """Reduced qwen3-8b in f32, both kernels pinned, ``decode_horizon=16``:
+    under a page budget near its floor, growth preempts decoding slots
+    (the grower itself included) between graph replays, and the resumed
+    requests (one-token recompute chunks, or swap-in and a mid-block
+    prefill) give the tokens of the same engine without the budget; the
+    pool is audit-clean and drained, and no graph is captured beyond one
+    per horizon used."""
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    prompts = [np.random.default_rng(22).integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (8, 21, 13, 30, 17, 9, 25, 12)]
+    out = {}
+    for budget in (None, 11):
+        eng = tserve.ContinuousBatchingEngine(
+            cfg, params, slots=4, max_len=64, block_size=8, kv_layout="paged",
+            decode_horizon=16, decode_impl="cuda",
+            prefill_kernel="cuda", page_budget=budget, swap=swap,
+            device=cuda_device)
+        for i, p in enumerate(prompts):
+            eng.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=20,
+                                      priority="interactive" if i % 2 == 0
+                                      else "batch"))
+        done = eng.run()
+        assert all(r.status == "done" for r in done)
+        out[budget] = {r.rid: r.out for r in done}
+        eng.check_kv()
+        assert eng.pages.drained
+        st = eng.stats
+        assert eng.graphs.captures == len(st.horizon_hist) == st.tainted_steps
+        assert eng.graphs.replayed_calls == st.decode_steps * cfg.num_layers
+        assert len(st.ttft_s) == len(prompts)
+    assert out[11] == out[None]
+    assert st.preemptions > 0 and st.decode_preemptions > 0
+    if swap:
+        assert st.swap_outs == st.swap_ins > 0
 
 
 def _flash_inputs(case, dev, dtype, seed):

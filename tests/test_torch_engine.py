@@ -137,9 +137,7 @@ def test_intake_failures_do_not_raise(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefill_chunk="auto"), "8(d)"),
-    (dict(spec_draft="auto"), "8(g)"), (dict(swap=True), "8(f)"),
-    (dict(page_budget=12), "8(f)"), (dict(spec_draft=4), "8(g)"),
+    (dict(spec_draft="auto"), "8(g)"), (dict(spec_draft=4), "8(g)"),
     (dict(max_queue_depth=3), "8(h)"), (dict(mesh_shape=(1, 2)), "8(i)")])
 def test_unported_features_name_their_roadmap_item(setup, kw, item):
     _, tcfg, _, tp = setup
@@ -172,7 +170,7 @@ def test_launcher(capsys):
     out = capsys.readouterr().out
     assert "completed 3 requests" in out
     assert "op/bucket decision table" in out
-    for argv, item in ((["--swap"], "8(f)"), (["--mesh", "1,2"], "8(i)"),
+    for argv, item in ((["--deadline", "2"], "8(h)"), (["--mesh", "1,2"], "8(i)"),
                        (["--spec-draft", "4"], "8(g)")):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
@@ -182,8 +180,10 @@ def test_launcher(capsys):
 
 def test_port_imports_neither_jax_nor_repro():
     """In a fresh interpreter, importing the port and serving — single
-    steps, then one fused horizon, through the decode-graph module — leaves
-    no jax or repro module loaded."""
+    steps, then one fused horizon, through the decode-graph module; the
+    contiguous and ``auto`` layouts with the prefix cache; the paged layout
+    under a page budget with swap — leaves no jax or repro module
+    loaded."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -218,6 +218,17 @@ def test_port_imports_neither_jax_nor_repro():
                                    max_new_tokens=2))
                 eng.run()
             assert eng.stats.prefix_hits == 1
+        eng = ContinuousBatchingEngine(cfg, params, slots=4, max_len=64,
+                                       block_size=8, kv_layout="paged",
+                                       page_budget=12, swap=True, device="cpu")
+        rng = np.random.default_rng(0)
+        for rid, n in enumerate((8, 21, 13, 30, 17, 9, 25, 12)):
+            eng.submit(Request(rid=rid, prompt=rng.integers(0, 500, n).astype(np.int32),
+                               max_new_tokens=10,
+                               priority="interactive" if rid % 2 == 0 else "batch"))
+        assert all(r.status == "done" for r in eng.run())
+        assert eng.stats.preemptions > 0 and eng.stats.swap_ins > 0
+        eng.check_kv()
         assert "repro_torch.runtime.decode_graphs" in sys.modules
         assert "repro_torch.runtime.prefix_cache" in sys.modules
         bad = sorted(m for m in sys.modules

@@ -513,8 +513,16 @@ def test_launcher_layouts_and_wave(capsys, argv, expect):
 
 
 def test_launcher_chunk_axis_still_raises(capsys):
-    """``--prefill-chunk auto`` reaches the engine, which names item 8(d)."""
-    with pytest.raises(ValueError, match=r"item 8\(d\)"):
+    """``--prefill-chunk auto`` now serves through the measured chunk axis
+    (its rows in the decision table); a chunk that is neither a count,
+    ``whole`` nor ``auto`` still raises."""
+    tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
+                  "--continuous", "--kv-layout", "paged", "--requests", "3",
+                  "--new-tokens", "3", "--max-len", "48", "--prefill-chunk",
+                  "auto"])
+    out = capsys.readouterr().out
+    assert "completed 3 requests" in out and "prefill_chunk" in out
+    with pytest.raises(ValueError):
         tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
                       "--continuous", "--kv-layout", "paged",
-                      "--prefill-chunk", "auto"])
+                      "--prefill-chunk", "sometimes"])
