@@ -11,7 +11,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    launches, and prefill attention; training: flash attention; the paper
    path: matmul and conv2d; the bf16 bodies of prefill and flash share
    ``attention_tile.cuh``), with each kernel's registers and spills and any
-   wgmma serialization ptxas reports;
+   wgmma serialization ptxas reports, and one line for each conv2d
+   instantiation (dtype, taps, tile) with its registers and spills;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    (paged kernels at qwen3-8b's head shapes; the flash kernel at
    h2o-danube-3-4b's and qwen3-8b's, the training path's 4096 tokens
@@ -89,10 +90,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 9. paper-path kernels: matmul and conv2d against their plain versions on
    the card, f32 and bf16 (matmul at tests/test_kernels.py's shapes, 512^3,
    1000^3 off every tile and 4096^3; conv2d at the JAX tests' shapes,
-   10^2 * 5x5, 512^2 * 5x5 and 384^2 * 3x3);
+   10^2 * 5x5, 512^2 * 5x5, 384^2 * 3x3, non-square taps, 40^2 * 32x32,
+   widths whose rows do not start on 16 bytes, on both tiles, and 4096^2 *
+   5x5), and, at phase 10's conv2d shapes in f32, the 3x3 and 5x5
+   instantiations against the runtime-size one on both tiles, bit for bit;
 10. their times at the paper path's shapes (matmul 512^3 and 4096^3,
-   conv2d 512^2 * 5x5 and 384^2 * 3x3, f32) beside the plain version's, one
-   library call's and the bound;
+   conv2d 512^2 * 5x5 and 384^2 * 3x3, f32, and conv2d 4096^2 * 5x5, a
+   measurement row no path launches) beside the plain version's, one
+   library call's and the bound; for conv2d also the kernel's own device
+   time read from torch.profiler, its share of the bound and the launch
+   floor (a one-element fill, timed as the kernels are);
 11. the paper path, its launch counts zeroed just before it and read just
    after: (a) Table 1, the six algorithms at the paper's sizes under the
    VPE, 12 calls each; (b) the Fig. 2b matmul sweep, 16 to 4096, each
@@ -162,13 +169,22 @@ SERVE_FLASH_CASES = tuple((S, S, True, None) for S in (64, 128, 256, 512))
 
 # the paper path: matmul checks (m, k, n) — tests/test_kernels.py's shapes,
 # the Table-1 512^3, one off every tile, the Fig. 2b sweep's largest — and
-# conv2d checks (h, w, k) — the JAX tests' shapes, make_inputs at scale
-# 0.02, the Table-1 512^2 * 5x5, the image pipeline's 384^2 Laplacian
+# conv2d checks (h, w, kh, kw) — the JAX tests' shapes, make_inputs at
+# scale 0.02, the Table-1 512^2 * 5x5, the image pipeline's 384^2
+# Laplacian, non-square taps, the largest taps, rows that do not start on
+# 16 bytes (widths 61, 127 and 901; bf16 rows then also start at odd
+# element offsets) on both tiles, and 4096^2 * 5x5 (the 64 x 64 tile)
 MATMUL_CHECKS = ((128, 256, 128), (256, 512, 256), (100, 200, 60), (8, 8, 8),
                  (1, 512, 128), (384, 128, 384), (512, 512, 512), (1000, 1000, 1000),
                  (4096, 4096, 4096))
-CONV_CHECKS = ((64, 64, 3), (64, 64, 5), (37, 53, 5), (128, 96, 11), (16, 16, 3),
-               (66, 64, 3), (10, 10, 5), (512, 512, 5), (384, 384, 3))
+CONV_CHECKS = ((64, 64, 3, 3), (64, 64, 5, 5), (37, 53, 5, 5), (128, 96, 11, 11),
+               (16, 16, 3, 3), (66, 64, 3, 3), (10, 10, 5, 5), (512, 512, 5, 5),
+               (384, 384, 3, 3), (40, 48, 3, 5), (64, 61, 7, 1), (61, 64, 1, 7),
+               (40, 40, 32, 32), (64, 61, 3, 3), (100, 127, 5, 5), (900, 901, 3, 3),
+               (4096, 4096, 5, 5))
+# conv2d times (image side, taps): Table 1, the image pipeline, and a
+# measurement row at 4096^2 where the grid spans many waves
+CONV_TIMES = ((512, 5), (384, 3), (4096, 5))
 # Fig. 2b's sizes (benchmarks/fig2b.py) and three more, where the card works
 SWEEP = (16, 32, 64, 96, 128, 192, 256, 384, 512, 1024, 2048, 4096)
 TABLE1_CALLS, SWEEP_CALLS, SWEEP_REPS = 12, 10, 3
@@ -232,7 +248,7 @@ def matmul_tolerance(dtype, k) -> tuple:
 
 def conv_tolerance(dtype) -> tuple:
     """(atol, rtol) of the conv2d kernel against its plain version: f32
-    JAX's 2e-4; bf16 one bf16 step (both sum at most 121 taps in f32 and
+    JAX's 2e-4; bf16 one bf16 step (both sum at most 1,024 taps in f32 and
     round once)."""
     import torch
     return (1e-5, 2 ** -7) if dtype == torch.bfloat16 else (2e-4, 2e-4)
@@ -372,7 +388,7 @@ def phase_build():
     log = build.build()
     seconds = time.perf_counter() - t0
     lib = build.load_library()
-    entry, spilled = None, []
+    entry, spilled, conv = None, [], {}
     for line in log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill",
                                    "Performance Loss")):
@@ -381,7 +397,19 @@ def phase_build():
             entry = line.split("'")[1] if "'" in line else line
         elif "spill stores" in line and any(int(x) for x in re.findall(r"\d+", line)):
             spilled.append(entry)
+        # conv2d_kernel<T, KH, KW, kTile>, mangled: ...conv2d_kernelIfLi5ELi5ELi0EE...
+        m = re.search(r"conv2d_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E",
+                      entry or "")
+        if m and ("registers" in line or "spill stores" in line):
+            dtype = "float32" if m[1] == "f" else "bfloat16"
+            taps = f"{m[2]}x{m[3]}" if m[2] != "0" else "runtime size"
+            conv.setdefault((dtype, taps, int(m[4])), []).append(line.strip())
     say(f"  kernels with a stack frame or spills: {spilled or 'none'}")
+    for (dtype, taps, tile), lines in sorted(conv.items()):
+        say(f"  conv2d_kernel {dtype}, taps {taps}, tile {tile}: {'; '.join(lines)}")
+    if log and len(conv) != 12:
+        raise AssertionError(f"ptxas reported {len(conv)} conv2d instantiations, "
+                             f"not 12 (2 dtypes x 3 taps x 2 tiles)")
     from repro_torch.kernels import paged_attention as pa
     splits, kps = pa.decode_split_plan(SLOTS, HKV, NB, BS, build.sm_count(
         torch.device("cuda", 0)))
@@ -1836,29 +1864,44 @@ def phase_paper_kernel_checks(dev):
                 raise AssertionError(f"matmul bf16 {m}x{k}x{n}: not the f32 sums "
                                      f"rounded once")
             errors["matmul"][dname] = max(errors["matmul"].get(dname, 0.0), err)
-        for h, w, k in CONV_CHECKS:
+        for h, w, kh, kw in CONV_CHECKS:
             x = torch.randn((h, w), generator=gen, device=dev).to(dtype)
-            taps = torch.randn((k, k), generator=gen, device=dev).to(dtype)
+            taps = torch.randn((kh, kw), generator=gen, device=dev).to(dtype)
             got = kconv.conv2d(x, taps)
-            if got.shape != (h - k + 1, w - k + 1):
-                raise AssertionError(f"conv2d {h}x{w}*{k}x{k}: shape {tuple(got.shape)}")
-            err = check_close(f"conv2d {dname} {h}x{w} * {k}x{k}", got,
+            if got.shape != (h - kh + 1, w - kw + 1):
+                raise AssertionError(f"conv2d {h}x{w}*{kh}x{kw}: shape {tuple(got.shape)}")
+            err = check_close(f"conv2d {dname} {h}x{w} * {kh}x{kw}", got,
                               ref.conv2d_ref(x, taps), *conv_tolerance(dtype))
             if dtype == torch.bfloat16 and not torch.equal(
                     got, kconv.conv2d(x.float(), taps.float()).to(dtype)):
-                raise AssertionError(f"conv2d bf16 {h}x{w}*{k}x{k}: not the f32 sums "
+                raise AssertionError(f"conv2d bf16 {h}x{w}*{kh}x{kw}: not the f32 sums "
                                      f"rounded once")
             errors["conv2d"][dname] = max(errors["conv2d"].get(dname, 0.0), err)
+    for hw, k in CONV_TIMES:
+        x = torch.randn((hw, hw), generator=gen, device=dev)
+        taps = torch.randn((k, k), generator=gen, device=dev)
+        fixed = kconv.CONV_TAPS.index((k, k))
+        want = kconv.launch(x, taps, 0, 0)
+        for t in (0, fixed):
+            for tile in range(len(kconv.CONV_TILES)):
+                if not torch.equal(kconv.launch(x, taps, t, tile), want):
+                    raise AssertionError(f"conv2d {hw}^2 * {k}x{k} f32: taps "
+                                         f"{kconv.CONV_TAPS[t]}, tile {tile} differ from "
+                                         f"the runtime size on tile 0")
+        say(f"  conv2d {hw}^2 * {k}x{k} f32: the {k}x{k} and runtime-size "
+            f"instantiations on both tiles equal bit for bit")
     torch.cuda.synchronize()
     say(f"  worst errors: {errors}")
     return errors
 
 
 def phase_paper_kernel_times(dev):
-    """matmul and conv2d at the paper path's shapes, f32: kernel, plain
-    version and one library call (``torch.matmul``, ``F.conv2d``, both with
-    TF32 off; timed only, never called by the port) timed with L2 flushed,
-    the bound computed.  Keys "matmul" and "conv2d" hold the Table-1
+    """matmul and conv2d at the paper path's shapes, f32, and conv2d at
+    4096^2 * 5x5: kernel, plain version and one library call
+    (``torch.matmul``, ``F.conv2d``, both with TF32 off; timed only, never
+    called by the port) timed with L2 flushed, the bound computed; for
+    conv2d also the kernel's device time from torch.profiler, beside the
+    launch floor.  Keys "matmul" and "conv2d" hold the Table-1
     shapes (512^3; 512^2 * 5x5)."""
     import torch
     import torch.nn.functional as F
@@ -1882,7 +1925,7 @@ def phase_paper_kernel_times(dev):
             plain=lambda a=a, b=b: ref.matmul_ref(a, b), library=library,
             tol=matmul_tolerance(torch.float32, m),
             work=(3 * m * m * 4, 2 * m ** 3))
-    for hw, k in ((512, 5), (384, 3)):
+    for hw, k in CONV_TIMES:
         x = torch.randn((hw, hw), generator=gen, device=dev)
         taps = torch.randn((k, k), generator=gen, device=dev)
 
@@ -1895,7 +1938,12 @@ def phase_paper_kernel_times(dev):
             plain=lambda x=x, taps=taps: ref.conv2d_ref(x, taps), library=library,
             tol=conv_tolerance(torch.float32),
             work=((hw * hw + k * k + o * o) * 4, 2 * k * k * o * o))
-    times = {}
+    # the launch floor: one kernel that does nearly nothing (a one-element
+    # fill), timed as the kernels below are
+    one = torch.empty(1, device=dev)
+    floor_ms = device_ms(lambda: one.fill_(1.0), flush)
+    say(f"  launch floor (a one-element fill, timed as below): {floor_ms} ms")
+    times = {"launch floor": floor_ms}
     for shape, r in out.items():
         err = check_close(f"{shape} f32", r["kernel"](), r["plain"](), *r["tol"])
         ms = device_ms(r["kernel"], flush)
@@ -1909,16 +1957,46 @@ def phase_paper_kernel_times(dev):
         say(f"  {shape}: kernel {ms} ms, plain {plain_ms} ms, library {library_ms} ms, "
             f"bound {bound_ms} ms ({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
             f"{ms / bound_ms}, kernel/library {ms / library_ms}")
+        if r["name"] == "conv2d":
+            kernel_ms = profiled_kernel_ms(r["kernel"], flush, "conv2d_kernel")
+            times[shape].update(profiled_ms=kernel_ms, bound_share=bound_ms / ms,
+                                launch_floor_ms=floor_ms)
+            say(f"    device time of conv2d_kernel a call (torch.profiler, median of "
+                f"the last 20 of 30): {kernel_ms if kernel_ms is not None else 'not measured'} ms; "
+                f"share of the bound {bound_ms / ms} (events), "
+                f"{bound_ms / kernel_ms if kernel_ms else 'not measured'} (profiler); "
+                f"events minus profiler "
+                f"{ms - kernel_ms if kernel_ms is not None else 'not measured'} ms; "
+                f"launch floor {floor_ms} ms; kernel/floor {ms / floor_ms}")
     times["matmul"] = times["matmul 512^3"]
     times["conv2d"] = times["conv2d 512^2 * 5x5"]
-    # the launch floor: one kernel that does nearly nothing (a one-element
-    # fill), timed as the kernels above are
-    one = torch.empty(1, device=dev)
-    times["launch floor"] = device_ms(lambda: one.fill_(1.0), flush)
-    say(f"  launch floor (a one-element fill, timed as above): "
-        f"{times['launch floor']} ms")
     del flush
     return times
+
+
+def profiled_kernel_ms(fn, flush, name, iters=20, warmup=10):
+    """Median device time, in ms, of the kernel whose name holds ``name``,
+    read from torch.profiler over the last ``iters`` of ``warmup + iters``
+    calls of ``fn`` made as :func:`device_ms` makes them (L2 flushed before
+    each); None unless the profiler shows that many.  Late in this script
+    the profiler has shown only 15 kernels of 20 calls in a session, hence
+    the calls beyond the measured ones."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(warmup + iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name)
+    if len(spans) < iters:
+        say(f"    profiler: {len(spans)} {name} events of {warmup + iters} calls")
+        return None
+    return float(np.median([us for _, us in spans[-iters:]])) / 1e3
 
 
 def paper_launches():

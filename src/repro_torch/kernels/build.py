@@ -42,7 +42,7 @@ SIGNATURES = {
     "repro_flash_block_k": ((_I,), _I),
     "repro_flash_max_head_dim": ((), _I),
     "repro_matmul": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
-    "repro_conv2d": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
+    "repro_conv2d": ((_P,) * 3 + (_I,) * 7 + (_P,), _I),
     "repro_conv2d_max_taps": ((), _I),
 }
 

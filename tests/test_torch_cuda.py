@@ -737,10 +737,16 @@ def test_cuda_train_step_flash_pinned(cuda_device):
 MATMUL_CASES = [(128, 256, 128), (256, 512, 256), (100, 200, 60), (8, 8, 8),
                 (1, 512, 128), (384, 128, 384), (512, 512, 512), (1000, 1000, 1000),
                 (4096, 4096, 4096), (33, 257, 65), (512, 513, 511), (2050, 300, 2047)]
-# conv2d: tests/test_kernels.py's shapes, make_inputs at scale 0.02, the
-# paper's 512^2 * 5x5 and the image pipeline's 384^2 Laplacian
-CONV_CASES = [(64, 64, 3), (64, 64, 5), (37, 53, 5), (128, 96, 11), (16, 16, 3),
-              (66, 64, 3), (10, 10, 5), (512, 512, 5), (384, 384, 3)]
+# conv2d (h, w, kh, kw): tests/test_kernels.py's shapes, make_inputs at
+# scale 0.02, the paper's 512^2 * 5x5 and the image pipeline's 384^2
+# Laplacian; then non-square taps, the largest taps, rows that do not start
+# on 16 bytes (widths 61 and 127: odd, so bf16 rows also start at odd
+# element offsets) on both tiles, and 4096^2 * 5x5 (the 64 x 64 tile)
+CONV_CASES = [(64, 64, 3, 3), (64, 64, 5, 5), (37, 53, 5, 5), (128, 96, 11, 11),
+              (16, 16, 3, 3), (66, 64, 3, 3), (10, 10, 5, 5), (512, 512, 5, 5),
+              (384, 384, 3, 3), (40, 48, 3, 5), (64, 61, 7, 1), (61, 64, 1, 7),
+              (40, 40, 32, 32), (64, 61, 3, 3), (100, 127, 5, 5), (900, 901, 3, 3),
+              (4096, 4096, 5, 5)]
 
 
 def matmul_tolerance(dtype, k):
@@ -783,21 +789,46 @@ def test_cuda_matmul_against_plain(cuda_device, m, k, n, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,k", CONV_CASES)
-def test_cuda_conv2d_against_plain(cuda_device, h, w, k, dtype):
-    gen = torch.Generator(cuda_device).manual_seed(h * w + k)
+@pytest.mark.parametrize("h,w,kh,kw", CONV_CASES)
+def test_cuda_conv2d_against_plain(cuda_device, h, w, kh, kw, dtype):
+    gen = torch.Generator(cuda_device).manual_seed(h * w + kh + 33 * (kw - kh))
     x = torch.randn((h, w), generator=gen, device=cuda_device).to(dtype)
-    ker = torch.randn((k, k), generator=gen, device=cuda_device).to(dtype)
+    ker = torch.randn((kh, kw), generator=gen, device=cuda_device).to(dtype)
     before = tconv.conv2d.launches
     got = tconv.conv2d(x, ker)
     torch.cuda.synchronize()
     assert tconv.conv2d.launches == before + 1
-    assert got.shape == (h - k + 1, w - k + 1) and got.dtype == dtype
+    assert got.shape == (h - kh + 1, w - kw + 1) and got.dtype == dtype
     atol, rtol = CONV_TOLERANCES[dtype]
     torch.testing.assert_close(got.float(), tref.conv2d_ref(x, ker).float(),
                                rtol=rtol, atol=atol)
     if dtype == torch.bfloat16:
         assert torch.equal(got, tconv.conv2d(x.float(), ker.float()).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,k", [(512, 512, 5), (384, 384, 3), (37, 53, 5),
+                                   (100, 127, 3), (1024, 1000, 5)])
+def test_cuda_conv2d_instantiations_equal_bit_for_bit(cuda_device, h, w, k):
+    """The 3x3 and 5x5 instantiations (taps fixed at compile time) equal the
+    runtime-size instantiation bit for bit in f32, on both tiles, and the
+    two tiles equal each other: every one sums the same taps in the same
+    order.  Each launch is counted."""
+    gen = torch.Generator(cuda_device).manual_seed(h + w + k)
+    x = torch.randn((h, w), generator=gen, device=cuda_device)
+    ker = torch.randn((k, k), generator=gen, device=cuda_device)
+    fixed = tconv.CONV_TAPS.index((k, k))
+    before = tconv.conv2d.launches
+    want = tconv.launch(x, ker, 0, 0)
+    for taps in (0, fixed):
+        for tile in range(len(tconv.CONV_TILES)):
+            assert torch.equal(tconv.launch(x, ker, taps, tile), want), (taps, tile)
+    torch.cuda.synchronize()
+    assert tconv.conv2d.launches == before + 1 + 2 * len(tconv.CONV_TILES)
+    with pytest.raises(ValueError):
+        tconv.launch(x, ker.new_zeros((k, k + 1)), fixed, 0)  # taps not the instance's
+    with pytest.raises(ValueError):
+        tconv.launch(x, ker, 0, len(tconv.CONV_TILES))        # no such tile
 
 
 @pytest.mark.cuda
@@ -834,7 +865,9 @@ def test_cuda_prepare_launches_each_kernel_once(cuda_device):
     before = (tmm.matmul.launches, tconv.conv2d.launches)
     tmm.prepare(cuda_device)
     tconv.prepare(cuda_device)
-    assert (tmm.matmul.launches, tconv.conv2d.launches) == (before[0] + 1, before[1] + 1)
+    assert (tmm.matmul.launches, tconv.conv2d.launches) == (
+        before[0] + 1, before[1] + len(tconv.INSTANTIATIONS))
+    assert len(tconv.INSTANTIATIONS) == 2 * len(tconv.CONV_TAPS) * len(tconv.CONV_TILES)
 
 
 @pytest.mark.cuda

@@ -42,9 +42,11 @@ NAMES = ("complement", "convolution", "dotproduct", "matmul", "patternmatch", "f
 # tests/test_kernels.py's shapes
 MATMUL_SHAPES = [(128, 256, 128), (256, 512, 256), (100, 200, 60), (8, 8, 8),
                  (1, 512, 128), (384, 128, 384)]
-# tests/test_kernels.py's shapes, and make_inputs("convolution", scale=0.02)
+# tests/test_kernels.py's shapes, make_inputs("convolution", scale=0.02),
+# Table 1's 512^2 * 5x5 and the image pipeline's 384^2 Laplacian (382 output
+# rows: ops.conv2d pads them to 384)
 CONV_SHAPES = [(64, 64, 3), (64, 64, 5), (37, 53, 5), (128, 96, 11), (16, 16, 3),
-               (10, 10, 5)]
+               (10, 10, 5), (512, 512, 5), (384, 384, 3)]
 
 
 def _normal(seed, *shapes):
@@ -95,6 +97,39 @@ def test_conv2d_matches_pallas(h, w, k):
     got = tconv.conv2d(torch.from_numpy(x), torch.from_numpy(ker))
     assert got.dtype == torch.float32 and tuple(got.shape) == (h - k + 1, w - k + 1)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("h,w,kh,kw,taps,tile,blocks", [
+    (512, 512, 5, 5, (5, 5), (32, 32), 256),     # Table 1
+    (384, 384, 3, 3, (3, 3), (32, 32), 144),     # the image pipeline
+    (4096, 4096, 5, 5, (5, 5), (64, 64), 4096),  # many waves: the larger tile
+    (128, 96, 11, 11, None, (32, 32), 12),       # no fixed instantiation
+    (40, 48, 3, 5, None, (32, 32), 4),           # non-square: runtime size
+    (768, 768, 7, 7, None, (64, 64), 144),       # 64 x 64 tiles fill the card
+    (700, 700, 1, 1, None, (32, 32), 484),       # 121 such tiles do not
+])
+def test_conv2d_launch_choice(h, w, kh, kw, taps, tile, blocks):
+    """The kernel's instantiation and tile: taps fixed at compile time for
+    3 x 3 and 5 x 5, the runtime-size instantiation otherwise; at least one
+    block per SM of an H100's 132 at the paths' two shapes, and 64 x 64
+    tiles where those fill every SM."""
+    taps_i, tile_i = tconv.conv2d_plan(h, w, kh, kw, 132)
+    assert tconv.CONV_TAPS[taps_i] == taps
+    cols, rows, threads = tconv.CONV_TILES[tile_i]
+    assert (cols, rows) == tile and threads // 32 >= 4
+    n = -(-(w - kw + 1) // cols) * -(-(h - kh + 1) // rows)
+    assert n == blocks
+    if (h, kh) in ((512, 5), (384, 3)):
+        assert n >= 132
+
+
+def test_conv2d_launch_needs_the_card():
+    """The launch with a forced instantiation takes CUDA tensors only; on
+    the CPU it raises and counts nothing."""
+    before = tconv.conv2d.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tconv.launch(torch.zeros((16, 16)), torch.zeros((3, 3)), 1, 0)
+    assert tconv.conv2d.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
