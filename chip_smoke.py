@@ -66,6 +66,23 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    token parting from phase 4 printed; then (iii) phase 4's traffic with
    ``prefill_chunk="auto"`` under a VPE, three passes, the
    ``prefill_chunk`` decisions printed;
+4g. speculation: phase 4's engine at ``decode_horizon = spec_draft = S``
+   for S = 4 and 16, phase 4's traffic twice on one engine (pass 1 on a
+   cold n-gram table, pass 2 replaying its streams); per pass the accept
+   rate, tokens a verify call, the acceptance histogram, decode tok/s, the
+   decode wall a step and the card's idle time in the decode-only steps;
+   gates: verify calls replayed as CUDA graphs, no capture in pass 2,
+   pass 2 accepting more than pass 1, tokens phase 4's or parting at a
+   near-tie (the top-2 margin of a full forward there at most 0.25);
+4h. faults and deadlines: phase 4's traffic with ``decode_horizon`` and
+   ``spec_draft`` "auto", a ``StepWatchdog`` and a seeded storm of 8
+   faults over the decode, fused, spec, prefill and page_alloc sites;
+   gates: every request done or failed with a reason code, the pool
+   drained, at least one demotion; then the traffic again without the
+   plan: every rung re-promoted, tokens phase 4's or parting at a
+   near-tie, the kernel's decode graphs replayed after ``decode_cuda``'s
+   re-promotion; then a deadline of 0.05 s shed (``deadline``) and a
+   queue bound of 6 shedding 2 of 8 (``capacity``);
 5. serving parity: reduced qwen3-8b in f32, kernels against the gather
    path, greedy tokens equal, and fused horizons of 4 and 16 steps against
    single steps for both decode variants, plus an EOS that stops a horizon
@@ -74,8 +91,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    warm admissions forced paged), contiguous H = 4 against H = 1, and a
    copy-on-write tail shared by two resident requests, and a page budget
    near the floor (9 pages) with preemption by recompute and by swap at H =
-   1 and 16 against the unpressured tokens; full width in bf16, first-step
-   logits of the two;
+   1 and 16 against the unpressured tokens, and speculation at S = 4 and 16
+   on the paged and ``auto`` layouts against single steps (each prompt
+   served twice, so drafts land); full width in bf16, first-step logits of
+   the two;
 7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
    master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
    with the VPE free until it concludes its ``attn_impl`` trial, then with
@@ -115,8 +134,8 @@ last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without ``src/repro_torch`` beside this script, it exits non-zero and
 prints no result.  ``--report`` also writes every measurement as JSON;
 ``--trace`` adds phase 6, which profiles 8 steady single decode steps, one
-steady 16-step horizon (both graph replays) and one prompt's prefill
-chunks, and one profiled training step in phase 7 (device busy share,
+steady 16-step horizon, 4 steady verify calls of span 4 (all graph
+replays) and one prompt's prefill chunks, and one profiled training step in phase 7 (device busy share,
 time by kernel, the profiler's own cost included), and writes the chrome
 traces there, gzipped.
 """
@@ -582,9 +601,62 @@ def serving_engine(cfg, params, dev, horizon, **kw):
         device=dev, **kw)
 
 
+class DecodeIdle:
+    """The card's idle time in the engine steps that only decode (no
+    admission, no prefill chunk): the host wall of each such step minus the
+    device span of its replay (CUDA events around the decode or verify
+    launch), unprofiled — phase 4's steady-window measure, over a whole
+    run.  Installed on an engine for one run, then removed."""
+
+    def __init__(self, engine):
+        import torch
+        self.engine, self.torch = engine, torch
+        self.walls, self.spans = [], []
+        graphs = engine.graphs
+        self._step, self._launch, self._verify = (engine.step, graphs.launch,
+                                                  graphs.verify)
+        engine.step = self.step
+        graphs.launch = lambda *a: self.timed(self._launch, *a)
+        graphs.verify = lambda *a: self.timed(self._verify, *a)
+        self._events = []
+
+    def timed(self, fn, *args):
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        self._events.append((start, end, out[1]))
+        return out
+
+    def step(self):
+        st = self.engine.stats
+        before = (st.prefill_chunks, len(st.queue_wait_s), len(self._events))
+        t0 = time.perf_counter()
+        out = self._step()
+        wall = time.perf_counter() - t0
+        new = self._events[before[2]:]
+        if (st.prefill_chunks, len(st.queue_wait_s)) == before[:2] and len(new) == 1 \
+                and not new[0][2]:                       # one replay, no capture
+            self.walls.append(wall)
+            self.spans.append(new[0][:2])
+        return out
+
+    def remove(self):
+        del self.engine.step
+        del self.engine.graphs.launch
+        del self.engine.graphs.verify
+        self.torch.cuda.synchronize()
+        span = [a.elapsed_time(b) / 1e3 for a, b in self.spans]
+        n = len(self.walls)
+        return dict(steps=n, wall_us_per_step=sum(self.walls) / n * 1e6 if n else None,
+                    span_us_per_step=sum(span) / n * 1e6 if n else None,
+                    idle_us_per_step=(sum(self.walls) - sum(span)) / n * 1e6 if n else None)
+
+
 def serve_traffic(engine, cfg, prompts, label, rid0=0,
                   kernels=("paged_decode_attention", "paged_prefill_attention"),
-                  priority=None):
+                  priority=None, idle=False, faults=False):
     """Serve the traffic on ``engine`` with the launch counts zeroed just
     before and read just after; raise if a gate fails.  ``priority`` maps a
     request's index to its class (``batch`` without it).  Returns the run's
@@ -595,11 +667,16 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
     :func:`steady_window` shows that a replay launches the kernels.  Each
     kernel in ``kernels`` must have been launched; the pool must hold
     nothing but the prefix tree's pages after the drain; each request's
-    TTFT is recorded once."""
+    TTFT is recorded once.  A speculative verify call is one decode step
+    that launches no decode kernel.  ``idle`` also measures the idle time
+    of the steps that only decode (:class:`DecodeIdle`).  With ``faults``
+    a request may fail with a reason code, and the launch counts are not
+    held to the steps and chunks (a demoted rung runs no kernel, a faulted
+    chunk none)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.runtime.serve_loop import Request, ServeStats
+    from repro_torch.runtime.serve_loop import FAIL_REASONS, Request, ServeStats
     engine.completed.clear()
     engine.stats = ServeStats()
     graphs = engine.graphs
@@ -607,44 +684,59 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
     torch.cuda.synchronize()
     pa.reset_launch_counts()
     fa.reset_launch_counts()
-    before = (graphs.captures, graphs.replays, graphs.replayed_calls)
+    before = (graphs.captures, graphs.replays, graphs.replayed_calls,
+              graphs.verify_captures, graphs.verify_replays)
+    timer = DecodeIdle(engine) if idle else None
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
         engine.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=NEW_TOKENS,
                               priority=priority(i) if priority else "batch"))
-    done = engine.run()
-    torch.cuda.synchronize()
+    try:
+        done = engine.run()
+        torch.cuda.synchronize()
+    finally:
+        idle_rec = timer.remove() if timer else None
     wall = time.perf_counter() - t0
     first_logits = {rid - rid0: x.float() for rid, x in engine.first_logits.items()}
     engine.first_logits = None
     captures = graphs.captures - before[0]
     replays = graphs.replays - before[1]
     replayed = graphs.replayed_calls - before[2]
+    verify_captures = graphs.verify_captures - before[3]
+    verify_replays = graphs.verify_replays - before[4]
     launches = {"paged_decode_attention": pa.paged_attention_cuda.launches + replayed,
                 "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches,
                 "flash_attention": fa.flash_attention_cuda.launches}
     st = engine.stats
     say(f"  {st.summary()}")
     say(f"  wall {wall} s, {st.decode_steps} decode steps in "
-        f"{sum(st.horizon_hist.values())} decode calls (by horizon "
-        f"{st.horizon_hist}), {st.prefill_chunks} prefill chunks, TTFT mean "
+        f"{sum(st.horizon_hist.values()) + st.spec_calls} decode calls (by horizon "
+        f"{st.horizon_hist}, {st.spec_calls} verify calls), {st.prefill_chunks} "
+        f"prefill chunks, TTFT mean "
         f"{st.mean_ttft_s} s max {max(st.ttft_s)} s, decode {st.decode_tok_per_s} "
         f"tok/s, decode wall a step {st.decode_s / st.decode_steps * 1e6} us, "
         f"reserved pages rolled back {st.reserved_pages_rolled_back}, launches "
         f"{launches} (decode: {pa.paged_attention_cuda.launches} wrapper calls, "
         f"{replayed} in {replays} graph replays)")
     say(f"  decode graphs: {graphs.captures} captures ({captures} in the run, "
-        f"{st.tainted_steps} calls tainted), graph pool {graphs.pool_bytes()} B")
-    if len(done) != len(prompts) or any(r.status != "done" for r in done):
+        f"{st.tainted_steps} calls tainted), graph pool {graphs.pool_bytes()} B; "
+        f"verify graphs: {graphs.verify_captures} captures ({verify_captures} in "
+        f"the run), {verify_replays} replays in the run")
+    served = [r for r in done if r.status == "done"]
+    if len(done) != len(prompts) or (not faults and len(served) != len(done)) \
+            or any(r.status not in ("done", "failed")
+                   or (r.status == "failed" and r.error not in FAIL_REASONS)
+                   for r in done):
         raise AssertionError(f"{label}: requests not completed: "
                              f"{[(r.rid, r.status, r.error) for r in done]}")
-    if len(st.ttft_s) != len(prompts) or not all(r.ttft_recorded for r in done):
+    if (not faults and len(st.ttft_s) != len(prompts)) \
+            or not all(r.ttft_recorded for r in served):
         raise AssertionError(f"{label}: {len(st.ttft_s)} TTFTs recorded for "
                              f"{len(prompts)} requests")
-    for r in done:
+    for r in served:
         if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"{label}: request {r.rid}: tokens {r.out}")
-    if sorted(first_logits) != list(range(len(prompts))) or not all(
+    if not {r.rid - rid0 for r in served} <= set(first_logits) or not all(
             bool(torch.isfinite(x).all()) for x in first_logits.values()):
         raise AssertionError(f"{label}: first-token logits missing or not finite")
     engine.check_kv()
@@ -656,15 +748,23 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
     for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"{label}: {name} was not launched on the main path")
-    decode_calls = cfg.num_layers if "paged_decode_attention" in kernels else 0
-    if replays != sum(st.horizon_hist.values()) \
-            or replayed != st.decode_steps * decode_calls:
+    # decode-kernel calls a decode step stands for: one a layer when the
+    # engine has pages and pins the kernel variant (a verify call: none)
+    decode_calls = (cfg.num_layers if engine.pages is not None
+                    and engine.decode_impl == "cuda" else 0)
+    if replays != sum(st.horizon_hist.values()) or verify_replays != st.spec_calls \
+            or (not faults
+                and replayed != (st.decode_steps - st.spec_calls) * decode_calls):
         raise AssertionError(f"{label}: {replays} replays standing for {replayed} "
                              f"decode calls, for {st.horizon_hist} calls of "
-                             f"{st.decode_steps} steps x {decode_calls} layer calls")
-    if launches["paged_prefill_attention"] != st.prefill_chunks * cfg.num_layers:
+                             f"{st.decode_steps} steps ({st.spec_calls} of them "
+                             f"verify calls, {verify_replays} verify replays) x "
+                             f"{decode_calls} layer calls")
+    if not faults and \
+            launches["paged_prefill_attention"] != st.prefill_chunks * cfg.num_layers:
         raise AssertionError(f"{label}: prefill launches {launches} do not match "
                              f"{st.prefill_chunks} chunks x {cfg.num_layers} layers")
+    slot_calls = sum(st.accept_hist.values())
     return dict(
         wall_s=wall, decode_steps=st.decode_steps, prefill_chunks=st.prefill_chunks,
         ttft_s=list(st.ttft_s), mean_ttft_s=st.mean_ttft_s,
@@ -685,8 +785,22 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
                       placement_rollbacks=st.placement_rollbacks,
                       swap_out_s=list(st.swap_out_s), swap_in_s=list(st.swap_in_s),
                       by_request={r.rid - rid0: r.preemptions for r in done}),
-        ttft_by_request={r.rid - rid0: r.ttft_s for r in done},
-        tokens={r.rid - rid0: r.out for r in done}, first_logits=first_logits)
+        ttft_by_request={r.rid - rid0: r.ttft_s for r in served},
+        spec=dict(calls=st.spec_calls, draft_tokens=st.draft_tokens,
+                  accepted_tokens=st.accepted_tokens,
+                  accept_hist=dict(sorted(st.accept_hist.items())),
+                  accept_rate=(st.accepted_tokens / st.draft_tokens
+                               if st.draft_tokens else None),
+                  tokens_per_verify=((st.accepted_tokens + slot_calls) / st.spec_calls
+                                     if st.spec_calls else None)),
+        verify_captures_in_run=verify_captures, verify_replays_in_run=verify_replays,
+        faults=dict(device=st.device_faults, numeric=st.numeric_faults,
+                    watchdog_trips=st.watchdog_trips, demotions=dict(st.demotions),
+                    repromotions=st.repromotions,
+                    failed_by_reason=dict(st.failed_by_reason),
+                    status={r.rid - rid0: (r.status, r.error) for r in done}),
+        idle=idle_rec,
+        tokens={r.rid - rid0: r.out for r in served}, first_logits=first_logits)
 
 
 def steady_window(engine, cfg, calls):
@@ -707,25 +821,25 @@ def steady_window(engine, cfg, calls):
         engine.step()
     st, graphs = engine.stats, engine.graphs
     spans = []
-    run = graphs.run
+    launch = graphs.launch
 
     def timed(impl, horizon):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = run(impl, horizon)
+        out = launch(impl, horizon)
         end.record()
         spans.append((start, end))
         return out
 
     before = (st.decode_steps, st.prefill_chunks, graphs.captures)
-    graphs.run = timed
+    graphs.launch = timed
     try:
         t0 = time.perf_counter()
         for _ in range(calls):
             engine.step()
         wall_us = (time.perf_counter() - t0) * 1e6
     finally:
-        del graphs.run                      # the bound method again
+        del graphs.launch                   # the bound method again
     torch.cuda.synchronize()
     span_us = sum(a.elapsed_time(b) for a, b in spans) * 1e3
     steps = st.decode_steps - before[0]
@@ -893,25 +1007,31 @@ def token_margin(cfg, params, prompt, before, a, b):
                 top2_margin=float(top2[0] - top2[1]))
 
 
-def compare_runs(label, ref_label, ref, run, cfg, params, prompts, atol=None):
+def compare_runs(label, ref_label, ref, run, cfg, params, prompts, atol=None,
+                 tie=None):
     """Each request's first-token logits in ``run`` against ``ref``'s (gated
     within ``atol`` when given), and its tokens: printed, and for each
     request whose tokens part, the first position and the logit margin
-    there (recorded, not gated)."""
+    there — gated, when ``tie`` is given, to a top-2 margin of at most
+    ``tie`` (a near-tie).  Requests missing from ``run`` (failed) are
+    left out."""
     errs = [float((run["first_logits"][r] - ref["first_logits"][r]).abs().max())
-            for r in sorted(ref["first_logits"])]
+            for r in sorted(ref["first_logits"]) if r in run["first_logits"]]
     say(f"  {label} vs {ref_label}: first-token logits max abs diff by request "
         f"{errs}" + (f" (tolerance {atol})" if atol is not None else ""))
     parts = []
     for rid, toks in sorted(ref["tokens"].items()):
+        if rid not in run["tokens"]:
+            continue
         got = run["tokens"][rid]
         if got != toks:
             j = next(k for k in range(len(toks)) if got[k] != toks[k])
             margin = token_margin(cfg, params, prompts[rid], toks[:j], toks[j], got[j])
             parts.append(dict(rid=rid, position=j, ref_token=toks[j],
                               token=got[j], **margin))
-    same = len(ref["tokens"]) - len(parts)
-    say(f"  tokens equal to {ref_label}'s in {same} of {len(ref['tokens'])} "
+    compared = sum(1 for rid in ref["tokens"] if rid in run["tokens"])
+    same = compared - len(parts)
+    say(f"  tokens equal to {ref_label}'s in {same} of {compared} "
         f"requests" + "".join(
             f"; request {p['rid']} parts at position {p['position']} ({p['ref_token']}"
             f" / {p['token']}), logit margin there {p['a_minus_b']} (top-2 "
@@ -919,7 +1039,12 @@ def compare_runs(label, ref_label, ref, run, cfg, params, prompts, atol=None):
     if atol is not None and max(errs) > atol:
         raise AssertionError(f"{label}: first-token logits differ from {ref_label}'s "
                              f"by {max(errs)} > {atol}")
-    return dict(first_logit_max_abs_diff=errs, tokens_equal=same, parted=parts)
+    wide = [p for p in parts if tie is not None and p["top2_margin"] > tie]
+    if wide:
+        raise AssertionError(f"{label}: tokens part from {ref_label}'s where the "
+                             f"top-2 margin is above {tie}: {wide}")
+    return dict(first_logit_max_abs_diff=errs, tokens_equal=same, compared=compared,
+                parted=parts)
 
 
 def phase_prefix_cache(cfg, params, dev):
@@ -1198,25 +1323,216 @@ def phase_pressure(cfg, params, dev, prompts, main, main_logits):
                 page_budget=PAGE_BUDGET, page_bytes=page_bytes, wall_s=wall)
 
 
+# tokens may part from phase 4's only where the top-2 margin of a full
+# forward is at most this (PERF.md section 2's limit across prefill paths)
+TIE_MARGIN = 0.25
+# phase 4h's storm: FaultPlan.seeded over the engine's five sites
+FAULT_SEED, FAULT_STORM, FAULT_SPAN = 5, 8, 40
+FAULT_SITES = ("decode", "fused", "spec", "prefill", "page_alloc")
+
+
+def say_spec(label, run):
+    sp, idle = run["spec"], run["idle"]
+    say(f"  {label}: accept rate {sp['accept_rate']} ({sp['accepted_tokens']}/"
+        f"{sp['draft_tokens']} drafts), tokens a verify call "
+        f"{sp['tokens_per_verify']} ({sp['calls']} verify calls), accept_hist "
+        f"{sp['accept_hist']}; decode {run['decode_tok_per_s']} tok/s, decode wall a "
+        f"step {run['decode_us_per_step']} us, idle {idle['idle_us_per_step']} us a "
+        f"step over {idle['steps']} decode-only steps (host {idle['wall_us_per_step']}"
+        f" us, replay span {idle['span_us_per_step']} us); verify captures "
+        f"{run['verify_captures_in_run']}, replays {run['verify_replays_in_run']}")
+
+
+def phase_speculation(cfg, params, dev, prompts, main, main_logits):
+    """Phase 4g: speculative decoding on phase 4's engine (paged, both
+    kernels pinned) at ``decode_horizon = spec_draft = S`` for S = 4 and
+    16, phase 4's traffic twice on one engine: pass 1 on a cold n-gram
+    table, pass 2 the same prompts again, whose drafts replay pass 1's
+    greedy streams (the operators' repeated traffic).  Gates: no capture
+    in pass 2, verify replays in both passes, pass 2's accept rate above
+    pass 1's, and each request's tokens phase 4's or parting only at a
+    near-tie (top-2 margin <= TIE_MARGIN)."""
+    import torch
+    t0 = time.perf_counter()
+    ref = dict(main, first_logits=main_logits)
+    say(f"[4g] speculation: {cfg.name} at full width, phase 4's engine, "
+        f"decode_horizon = spec_draft = S, phase 4's traffic twice on one engine")
+    out = {}
+    for S in (4, 16):
+        engine = serving_engine(cfg, params, dev, S, spec_draft=S)
+        passes = []
+        for k in range(2):
+            label = f"phase 4g S={S} pass {k + 1}"
+            # the verify read is the gather path: a pass whose every step
+            # speculates launches no decode kernel, so only the prefill
+            # kernel is required (decode launches are printed)
+            run = serve_traffic(engine, cfg, prompts, label, rid0=100 * (k + 1),
+                                kernels=("paged_prefill_attention",), idle=True)
+            say_spec(label, run)
+            run["compare"] = compare_runs(label, "phase 4", ref, run, cfg, params,
+                                          prompts, tie=TIE_MARGIN)
+            run.pop("first_logits")
+            passes.append(run)
+        cold, warm = passes
+        if warm["captures_in_run"] or warm["verify_captures_in_run"]:
+            raise AssertionError(f"phase 4g S={S}: a capture in pass 2")
+        if not (cold["verify_replays_in_run"] and warm["verify_replays_in_run"]):
+            raise AssertionError(f"phase 4g S={S}: no verify replay in a pass")
+        if not warm["spec"]["accept_rate"] > (cold["spec"]["accept_rate"] or 0.0):
+            raise AssertionError(f"phase 4g S={S}: pass 2's accept rate "
+                                 f"{warm['spec']['accept_rate']} is not above pass "
+                                 f"1's {cold['spec']['accept_rate']}")
+        out[S] = passes
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    say(f"  phase 4g wall {wall} s")
+    return dict(spans=out, wall_s=wall)
+
+
+def phase_faults(cfg, params, dev, prompts, main, main_logits):
+    """Phase 4h: faults and deadlines.  Phase 4's traffic on the paged
+    layout, both kernels pinned, ``decode_horizon`` and ``spec_draft``
+    "auto" under a VPE, a real ``StepWatchdog`` and a storm of
+    ``FaultPlan.seeded(seed=5, n=8, span=40, slots=4)`` over the five
+    sites.  Gates: every request done or failed with a reason code, the
+    pool audit-clean and drained, at least one demotion.  Then phase 4's
+    traffic again on the same engine without the plan: every rung
+    re-promoted by its end, its tokens phase 4's or parting at a near-tie,
+    and, if ``decode_cuda`` was demoted, the kernel's graphs replayed after
+    its re-promotion.  Then, on a new engine and no plan: one request with
+    ``deadline_s=0.05`` shed with reason ``deadline``, and
+    ``max_queue_depth=6`` shedding 2 of 8 submitted at once (``capacity``)."""
+    import torch
+    from repro_torch.distributed.straggler import StepWatchdog
+    from repro_torch.runtime.serve_faults import FaultPlan
+    from repro_torch.runtime.serve_loop import Request, ServeStats
+    t0 = time.perf_counter()
+    ref = dict(main, first_logits=main_logits)
+    plan = FaultPlan.seeded(FAULT_SEED, FAULT_STORM, span=FAULT_SPAN, slots=SLOTS,
+                            sites=FAULT_SITES)
+    say(f"[4h] faults and deadlines: {cfg.name} at full width, phase 4's traffic, "
+        f"decode_horizon and spec_draft auto, a StepWatchdog, the storm "
+        f"{[(f.site, f.kind, f.at, f.slot) for f in plan.specs]}")
+    engine = serving_engine(cfg, params, dev, "auto", spec_draft="auto",
+                            fault_plan=plan, watchdog=StepWatchdog())
+    # when decode_cuda is re-promoted, how many calls the kernel's graphs
+    # had replayed: the clean pass must add to them
+    promoted_at = []
+    tick = engine._tick_probation
+
+    def watched_tick():
+        was = engine._rung_demoted("decode_cuda")
+        tick()
+        if was and not engine._rung_demoted("decode_cuda"):
+            promoted_at.append(engine.graphs.replayed_calls_of("cuda"))
+    engine._tick_probation = watched_tick
+    storm = serve_traffic(engine, cfg, prompts, "phase 4h storm", rid0=100,
+                          faults=True)
+    fa = storm["faults"]
+    say(f"  storm: {len(plan.injected)}/{len(plan)} planned faults fired "
+        f"{[(f.site, f.kind, f.at, f.slot) for f in plan.injected]}; device "
+        f"{fa['device']}, numeric {fa['numeric']}, watchdog trips "
+        f"{fa['watchdog_trips']}, demotions {fa['demotions']}, re-promotions "
+        f"{fa['repromotions']}, failed {fa['failed_by_reason']}, by request "
+        f"{fa['status']}")
+    storm["compare"] = compare_runs("phase 4h storm survivors", "phase 4", ref,
+                                    storm, cfg, params, prompts)
+    if not fa["demotions"]:
+        raise AssertionError("phase 4h: the storm demoted no rung")
+    unfired = [(f.site, f.kind, f.at) for f in plan.specs if f not in plan.injected]
+    engine.faults = None
+    say(f"  clean pass: the plan detached ({len(unfired)} planned faults never "
+        f"reached: {unfired}), rungs still demoted {dict(engine._demoted)}")
+    cuda_before = engine.graphs.replayed_calls_of("cuda")
+    clean = serve_traffic(engine, cfg, prompts, "phase 4h clean pass", rid0=200,
+                          faults=True)
+    clean["compare"] = compare_runs("phase 4h clean pass", "phase 4", ref, clean, cfg,
+                                    params, prompts, tie=TIE_MARGIN)
+    cuda_after = engine.graphs.replayed_calls_of("cuda")
+    say(f"  clean pass: demotions {clean['faults']['demotions']}, re-promotions "
+        f"{clean['faults']['repromotions']}, rungs still demoted "
+        f"{dict(engine._demoted)}; decode_cuda re-promoted with the kernel's graphs "
+        f"at {promoted_at} replayed calls, {cuda_before} before the pass, "
+        f"{cuda_after} after it")
+    if clean["faults"]["failed_by_reason"] or len(clean["tokens"]) != len(prompts):
+        raise AssertionError(f"phase 4h clean pass: {clean['faults']['status']}")
+    if engine._demoted:
+        raise AssertionError(f"phase 4h: rungs {engine._demoted} not re-promoted by "
+                             f"the end of the clean pass")
+    demoted_decode = "decode_cuda" in {**fa["demotions"],
+                                       **clean["faults"]["demotions"]}
+    if demoted_decode and not (promoted_at and cuda_after > promoted_at[-1]):
+        raise AssertionError(f"phase 4h: the cuda decode graphs did not replay after "
+                             f"decode_cuda's re-promotion ({promoted_at}, "
+                             f"{cuda_after})")
+    for run in (storm, clean):
+        run.pop("first_logits")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # deadlines and the queue bound, no plan
+    engine = serving_engine(cfg, params, dev, 1, max_queue_depth=6)
+    engine.stats = ServeStats()
+    reqs = [Request(rid=300 + i, prompt=p, max_new_tokens=NEW_TOKENS,
+                    deadline_s=0.05 if i == 0 else None)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    st = engine.stats
+    shed = {r.rid - 300: (r.status, r.error, r.error_detail) for r in reqs
+            if r.status == "failed"}
+    say(f"  deadline 0.05 s on request 0, max_queue_depth 6, 8 submitted at once: "
+        f"failed {st.failed_by_reason}, {shed}; done "
+        f"{sum(r.status == 'done' for r in reqs)}")
+    if st.failed_by_reason != {"capacity": 2, "deadline": 1} \
+            or reqs[0].error != "deadline" \
+            or {r.error for r in reqs[-2:]} != {"capacity"} \
+            or sum(r.status == "done" for r in reqs) != 5:
+        raise AssertionError(f"phase 4h shedding: {st.failed_by_reason}, {shed}")
+    engine.check_kv()
+    if not engine.pages.drained:
+        raise AssertionError("phase 4h shedding: the pool did not drain")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    say(f"  phase 4h wall {wall} s")
+    return dict(plan=[(f.site, f.kind, f.at, f.slot) for f in plan.specs],
+                fired=[(f.site, f.kind, f.at, f.slot) for f in plan.injected],
+                storm=storm, clean=clean, promoted_at=promoted_at,
+                shedding=dict(failed_by_reason=dict(st.failed_by_reason),
+                              shed={k: v[:2] for k, v in shed.items()}),
+                wall_s=wall)
+
+
 def run_engine(cfg, params, dev, impls, prompts, new_tokens, eos=None, warm=None,
                force_paged=False, priority=None, stats=None, **kw):
     """Serve ``prompts`` (rids 0...) on a new engine, the paged layout unless
     ``kw`` says otherwise, after a 2-token request for each prompt in
     ``warm`` (rids < 0: they fill the prefix tree); ``force_paged`` pins
-    an ``auto`` engine's warm admissions to the paged layout; ``priority``
+    an ``auto`` engine's warm admissions to the paged layout (``"all"``:
+    its cold ones too); ``priority``
     maps a request's index to its class; the engine's stats are appended
     to ``stats`` when it is a list.  Returns each request's tokens; raises
     unless every request is done and the pool holds only tree pages after
     the drain."""
-    from repro_torch.core import VPE, kv_layout_buckets
+    from repro_torch.core import VPE, kv_layout_bucket, kv_layout_buckets
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
     kw = {"kv_layout": "paged", **kw}
     eng = ContinuousBatchingEngine(cfg, params, decode_impl=impls[0],
                                    prefill_kernel=impls[1], device=dev,
                                    vpe=VPE() if force_paged else None, **kw)
     if force_paged:
-        for bucket in kv_layout_buckets(kw["max_len"], eng.num_slots,
-                                        levels=eng.occupancy_levels):
+        buckets = kv_layout_buckets(kw["max_len"], eng.num_slots,
+                                    levels=eng.occupancy_levels)
+        if force_paged == "all":
+            buckets += [kv_layout_bucket(0, occ, eng.num_slots,
+                                         levels=eng.occupancy_levels)
+                        for occ in range(eng.num_slots + 1)]
+        for bucket in buckets:
             eng.vpe.controller.force("kv_layout", bucket, "paged")
     for j, p in enumerate(warm or ()):
         eng.submit(Request(rid=-1 - j, prompt=p, max_new_tokens=2))
@@ -1294,6 +1610,28 @@ def phase_reduced_parity(dev):
             f"{ref0.index(eos)}): tokens end at the first EOS: {got == want_eos}")
         if got != want_eos:
             raise AssertionError(f"{impls} EOS run: {got} != {want_eos}")
+    # speculation against single steps, token for token: every prompt twice,
+    # so the second serving's drafts replay the first's stream and land;
+    # on auto the admissions go contiguous (no VPE) or are forced paged
+    twice = prompts + prompts
+    want_twice = {i: kernels[i % len(prompts)] for i in range(len(twice))}
+    for label, extra in (("paged", dict(kv_layout="paged")),
+                         ("auto", dict(kv_layout="auto")),
+                         ("auto, forced paged", dict(kv_layout="auto",
+                                                     force_paged="all"))):
+        for span in (4, 16):
+            st = []
+            got = run_engine(cfg, params, dev, ("cuda", "cuda"), twice, 12,
+                             decode_horizon=span, spec_draft=span, stats=st,
+                             **{**kw, **extra})
+            st = st[0]
+            say(f"  {label}, spec_draft={span}: {st.spec_calls} verify calls, "
+                f"{st.accepted_tokens}/{st.draft_tokens} drafts accepted, tokens "
+                f"== H=1: {got == want_twice}")
+            if got != want_twice or not st.spec_calls or not st.accepted_tokens:
+                raise AssertionError(f"{label} spec_draft={span}: {got} != "
+                                     f"{want_twice}, or {st.spec_calls} verify "
+                                     f"calls, {st.accepted_tokens} accepted")
     # the layouts and the prefix cache: prompts sharing 37 tokens (2 full
     # blocks and 5 of a third, so paged warm admissions clone it), the
     # contiguous prefill through the flash kernel (its f32 body)
@@ -1485,8 +1823,9 @@ def profiled(fn, label, trace_dir, ranges=()):
 def phase_trace(cfg, params, dev, trace_dir):
     """Where the main path's time goes: a profiler window over 8 steady
     single decode steps at 4 busy slots, one over a steady fused horizon of
-    16 steps, and one over a 512-token prompt's four prefill chunks: the
-    breakdown by kernel.  Its walls and idle shares hold the profiler's own
+    16 steps, one over 4 steady speculative verify calls of span 4, and
+    one over a 512-token prompt's four prefill chunks: the breakdown by
+    kernel.  Its walls and idle shares hold the profiler's own
     cost (the unprofiled idle time is phase 4's steady window).  The device
     launches of the decode kernels must be 3 per step per layer, as in the
     profiled call of phases 4 and 4b."""
@@ -1529,6 +1868,29 @@ def phase_trace(cfg, params, dev, trace_dir):
                                  f"{cfg.num_layers}")
         out[label] = r
         del eng
+    # four steady speculative verify calls of span 4 at 4 busy slots (a
+    # cold table: each commits about a token a slot), graph replays
+    eng = ContinuousBatchingEngine(cfg, params, decode_horizon=4, spec_draft=4, **kw)
+    for i, p in enumerate(prompts[:SLOTS]):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=400))
+    while eng.num_decoding < SLOTS:
+        eng.step()
+    eng.step()                              # captures the verify graph
+    st = eng.stats
+    before = (st.spec_calls, st.decode_steps, eng.graphs.verify_captures)
+    r = profiled(lambda: [eng.step() for _ in range(4)], "verify_4_calls", trace_dir)
+    calls = st.spec_calls - before[0]
+    r.update(verify_calls=calls,
+             wall_us_per_call=r["wall_us"] / max(calls, 1),
+             busy_us_per_call=r["busy_us"] / max(calls, 1))
+    say(f"  verify_4_calls: {calls} verify calls, busy {r['busy_us_per_call']} us "
+        f"and wall {r['wall_us_per_call']} us a call (profiled)")
+    if calls != 4 or st.decode_steps - before[1] != 4 \
+            or eng.graphs.verify_captures != before[2]:
+        raise AssertionError("verify_4_calls: the window was not 4 steady verify "
+                             "replays")
+    out["verify_4_calls"] = r
+    del eng
     eng = ContinuousBatchingEngine(cfg, params, **kw)
     eng.submit(Request(rid=0, prompt=np.resize(prompts[0], 4 * CHUNK),
                        max_new_tokens=2))
@@ -2216,6 +2578,8 @@ def main(argv=None) -> int:
     prefix, cold_4d = phase_prefix_cache(cfg, params, dev)
     layouts = phase_layouts(cfg, params, dev, prompts, main_run, main_logits, cold_4d)
     pressure = phase_pressure(cfg, params, dev, prompts, main_run, main_logits)
+    spec = phase_speculation(cfg, params, dev, prompts, main_run, main_logits)
+    faults = phase_faults(cfg, params, dev, prompts, main_run, main_logits)
     del main_logits, cold_4d
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
@@ -2252,7 +2616,8 @@ def main(argv=None) -> int:
             dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                  kernel_times=times, check_errors=errors, main_path=main_run,
                  fused_horizons=fused, auto_horizon=auto, prefix_cache=prefix,
-                 layouts=layouts, pressure=pressure,
+                 layouts=layouts, pressure=pressure, speculation=spec,
+                 faults=faults,
                  full_width_logits=logits, traces=traces, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,

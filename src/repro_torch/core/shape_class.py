@@ -82,6 +82,10 @@ def bucket_label(bucket: Tuple) -> str:
         _, qb, level, total = bucket
         q = "q0" if qb == 0 else f"q[{2 ** (qb - 1)},{2 ** qb})"
         return f"horizon:{q}xocc{level}/{total}slots" + suffix
+    if bucket and bucket[0] == "spec":
+        _, qb, level, total, acc = bucket
+        q = "q0" if qb == 0 else f"q[{2 ** (qb - 1)},{2 ** qb})"
+        return f"spec:{q}xocc{level}/{total}slotsxacc{acc}" + suffix
     b, ranks = bucket
     lo, hi = 2 ** b, 2 ** (b + 1)
     return f"[{lo},{hi})elems/rank{','.join(map(str, ranks))}" + suffix
@@ -149,6 +153,34 @@ def decode_horizon_bucket(queue_depth: int, active: int, total: int, *,
     q = queue_depth_bucket(queue_depth)
     o = occupancy_bucket(active, total, levels=levels)
     return ("hzn", q, o[1], total)
+
+
+def accept_rate_level(accept_rate: Optional[float]) -> int:
+    """A measured draft-acceptance rate quantized to three levels: below
+    0.3 the drafts mostly miss (a verify pass buys barely more than one
+    token), from 0.7 they mostly land, and the band between is for the
+    measured wall to decide.  ``None`` (no measurement yet) is the middle
+    level, so the first trials are not keyed off an invented extreme."""
+    if accept_rate is None:
+        return 1
+    if accept_rate < 0.3:
+        return 0
+    if accept_rate < 0.7:
+        return 1
+    return 2
+
+
+def spec_accept_bucket(queue_depth: int, active: int, total: int,
+                       accept_rate: Optional[float] = None, *,
+                       levels: int = 4) -> Tuple:
+    """Dispatch key for the serve engine's ``spec_draft`` axis: the
+    ``decode_horizon`` key's queue-depth level x occupancy level, and the
+    engine's recent acceptance level (:func:`accept_rate_level`) — whether a
+    verify span beats the plain path depends on the load and on how often
+    the drafts land, a property of the traffic only a measurement shows."""
+    q = queue_depth_bucket(queue_depth)
+    o = occupancy_bucket(active, total, levels=levels)
+    return ("spec", q, o[1], total, accept_rate_level(accept_rate))
 
 
 def slo_pressure_bucket(queued_interactive: int, queued_batch: int) -> Tuple:

@@ -4,13 +4,15 @@
     python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] --continuous \\
         [--kv-layout contiguous|paged|auto] [--prefix-cache --prefix-blocks 64] \\
         [--prefill-chunk 128|whole|auto] [--decode-horizon 16|auto] \\
-        [--decode-impl cuda --prefill-kernel cuda] \\
-        [--priority mix --page-budget 11 --swap --slo-weight 0.5] [--device cpu]
+        [--decode-impl cuda --prefill-kernel cuda] [--spec-draft 4|auto] \\
+        [--priority mix --page-budget 11 --swap --slo-weight 0.5] \\
+        [--watchdog --fault-seed 5 --fault-storm 8 --deadline 30 \\
+         --max-queue-depth 16] [--device cpu]
 
 Without ``--continuous`` requests run in waves (``ServeLoop`` +
 ``WaveScheduler``, the baseline).  The flags are those of
-``repro.launch.serve`` for the subset the port has; the others are
-rejected with the ROADMAP item that ports them.
+``repro.launch.serve``; ``--mesh``, whose replicas and shards are not
+ported, is rejected with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,17 +26,13 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import VPE
 from repro_torch.models import model as model_lib
+from repro_torch.runtime.serve_faults import FaultPlan
 from repro_torch.runtime.serve_loop import (LATER, SERVE_AXES,
                                             ContinuousBatchingEngine, Request,
                                             ServeLoop, WaveScheduler)
 
-# flags of repro.launch.serve outside this slice -> ROADMAP item
-_LATER_FLAGS = {
-    "--spec-draft": "speculation",
-    "--deadline": "faults", "--max-queue-depth": "faults",
-    "--watchdog": "faults", "--fault-seed": "faults",
-    "--fault-storm": "faults", "--mesh": "mesh",
-}
+# flags of repro.launch.serve outside the port -> ROADMAP item
+_LATER_FLAGS = {"--mesh": "mesh"}
 
 
 def main(argv=None) -> None:
@@ -99,6 +97,32 @@ def main(argv=None) -> None:
                     help="weight of the queue-wait term: fused horizons and "
                          "prefill chunks are charged wall x (1 + w x "
                          "class-weighted queued requests); 0 turns it off")
+    ap.add_argument("--spec-draft", default="off",
+                    help="speculative verify span: 'off', an int S (one pass "
+                         "scores the last token and S-1 n-gram drafts), or "
+                         "'auto' — a VPE axis keyed by queue depth x "
+                         "occupancy x measured acceptance; the contiguous "
+                         "layout and --decode-horizon 1 resolve it to 'off'")
+    ap.add_argument("--deadline", type=float, default=None, metavar="S",
+                    help="per-request deadline in seconds from submit; an "
+                         "expired request is shed (queued or resident) with "
+                         "reason code 'deadline'")
+    ap.add_argument("--max-queue-depth", type=int, default=None,
+                    help="admission bound: submissions beyond this queue "
+                         "depth fail at once with reason code 'capacity' "
+                         "(continuous only)")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="guard each decode span's fence with the straggler "
+                         "watchdog: a stalled fence commits its late tokens "
+                         "and demotes the span's variant")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="inject a reproducible fault storm seeded here "
+                         "(device errors, poisoned logits, fence stalls at "
+                         "planned span coordinates); the engine recovers "
+                         "through its ladder and the last lines list the "
+                         "faults that fired")
+    ap.add_argument("--fault-storm", type=int, default=8, metavar="N",
+                    help="number of faults in the --fault-seed storm")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     args, unknown = ap.parse_known_args(argv)
@@ -117,6 +141,12 @@ def main(argv=None) -> None:
                  f"{args.decode_horizon!r}")
     chunk = (args.prefill_chunk if args.prefill_chunk in ("whole", "auto")
              else int(args.prefill_chunk))
+    try:
+        spec = (args.spec_draft if args.spec_draft in ("off", "auto")
+                else int(args.spec_draft))
+    except ValueError:
+        ap.error(f"--spec-draft must be 'off', a span or 'auto', got "
+                 f"{args.spec_draft!r}")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -134,7 +164,8 @@ def main(argv=None) -> None:
     reqs = [Request(
         rid=i,
         prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
-        max_new_tokens=args.new_tokens, priority=_prio(i))
+        max_new_tokens=args.new_tokens, priority=_prio(i),
+        deadline_s=args.deadline)
         for i in range(args.requests)]
     if not args.continuous:
         serve = ServeLoop(cfg, params, max_len=args.max_len, batch=args.batch,
@@ -149,18 +180,31 @@ def main(argv=None) -> None:
               f"decode {st.decode_s:.2f}s)")
         return
     vpe = VPE()
+    plan = (FaultPlan.seeded(args.fault_seed, args.fault_storm, slots=args.batch)
+            if args.fault_seed is not None else None)
     engine = ContinuousBatchingEngine(
         cfg, params, slots=args.batch, max_len=args.max_len, vpe=vpe,
         prefix_blocks=args.prefix_blocks if args.prefix_cache else 0,
         block_size=args.block_size, kv_layout=args.kv_layout,
         prefill_chunk=chunk, chunks_per_step=args.chunks_per_step,
         decode_horizon=horizon, decode_impl=args.decode_impl,
-        prefill_kernel=args.prefill_kernel, page_budget=args.page_budget,
-        swap=args.swap, slo_weight=args.slo_weight, device=device)
+        prefill_kernel=args.prefill_kernel, spec_draft=spec,
+        page_budget=args.page_budget, swap=args.swap,
+        slo_weight=args.slo_weight, fault_plan=plan, watchdog=args.watchdog,
+        max_queue_depth=args.max_queue_depth, device=device)
     for r in reqs:
         engine.submit(r)
     done = engine.run()
-    print(f"completed {len(done)} requests; {engine.stats.summary()}")
+    stats = engine.stats
+    print(f"completed {len(done)} requests; {stats.summary()}")
+    if plan is not None:
+        fired = ", ".join(f"{f.site}/{f.kind}@{f.at}"
+                          for f in plan.injected) or "none"
+        print(f"fault storm (seed {args.fault_seed}): "
+              f"{len(plan.injected)}/{len(plan)} fired [{fired}]")
+    if stats.spec_calls:
+        hist = ", ".join(f"{k}:{v}" for k, v in sorted(stats.accept_hist.items()))
+        print(f"spec accept histogram (drafts accepted -> slot-calls): {hist}")
     # which variant each measured axis settled on, and the trials behind it
     print(vpe.report())
 

@@ -7,7 +7,7 @@
 
 The flags are those of ``repro.launch.train``.  ``--smoke`` trains the
 reduced config; without it the full config is trained on one device (the
-port has no production mesh yet: ROADMAP queue 1, item 7).  The VPE
+port has no production mesh yet: ROADMAP queue 1, item 5).  The VPE
 trials the attention implementations (``reference``, ``flash_cuda``)
 inside the loop unless ``--no-vpe``; its decision table is printed at the
 end.

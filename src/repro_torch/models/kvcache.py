@@ -311,6 +311,97 @@ def append_token_paged(
     pool_v_l[page, :, off] = v_new[:, :, 0].to(pool_v_l.dtype)
 
 
+def append_tokens_paged(
+    pool_k_l: torch.Tensor, pool_v_l: torch.Tensor, k_new: torch.Tensor,
+    v_new: torch.Tensor, block_table: torch.Tensor, length: torch.Tensor,
+    write_mask: torch.Tensor, trash: int,
+) -> None:
+    """Write a SPAN of decode-position K/V into each slot's pages (one
+    layer), in place — the multi-position :func:`append_token_paged` of the
+    speculative verify pass: candidate ``j`` of slot ``i`` lands at
+    position ``length[i] + j``.
+
+    k_new/v_new: (B, Hkv, S, D); ``write_mask`` (B, S) selects the real
+    writes, everything else (free slots, candidates past a slot's token
+    budget) goes to the trash page.  The engine reserves pages covering
+    every real write, so those land in pages the slot owns privately and
+    never collide; trash collisions are harmless (the row is never read).
+    Positions come from ``length`` on the device, so the call can be
+    captured in a CUDA graph."""
+    B, _, S, _ = k_new.shape
+    bs = pool_k_l.shape[2]
+    nb = block_table.shape[1]
+    pos = length.long()[:, None] + torch.arange(S, device=length.device)
+    col = torch.clamp(pos // bs, 0, nb - 1)
+    page = torch.where(write_mask > 0,
+                       torch.gather(block_table.long(), 1, col),
+                       torch.full_like(pos, trash))
+    off = pos % bs
+    for pool, new in ((pool_k_l, k_new), (pool_v_l, v_new)):
+        pool[page, :, off] = new.transpose(1, 2).to(pool.dtype)  # (B, S, Hkv, D)
+
+
+def update_layer_cache_multi(
+    k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
+    v_new: torch.Tensor, length: torch.Tensor, write_mask: torch.Tensor,
+) -> None:
+    """Masked multi-position write into a per-slot contiguous cache, in
+    place — the contiguous twin of :func:`append_tokens_paged` for the
+    ``auto`` layout's verify pass.  k_new/v_new: (B, Hkv, S, D) at positions
+    ``length[i] + j``; ``write_mask`` (B, S).
+
+    A masked-off position is dropped, never clamped (a clamped write near
+    ``max_len`` would slide back over committed positions), as the
+    reference's ``mode="drop"`` scatter does.  Here every position of a row
+    is written at ``(length + j) % T``, the real ones with the new value
+    and the masked ones with the value already there: a real position
+    lies in ``[length, T)`` and a wrapped one below ``length``, so the
+    (slot, position) pairs are distinct (S <= T) and the masked writes
+    change nothing."""
+    B, Hkv, T, D = k_cache.shape
+    S = k_new.shape[2]
+    assert S <= T, (S, T)
+    idx = (length.long()[:, None] + torch.arange(S, device=length.device)) % T
+    rows = torch.arange(B, device=length.device)[:, None]
+    keep = (write_mask > 0)[:, :, None, None]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        c = cache.transpose(1, 2)                       # (B, T, Hkv, D) view
+        c[rows, idx] = torch.where(keep, new.transpose(1, 2).to(cache.dtype),
+                                   c[rows, idx])
+
+
+def spec_verify_attention(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    length: torch.Tensor, *, window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Multi-query decode attention of the speculative verify pass.
+
+    q: (B, Hq, S, D), row ``j`` at position ``length[i] + j``; k/v_cache:
+    (B, Hkv, T, D) with the span's own keys already written (write, then
+    attend).  Row ``j`` keeps ``col <= length + j`` (and the window): with
+    S = 1 this is :func:`decode_attention`'s mask, and the grouped layout
+    with f32 scores and the probabilities cast to the cache dtype are the
+    same, so a verified row's logits are the sequential step's."""
+    B, Hq, S, D = q.shape
+    _, Hkv, T, _ = k_cache.shape
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, group, S, D).float()
+    s = torch.einsum("bhgsd,bhtd->bhgst", qg, k_cache.float()) * scale
+    row = length.long()[:, None] + torch.arange(S, device=length.device)  # (B, S)
+    col = torch.arange(T, device=length.device)
+    mask = col[None, None, :] <= row[:, :, None]                          # (B, S, T)
+    if window is not None:
+        mask &= col[None, None, :] > row[:, :, None] - window
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, Hq, S, D).to(q.dtype)
+
+
 def _decode_mask(length: torch.Tensor, T: int, *, window: Optional[int],
                  ring_window: Optional[int] = None) -> torch.Tensor:
     """(1-or-B, 1, 1, 1, T) validity mask for single-position attention:

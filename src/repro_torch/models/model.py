@@ -193,3 +193,27 @@ def decode_steps_paged(cfg: ModelConfig, params: Any, pool: Dict, cache: Dict,
     return family_module(cfg).decode_steps_paged(
         cfg, params, pool, cache, tokens, live, eos_ids, budget, horizon,
         decode_impl=decode_impl)
+
+
+def spec_verify_paged(cfg: ModelConfig, params: Any, pool: Dict, cache: Dict,
+                      tokens: torch.Tensor, live: torch.Tensor,
+                      eos_ids: torch.Tensor, budget: torch.Tensor
+                      ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """One-pass speculative verify of an S-token span a slot over the paged
+    layout: returns (pool, cache, tok_block (B, S), valid (B, S), final_tok
+    (B,)); ``cache["length"]`` moves in place."""
+    return family_module(cfg).spec_verify_paged(
+        cfg, params, pool, cache, tokens, live, eos_ids, budget)
+
+
+def spec_verify_mixed(cfg: ModelConfig, params: Any, cache: Dict, pool: Dict,
+                      tokens: torch.Tensor, use_paged: torch.Tensor,
+                      live: torch.Tensor, eos_ids: torch.Tensor,
+                      budget: torch.Tensor
+                      ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Speculative verify of ``kv_layout="auto"``: returns (cache, pool,
+    tok_block, valid, final_tok)."""
+    return family_module(cfg).spec_verify_mixed(
+        cfg, params, cache, pool, tokens, use_paged, live, eos_ids, budget)

@@ -657,3 +657,178 @@ def decode_steps_paged(cfg: ModelConfig, params: Params, pool: Dict,
     toks, valid, tok = _horizon_loop(step_fn, tokens, live, eos_ids, budget,
                                      horizon)
     return pool, cache, toks, valid, tok
+
+
+# -- speculative decoding: one-pass draft verification -------------------------
+#
+# The host drafts up to S-1 candidate tokens a live slot (an n-gram table,
+# runtime/spec_decode.py) and ONE pass of the target model scores all S
+# positions: candidate j of slot i is embedded at position length[i] + j,
+# its K/V written through the slot's block table first, and row j attends
+# to col <= length + j, so row j's logits are the ones the sequential
+# decode step would give after committing candidates 1..j.  A candidate is
+# committed iff it equals the target's own argmax after the prefix before
+# it, and the first mismatch gives the target's token as a free correction:
+# the committed stream is the greedy stream, whatever the drafts.  The
+# rejected tail's K/V stays past the advanced length, masked, and the
+# engine returns the pages that held it.  Positions and masks are built
+# from ``cache["length"]`` on the device and no Python value depends on
+# it, so the serve engine captures a verify call in a CUDA graph, and the
+# length moves in place.
+
+def _spec_accept(tokens: torch.Tensor, g: torch.Tensor, live: torch.Tensor,
+                 eos_ids: torch.Tensor, budget: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The longest accepted prefix as a commit mask (``repro``'s
+    ``_spec_accept``).
+
+    tokens: (B, S), column 0 each slot's last committed token, columns 1..
+    the drafts; g: (B, S) the target's argmax at every position (``g[:, j]``
+    follows ``tokens[:, j]``).  Draft ``j+1`` is accepted iff it equals
+    ``g[:, j]`` and every earlier draft was accepted; committed position j
+    emits ``g[:, j]``.  The stop contract of :func:`_horizon_loop` holds on
+    top: the token that hits a slot's EOS id or ends its budget is emitted
+    and nothing after it, and a slot that is not live emits nothing.
+
+    Returns (valid (B, S) int32, a prefix of each row; n_emit (B,); final
+    (B,): each slot's last valid token, its input token when none)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    live = live.to(torch.int32)
+    eos_ids = eos_ids.to(torch.int32)
+    budget = budget.to(torch.int32)
+    idx = torch.arange(S, device=dev)[None, :]
+    if S > 1:
+        match = (tokens[:, 1:] == g[:, :-1]).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)             # (B,)
+    else:
+        n_acc = torch.zeros((B,), dtype=torch.int64, device=dev)
+    commit = ((idx <= n_acc[:, None]) & (idx < budget[:, None])
+              & (live[:, None] > 0))
+    eos_hit = ((g == eos_ids[:, None]) & commit).to(torch.int32)
+    after = (torch.cumsum(eos_hit, dim=1) - eos_hit) > 0          # strictly after
+    valid = (commit & ~after).to(torch.int32)
+    n_emit = valid.sum(dim=1).to(torch.int32)
+    last = torch.clamp(n_emit - 1, min=0).long()
+    final = torch.where(n_emit > 0, torch.gather(g, 1, last[:, None])[:, 0],
+                        tokens[:, 0].to(g.dtype))
+    return valid, n_emit, final.to(torch.int32)
+
+
+def _write_mask(S: int, live: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32: the span positions a verify call writes — live slots,
+    candidates under the slot's token budget."""
+    j = torch.arange(S, device=live.device)[None, :]
+    return ((live[:, None] > 0) & (j < budget[:, None])).to(torch.int32)
+
+
+def spec_verify_logits_paged(cfg: ModelConfig, params: Params, pool: Dict,
+                             cache: Dict, tokens: torch.Tensor,
+                             live: torch.Tensor, budget: torch.Tensor
+                             ) -> torch.Tensor:
+    """The scoring half of :func:`spec_verify_paged`: writes the span's K/V
+    into the pages (in place) and returns the logits (B, S, V) in f32;
+    ``length`` does not move."""
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    length = cache["length"]
+    bt = cache["bt"]
+    positions = length[:, None] + torch.arange(S, device=tokens.device)[None, :]
+    trash = pool["k"].shape[1] - 1
+    s = attn_spec(cfg)
+    write_mask = _write_mask(S, live, budget)
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        pk, pv = pool["k"][l], pool["v"][l]
+        h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
+        q, k, v = layers.attn_qkv(_sub(lp, "attn_"), s, h, positions)
+        kvcache.append_tokens_paged(pk, pv, k, v, bt, length, write_mask, trash)
+        kg, vg = kvcache.paged_gather_layer(pk, pv, bt,
+                                            out_dtype=kvcache.SLOT_CACHE_DTYPE)
+        o = kvcache.spec_verify_attention(q, kg, vg, length, window=cfg.window)
+        x = _post_attn(cfg, lp, x, o)
+    return _logits(cfg, params, x)
+
+
+def spec_verify_logits_mixed(cfg: ModelConfig, params: Params, cache: Dict,
+                             pool: Dict, tokens: torch.Tensor,
+                             use_paged: torch.Tensor, live: torch.Tensor,
+                             budget: torch.Tensor) -> torch.Tensor:
+    """The scoring half of :func:`spec_verify_mixed` (writes in place,
+    logits (B, S, V) in f32, ``length`` unmoved)."""
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    length = cache["length"]
+    bt = cache["bt"]
+    positions = length[:, None] + torch.arange(S, device=tokens.device)[None, :]
+    trash = pool["k"].shape[1] - 1
+    s = attn_spec(cfg)
+    write_mask = _write_mask(S, live, budget)
+    paged_mask = write_mask * use_paged.to(torch.int32)[:, None]
+    sel = use_paged[:, None, None, None] > 0
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        kc, vc = cache["k"][l], cache["v"][l]
+        pk, pv = pool["k"][l], pool["v"][l]
+        h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
+        q, k, v = layers.attn_qkv(_sub(lp, "attn_"), s, h, positions)
+        kvcache.update_layer_cache_multi(kc, vc, k, v, length, write_mask)
+        kvcache.append_tokens_paged(pk, pv, k, v, bt, length, paged_mask, trash)
+        kg, vg = kvcache.paged_gather_layer(pk, pv, bt, out_dtype=kc.dtype)
+        o_p = kvcache.spec_verify_attention(q, kg, vg, length, window=cfg.window)
+        o_c = kvcache.spec_verify_attention(q, kc, vc, length, window=cfg.window)
+        x = _post_attn(cfg, lp, x, torch.where(sel, o_p, o_c))
+    return _logits(cfg, params, x)
+
+
+def _spec_commit(cache: Dict, tokens: torch.Tensor, logits: torch.Tensor,
+                 live: torch.Tensor, eos_ids: torch.Tensor, budget: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Accept on the logits, move ``length`` by the emitted count in place;
+    returns (g, valid, final)."""
+    g = torch.argmax(logits, dim=-1).to(torch.int32)               # (B, S)
+    valid, n_emit, final = _spec_accept(tokens, g, live, eos_ids, budget)
+    cache["length"].add_(n_emit)
+    return g, valid, final
+
+
+def spec_verify_paged(cfg: ModelConfig, params: Params, pool: Dict,
+                      cache: Dict, tokens: torch.Tensor, live: torch.Tensor,
+                      eos_ids: torch.Tensor, budget: torch.Tensor
+                      ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Score an S-token candidate span a slot in ONE pass over the paged
+    layout.
+
+    tokens: (B, S) — [last committed token, draft_1, ..., draft_{S-1}]; the
+    caller must have installed pages covering ``[length, length + min(S,
+    budget))`` of each live slot (the fused horizon's reservation).  Each
+    layer writes the span's under-budget K/V through the block table, then
+    one multi-query read over the gathered pages (at the slot-cache dtype,
+    as the decode step reads them) scores every row; the accept mask
+    commits the longest verified prefix and one correction, and
+    ``cache["length"]`` moves by the emitted count, in place.  Returns
+    (pool, cache, tok_block (B, S), valid (B, S), final_tok (B,)): the fused
+    horizon's contract."""
+    logits = spec_verify_logits_paged(cfg, params, pool, cache, tokens, live,
+                                      budget)
+    g, valid, final = _spec_commit(cache, tokens, logits, live, eos_ids, budget)
+    return pool, cache, g, valid, final
+
+
+def spec_verify_mixed(cfg: ModelConfig, params: Params, cache: Dict,
+                      pool: Dict, tokens: torch.Tensor, use_paged: torch.Tensor,
+                      live: torch.Tensor, eos_ids: torch.Tensor,
+                      budget: torch.Tensor
+                      ) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Speculative verify of ``kv_layout="auto"`` (slots in either layout),
+    as :func:`decode_step_mixed`: QKV and FFN once, writes to both
+    structures (the contiguous one through the masked write of
+    :func:`kvcache.update_layer_cache_multi`, the pages only for live paged
+    under-budget positions), both reads computed and selected per slot.
+    Returns (cache, pool, tok_block, valid, final_tok)."""
+    logits = spec_verify_logits_mixed(cfg, params, cache, pool, tokens,
+                                      use_paged, live, budget)
+    g, valid, final = _spec_commit(cache, tokens, logits, live, eos_ids, budget)
+    return cache, pool, g, valid, final

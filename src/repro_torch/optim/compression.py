@@ -4,7 +4,7 @@ The counterpart of the optimizer-side half of ``repro.optim.compression``:
 :func:`quantize`/:func:`dequantize` and :class:`ErrorFeedback`, the
 numerics of compressed gradient sync applied before the optimizer.  The
 wire form, ``compressed_psum`` (an int8 all-reduce across a mesh axis),
-waits for the port's mesh (ROADMAP queue 1, item 7).
+waits for the port's mesh (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations

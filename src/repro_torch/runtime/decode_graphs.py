@@ -41,6 +41,16 @@ keeps its own count of replays and of the wrapper calls they stand for
 Whether a replay really runs the kernel is for a device-side measurement
 to show (``chip_smoke.py`` reads it from the profiler).
 
+Speculative verify calls (:meth:`DecodeGraphs.verify`) follow the same
+rules, one graph per span S: the (B, S) int32 token block is a static
+buffer of its own that each call fills in place from a pinned host
+tensor, ``live``, ``eos`` and ``budget`` are the input rows above, the
+captured call ends by copying its final tokens into ``tok``, and the
+capture (warm-up included) runs with ``live`` at zero, so every page
+write goes to the trash page, the contiguous writes of ``auto`` rewrite
+what is there and no length moves.  The verify read is the gather path
+and launches no kernel of the port.
+
 All graphs of one engine share one memory pool.  That is safe because
 they replay one at a time on one stream and each replay's outputs are
 copied to the host before the next replay, which may reuse their memory.
@@ -66,6 +76,7 @@ class _Graph:
     graph: "torch.cuda.CUDAGraph"
     out: torch.Tensor          # (2, B, H) int32: token block, valid mask
     kernel_calls: int          # decode-kernel wrapper calls it recorded
+    replays: int = 0
 
 
 class DecodeGraphs:
@@ -93,6 +104,13 @@ class DecodeGraphs:
         self.captures = 0
         self.replays = 0
         self.replayed_calls = 0    # decode-kernel wrapper calls replayed
+        # speculative verify: a graph, a token buffer and a pinned staging
+        # tensor per span S
+        self.verify_graphs: Dict[int, _Graph] = {}
+        self.verify_tokens: Dict[int, torch.Tensor] = {}
+        self._verify_host: Dict[int, torch.Tensor] = {}
+        self.verify_captures = 0
+        self.verify_replays = 0
         self._mem_pool = None
         self._stream: Optional[torch.cuda.Stream] = None
         if self.device.type == "cuda":
@@ -118,44 +136,109 @@ class DecodeGraphs:
         self.tok.copy_(final)
         return torch.stack((toks, valid))
 
-    def run(self, impl: str, horizon: int
-            ) -> Tuple[np.ndarray, np.ndarray, bool]:
+    def launch(self, impl: str, horizon: int) -> Tuple[torch.Tensor, bool]:
         """One decode call of ``horizon`` steps with decode attention
-        ``impl``: (tok_block (B, H), valid (B, H)) on the host — the copy is
-        the call's fence — and whether this call captured its graph."""
+        ``impl``, not fenced: the (2, B, H) token block and valid mask on
+        the device, and whether this call captured its graph."""
         if self.device.type != "cuda":
-            out = self._call(impl, horizon).numpy()
-            return out[0], out[1], False
+            return self._call(impl, horizon), False
         entry = self.graphs.get((impl, horizon))
         captured = entry is None
         if captured:
-            entry = self._capture(impl, horizon)
+            entry = self._capture(lambda: self._call(impl, horizon),
+                                  kpa.paged_attention_cuda)
+            self.graphs[(impl, horizon)] = entry
+            self.captures += 1
         entry.graph.replay()
+        entry.replays += 1
         self.replays += 1
         self.replayed_calls += entry.kernel_calls
-        out = entry.out.cpu().numpy()
+        return entry.out, captured
+
+    def run(self, impl: str, horizon: int
+            ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """:meth:`launch`, then (tok_block (B, H), valid (B, H)) on the host
+        — the copy is the call's fence — and whether it captured."""
+        out, captured = self.launch(impl, horizon)
+        out = out.cpu().numpy()
         return out[0], out[1], captured
 
-    def _capture(self, impl: str, horizon: int) -> _Graph:
+    def replayed_calls_of(self, impl: str) -> int:
+        """Decode-kernel wrapper calls the replays of ``impl``'s graphs
+        stand for."""
+        return sum(e.replays * e.kernel_calls
+                   for (name, _), e in self.graphs.items() if name == impl)
+
+    def _verify_call(self, span: int) -> torch.Tensor:
+        """One verify call over the engine's buffers and the span's token
+        buffer; returns the (2, B, S) token block and valid mask and leaves
+        the final tokens in ``tok``."""
+        toks = self.verify_tokens[span]
+        if self.layout == "paged":
+            *_, g, valid, final = model_lib.spec_verify_paged(
+                self.cfg, self.params, self.pool, self.cache, toks, self.live,
+                self.eos, self.budget)
+        elif self.layout == "auto":
+            *_, g, valid, final = model_lib.spec_verify_mixed(
+                self.cfg, self.params, self.cache, self.pool, toks, self.paged,
+                self.live, self.eos, self.budget)
+        else:
+            raise ValueError("speculative verify needs a block table "
+                             "(the paged or auto layout)")
+        self.tok.copy_(final)
+        return torch.stack((g, valid))
+
+    def verify(self, tokens: np.ndarray) -> Tuple[torch.Tensor, bool]:
+        """One speculative verify call of the (B, S) int32 ``tokens`` (each
+        slot's last token, then its drafts), not fenced: the (2, B, S)
+        token block and valid mask on the device, and whether this call
+        captured its graph.  The tokens are written in place into the
+        span's static buffer."""
+        span = int(tokens.shape[1])
+        buf = self.verify_tokens.get(span)
+        if buf is None:
+            buf = torch.zeros(tokens.shape, dtype=torch.int32, device=self.device)
+            self.verify_tokens[span] = buf
+            if self.device.type == "cuda":
+                self._verify_host[span] = torch.empty(
+                    tokens.shape, dtype=torch.int32, pin_memory=True)
+        if self.device.type != "cuda":
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(tokens, np.int32)))
+            return self._verify_call(span), False
+        host = self._verify_host[span]
+        host.numpy()[...] = tokens
+        buf.copy_(host, non_blocking=True)
+        entry = self.verify_graphs.get(span)
+        captured = entry is None
+        if captured:
+            entry = self._capture(lambda: self._verify_call(span), None)
+            self.verify_graphs[span] = entry
+            self.verify_captures += 1
+        entry.graph.replay()
+        entry.replays += 1
+        self.verify_replays += 1
+        return entry.out, captured
+
+    def _capture(self, call, wrapper) -> _Graph:
+        """Warm ``call`` up on the capture stream and capture it, with
+        ``live`` at zero for both; ``wrapper``'s launch counter (a kernel
+        wrapper, or None) gives the calls the capture recorded."""
         live = self.live.clone()
         self.live.zero_()
         try:
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self._stream):
-                self._call(impl, horizon)
+                call()
             graph = torch.cuda.CUDAGraph()
-            mark = kpa.paged_attention_cuda.launches
+            mark = wrapper.launches if wrapper is not None else 0
             with torch.cuda.graph(graph, pool=self._mem_pool,
                                   stream=self._stream):
-                out = self._call(impl, horizon)
-            calls = kpa.paged_attention_cuda.launches - mark
+                out = call()
+            calls = wrapper.launches - mark if wrapper is not None else 0
         finally:
             torch.cuda.current_stream(self.device).wait_stream(self._stream)
             self.live.copy_(live)
-        entry = _Graph(graph, out, calls)
-        self.graphs[(impl, horizon)] = entry
-        self.captures += 1
-        return entry
+        return _Graph(graph, out, calls)
 
     def pool_bytes(self) -> int:
         """Bytes the caching allocator holds for this engine's graphs (0

@@ -70,18 +70,52 @@ into fresh pages and the prefill resumes where it stopped.  Requests carry
 a priority class: ``interactive`` goes before ``batch`` in the admission
 window and is never preempted by it.
 
-A pinned ``"cuda"`` runs the kernel — or raises; there is no fallback
-ladder.  On a CUDA device the kernels the layout runs are built and
-launched once in the constructor, so no timed step pays for ``nvcc`` or a
-first load, and every decode call replays a CUDA graph captured at the
-first call of its (layout, decode-attention variant, H)
+**Speculative decoding.**  With ``spec_draft`` (a span S >= 2, or
+``"auto"``: the measured ``spec_draft`` axis over ``off`` and
+``spec_choices``, keyed by queue depth x occupancy x the engine's measured
+acceptance level), an n-gram table over the streams the engine has served
+(:class:`~repro_torch.runtime.spec_decode.NGramProposer`) drafts S-1
+tokens a decoding slot, and ONE verify pass scores all S positions and
+commits the longest verified prefix plus one correction: the tokens are
+the greedy stream's, whatever the drafts.  A speculating step replaces the
+decode call; the rejected tail's reserved pages go back to the pool.  A
+contiguous engine and ``decode_horizon=1`` resolve ``spec_draft`` to
+``"off"``.
+
+**Faults and deadlines.**  A seeded
+:class:`~repro_torch.runtime.serve_faults.FaultPlan` injects device errors,
+poisoned logits or fence stalls at the engine's fenced spans (``decode``,
+``fused``, ``spec``, ``prefill``, ``page_alloc``), and the engine recovers
+through a ladder that quarantines the variant before the request: a
+device fault or a stall demotes its rung — ``decode_cuda`` (the decode
+kernel; the axis's ``grouped`` variant runs), ``prefill_cuda`` (``gather``
+runs), ``spec`` (off), ``horizon`` (single steps) — for ``probation_steps``
+clean decode spans, after which the rung is re-promoted; poisoned tokens
+quarantine only their slot (preempted without swap and resumed exactly
+from its committed tokens); a fault with no rung left to blame charges the
+touched requests, and a request at ``max_request_faults`` fails with the
+reason code ``device_fault`` or ``numeric_fault``.  The ladder acts only
+on :class:`~repro_torch.runtime.fault.SimulatedFault` from the plan and on
+the watchdog's :class:`~repro_torch.distributed.straggler.StragglerTimeout`
+(``watchdog``): a real CUDA error propagates, since a context after an
+illegal access cannot be recovered.  ``Request.deadline_s`` sheds a
+request past its deadline (queued or resident, reason ``deadline``) and
+``max_queue_depth`` refuses submissions beyond that depth (``capacity``).
+
+A pinned ``"cuda"`` runs the kernel — or raises; there is no capability
+fallback (a demoted rung runs a registered variant that needs no kernel,
+never a kernel module's plain version on the card).  On a CUDA device the
+kernels the layout runs are built and launched once in the constructor, so
+no timed step pays for ``nvcc`` or a first load, and every decode call and
+every verify call replays a CUDA graph captured at the first call of its
+(layout, decode-attention variant, H) or (layout, S)
 (:mod:`repro_torch.runtime.decode_graphs`, the counterpart of the
 reference's jit cache).  A call that captured is the counterpart of a call
 that compiled: it is counted in ``stats.tainted_steps`` and feeds no axis.
 
-Features of the reference engine outside this port (speculation, faults
-and deadlines, the mesh) raise ``ValueError`` naming the ROADMAP item that
-ports them.
+The one feature of the reference engine outside this port, the mesh
+(``mesh_shape`` other than (1, 1)), raises ``ValueError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -98,12 +132,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (VPE, decode_horizon_bucket, kv_layout_bucket,
                               occupancy_bucket, pad_to_bucket,
                               prefill_chunk_bucket, prefix_len_bucket,
-                              slo_pressure_bucket)
+                              slo_pressure_bucket, spec_accept_bucket)
+from repro_torch.distributed.straggler import StepWatchdog, StragglerTimeout
 from repro_torch.models import kvcache
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.decode_graphs import INPUT_ROWS, DecodeGraphs
 from repro_torch.runtime.page_pool import PagePool
 from repro_torch.runtime.prefix_cache import PrefixCache
+from repro_torch.runtime.serve_faults import FaultPlan, SimulatedFault
+from repro_torch.runtime.spec_decode import NGramProposer
 
 # serve-engine implementation axes (first = default)
 SERVE_AXES: Dict[str, List[str]] = {
@@ -122,11 +159,15 @@ PRIORITY_CLASSES = ("interactive", "batch")
 PRIORITY_RANK: Dict[str, int] = {c: i for i, c in enumerate(PRIORITY_CLASSES)}
 SLO_CLASS_WEIGHT: Dict[str, float] = {"interactive": 1.0, "batch": 0.1}
 
+# terminal failure reason codes (``Request.error``; the message is in
+# ``Request.error_detail``); ``replica_lost`` belongs to the replicas,
+# which are not ported
+FAIL_REASONS = ("intake", "deadline", "capacity", "device_fault",
+                "numeric_fault", "replica_lost")
+
 # reference engine features outside this port -> the ROADMAP item (queue
 # 1, "Modules still to port", label 8) that ports each
 LATER = {
-    "speculation": "8(g) speculation",
-    "faults": "8(h) faults and deadlines",
     "mesh": "8(i) mesh and replicas",
 }
 
@@ -198,8 +239,24 @@ class ServeStats:
     horizon_tokens: int = 0
     reserved_pages_rolled_back: int = 0
     horizon_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
-    # decode calls that captured their CUDA graph (kept out of the VPE)
+    # decode and verify calls kept out of the VPE: those that captured
+    # their CUDA graph, and those whose fence stalled
     tainted_steps: int = 0
+    # speculative decoding: verify calls, drafts offered (the draft
+    # positions a slot's budget could still commit) and accepted, and the
+    # per-slot-call histogram {accepted drafts: occurrences}
+    spec_calls: int = 0
+    draft_tokens: int = 0
+    accepted_tokens: int = 0
+    accept_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # faults survived: injected device faults, poisoned-logit events, fence
+    # stalls (planned, or the watchdog's), ladder demotions by rung and the
+    # re-promotions that ended a clean probation window
+    device_faults: int = 0
+    numeric_faults: int = 0
+    watchdog_trips: int = 0
+    demotions: Dict[str, int] = dataclasses.field(default_factory=dict)
+    repromotions: int = 0
     # page pressure: slots preempted for pages (decode_preemptions counts
     # the decoding ones), host swaps and the pages they moved, and the
     # fenced wall of each swap-out and swap-in
@@ -235,6 +292,9 @@ class ServeStats:
 
     @property
     def failed_requests(self) -> int:
+        """Terminally failed submissions, all reasons.  ``rejected`` is the
+        never-admitted part of them, so ``submitted == len(queue_wait_s) +
+        rejected`` once drained."""
         return sum(self.failed_by_reason.values())
 
     @property
@@ -258,6 +318,12 @@ class ServeStats:
         if self.horizon_calls:
             s += (f", {self.horizon_calls} fused horizons "
                   f"({self.horizon_tokens} tok)")
+        if self.spec_calls:
+            rate = (self.accepted_tokens / self.draft_tokens
+                    if self.draft_tokens else 0.0)
+            s += (f", {self.spec_calls} spec verifies "
+                  f"({self.accepted_tokens}/{self.draft_tokens} drafts, "
+                  f"{rate:.0%} accept)")
         if self.preemptions:
             s += (f", {self.preemptions} preemptions "
                   f"({self.decode_preemptions} decode)")
@@ -268,6 +334,15 @@ class ServeStats:
             by = ", ".join(f"{k}:{v}"
                            for k, v in sorted(self.failed_by_reason.items()))
             s += f", {self.failed_requests} failed ({by})"
+        if self.device_faults or self.numeric_faults or self.watchdog_trips:
+            s += (f", faults survived {self.device_faults} device / "
+                  f"{self.numeric_faults} numeric / "
+                  f"{self.watchdog_trips} stalls")
+        if self.demotions:
+            by = ", ".join(f"{k}:{v}"
+                           for k, v in sorted(self.demotions.items()))
+            s += (f", demotions {by} "
+                  f"({self.repromotions} re-promoted)")
         return s
 
 
@@ -348,6 +423,13 @@ class Request:
     preemptions: int = 0
     swap: Optional[Tuple] = None
     ttft_recorded: bool = False
+    # wall-clock budget from submit: past ``submit_t + deadline_s`` the
+    # request is shed (``deadline``) where the engine next looks at it —
+    # the queue sweep, admission or a step boundary; None = no deadline
+    deadline_s: Optional[float] = None
+    # device and numeric faults charged to this request; at the engine's
+    # ``max_request_faults`` it fails instead of retrying
+    faults: int = 0
 
     def effective_prompt(self) -> np.ndarray:
         """The tokens a (re-)admission must have in KV before decode goes
@@ -420,6 +502,11 @@ class _Slot:
     kernel: str = "gather"
     kernel_bucket: Optional[Tuple] = None
     place_wall: float = 0.0      # the paged placement span of this admission
+    # the selected prefill_kernel name (the samples are recorded under it;
+    # a demoted rung runs gather), and whether a stalled chunk fence
+    # tainted this admission's samples
+    kernel_variant: Optional[str] = None
+    tainted: bool = False
     # prefix_reuse sample, fed when the prefill completes
     reuse_bucket: Optional[Tuple] = None
     reuse_variant: str = "reuse"
@@ -474,8 +561,14 @@ class ContinuousBatchingEngine:
     least ``max_len / block_size + 2``) sizes the pool below its worst
     case, ``swap`` resumes preempted requests from host memory instead of
     recomputing them, and ``slo_weight`` >= 0 weighs the queue-wait term
-    of the horizon and chunk axes.  ``device`` defaults to ``"cuda"`` and
-    must hold ``params``; ``"cpu"`` runs the kernels' plain versions.
+    of the horizon and chunk axes.  ``spec_draft`` is ``"off"``, a verify
+    span >= 2 or ``"auto"`` (over ``spec_choices``, by default
+    ``horizon_choices``).  ``fault_plan`` injects faults, ``watchdog``
+    (True, or a :class:`StepWatchdog`) guards each decode span's fence,
+    ``max_request_faults`` is a request's fault budget, ``probation_steps``
+    the clean decode spans a demoted rung waits out, ``max_queue_depth``
+    the admission bound.  ``device`` defaults to ``"cuda"`` and must hold
+    ``params``; ``"cpu"`` runs the kernels' plain versions.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -491,10 +584,13 @@ class ContinuousBatchingEngine:
                  horizon_choices: Tuple[int, ...] = (4, 16),
                  decode_impl: str = "auto", prefill_kernel: str = "auto",
                  spec_draft: Any = "off",
+                 spec_choices: Optional[Tuple[int, ...]] = None,
                  page_budget: Optional[int] = None, swap: bool = False,
                  slo_weight: float = 0.0,
                  max_skip_by_class: Optional[Dict[str, int]] = None,
-                 fault_plan: Any = None, max_queue_depth: Optional[int] = None,
+                 fault_plan: Optional[FaultPlan] = None, watchdog: Any = None,
+                 max_request_faults: int = 3, probation_steps: int = 16,
+                 max_queue_depth: Optional[int] = None,
                  mesh_shape: Tuple[int, int] = (1, 1),
                  device: DeviceLike = "cuda") -> None:
         if not model_lib.supports_slot_serving(cfg):
@@ -502,10 +598,6 @@ class ContinuousBatchingEngine:
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"got {kv_layout!r}")
-        if spec_draft != "off":
-            raise not_ported(f"spec_draft={spec_draft!r}", "speculation")
-        if fault_plan is not None or max_queue_depth is not None:
-            raise not_ported("fault_plan / max_queue_depth", "faults")
         if tuple(mesh_shape) != (1, 1):
             raise not_ported(f"mesh_shape={tuple(mesh_shape)}", "mesh")
         if isinstance(prefill_chunk, str):
@@ -538,6 +630,21 @@ class ContinuousBatchingEngine:
                                  f"max_skip_by_class: {sorted(bad)}")
         if slo_weight < 0.0:
             raise ValueError("slo_weight must be >= 0")
+        if isinstance(spec_draft, str):
+            if spec_draft not in ("off", "auto"):
+                raise ValueError(
+                    "spec_draft must be a verify span >= 2, 'off' or 'auto'")
+        elif int(spec_draft) < 2:
+            raise ValueError("spec_draft must be >= 2 (a 1-position "
+                             "verify is just a decode step — use 'off')")
+        if spec_choices is not None and any(int(c) < 2 for c in spec_choices):
+            raise ValueError("spec_choices must all be >= 2")
+        if max_request_faults < 1:
+            raise ValueError("max_request_faults must be >= 1")
+        if probation_steps < 1:
+            raise ValueError("probation_steps must be >= 1")
+        if max_queue_depth is not None and max_queue_depth < 1:
+            raise ValueError("max_queue_depth must be >= 1")
         paged_capable = kv_layout in ("paged", "auto")
         if paged_capable and max_len % block_size:
             raise ValueError(f"paged layouts need max_len ({max_len}) divisible "
@@ -581,6 +688,39 @@ class ContinuousBatchingEngine:
         self.horizon_choices = tuple(int(h) for h in horizon_choices)
         self.decode_impl = decode_impl
         self.prefill_kernel = prefill_kernel
+        # speculation needs a block table to write the candidates through,
+        # and is a variant of the multi-token decode call: a contiguous
+        # engine or decode_horizon=1 resolves any span to "off"
+        self.spec_draft = (spec_draft if isinstance(spec_draft, str)
+                           else int(spec_draft))
+        if self.spec_draft != "off" and not (
+                paged_capable and self.decode_horizon != 1):
+            self.spec_draft = "off"
+        self.spec_choices = (tuple(int(c) for c in spec_choices)
+                             if spec_choices is not None
+                             else self.horizon_choices)
+        self.proposer: Optional[NGramProposer] = (
+            NGramProposer() if self.spec_draft != "off" else None)
+        # EMA of the per-call acceptance fraction (None until measured), the
+        # spec axis's acceptance level; fed by the verify calls and, one
+        # plain call in ``_probe_every``, by the counterfactual probe
+        self._accept_ema: Optional[float] = None
+        self._probe_every = 4
+        self._probe_tick = 0
+        self._spec_off_pending: Optional[Tuple[Tuple, str]] = None
+        # faults: the plan (None in production: each hook is one None
+        # check), the fence watchdog, the per-request budget, the probation
+        # window, the admission bound, and the demoted rungs with the clean
+        # decode spans each still owes
+        self.faults = fault_plan
+        if watchdog is True:
+            watchdog = StepWatchdog()
+        self.watchdog: Optional[StepWatchdog] = watchdog or None
+        self.max_request_faults = max_request_faults
+        self.probation_steps = probation_steps
+        self.max_queue_depth = max_queue_depth
+        self._demoted: Dict[str, int] = {}
+        self._deadlines_live = False
         self.stats = ServeStats()
         self.queue: List[Request] = []
         self.completed: List[Request] = []
@@ -629,6 +769,18 @@ class ContinuousBatchingEngine:
             for i, name in enumerate(names):
                 vpe.registry.register_variant(
                     "decode_horizon", name, fn=(lambda name=name: name),
+                    default=(i == 0))
+        if vpe is not None and self.spec_draft == "auto" \
+                and not vpe.registry.has_op("spec_draft"):
+            # "off" (the plain decode call) is the incumbent; the spans of
+            # spec_choices are the candidates, trialed per queue-depth x
+            # occupancy x acceptance-level bucket and fed from the wall a
+            # committed token of the whole span
+            vpe.registry.register_op("spec_draft")
+            names = ["off"] + [str(c) for c in self.spec_choices]
+            for i, name in enumerate(names):
+                vpe.registry.register_variant(
+                    "spec_draft", name, fn=(lambda name=name: name),
                     default=(i == 0))
         if vpe is not None and kv_layout == "auto" \
                 and not vpe.registry.has_op("kv_layout"):
@@ -715,24 +867,67 @@ class ContinuousBatchingEngine:
     # -- request intake ----------------------------------------------------
     def submit(self, req: Request) -> None:
         """Enqueue a request, or terminally fail one the engine can never
-        serve (``status="failed"``, ``error="intake"``) — a bad request
-        must not throw at a caller batching thousands."""
+        serve (``status="failed"``, ``error="intake"``) or that finds the
+        queue at ``max_queue_depth`` (``error="capacity"``: load is shed
+        while it is a host-side entry, before it competes for pages) — a
+        bad request must not throw at a caller batching thousands."""
         req.submit_t = time.perf_counter()
         err = _intake_error(req, self.max_len)
         if err is not None:
             self._fail_request(req, "intake", err)
             return
+        if self.max_queue_depth is not None \
+                and len(self.queue) >= self.max_queue_depth:
+            self._fail_request(
+                req, "capacity",
+                f"queue depth {len(self.queue)} at admission bound "
+                f"{self.max_queue_depth}")
+            return
+        if req.deadline_s is not None:
+            self._deadlines_live = True
         req.status = "queued"
         self.queue.append(req)
 
-    def _fail_request(self, req: Request, reason: str, detail: str) -> None:
+    def _fail_request(self, req: Request, reason: str, detail: str,
+                      slot: Optional[int] = None) -> None:
+        """Terminally fail a request, from intake to mid-flight: the reason
+        code and message recorded, ``done_t`` stamped, completed at once.
+        A never-admitted request records its queue wait and counts in
+        ``rejected``; an admitted one keeps the wait its admission
+        recorded.  ``slot`` first detaches a resident request: its pages
+        released, its prefix pin dropped, its draft context forgotten."""
+        assert reason in FAIL_REASONS, reason
+        if slot is not None:
+            s = self.slots[slot]
+            if s.layout == "paged" and s.pages:
+                self._release_slot_pages(slot)
+            s.req = None
+            s.prefilling = False
+            s.fill_pos = 0
+            s.pos = 0
+            s.chunk_walls = []
+            s.chunk_costs = []
+            s.reuse_bucket = None
+            s.chunk_bucket = None
+            s.kernel_bucket = None
+            s.admit_bucket = None
+            if self.proposer is not None:
+                self.proposer.forget_slot(slot)
+            self._masks_dirty = True
+        if req.cache_handle is not None:
+            self.prefix_cache.release(req.cache_handle)
+            req.cache_handle = None
+        req.swap = None
         req.error = reason
         req.error_detail = detail
         req.status = "failed"
         req.done = True
         req.done_t = time.perf_counter()
-        req.queue_wait_s = req.done_t - req.submit_t
-        self.stats.rejected += 1
+        if req.admit_step < 0:
+            req.queue_wait_s = req.done_t - req.submit_t
+            self.stats.rejected += 1
+        else:
+            req.done_step = self.stats.decode_steps
         self.stats.failed_by_reason[reason] = \
             self.stats.failed_by_reason.get(reason, 0) + 1
         self.completed.append(req)
@@ -787,7 +982,13 @@ class ContinuousBatchingEngine:
         marks a decoding slot's next block (mid-horizon there is no host to
         wait for one).  :class:`_PagePressure` when nothing is left: the
         caller recovers (placement rolls back, growth preempts the
-        grower)."""
+        grower).  A planned ``page_alloc`` fault raises
+        :class:`SimulatedFault` instead, which the same callers roll back
+        and charge to the request."""
+        if self._take_fault("page_alloc") is not None:
+            raise SimulatedFault(
+                f"injected page-pool allocation fault at call "
+                f"#{self.faults.calls['page_alloc'] - 1}")
         pid = self.pages.alloc()
         while pid is None:
             if self.prefix_cache is not None and self.prefix_cache.evict(1):
@@ -888,6 +1089,10 @@ class ContinuousBatchingEngine:
         slot.chunk_bucket = None
         slot.kernel_bucket = None
         slot.admit_bucket = None
+        if self.proposer is not None:
+            # the slot's draft context only: the table is the memory across
+            # requests, and the re-admission seeds the context again
+            self.proposer.forget_slot(j)
         self._requeue(req)
         self._masks_dirty = True
 
@@ -931,6 +1136,139 @@ class ContinuousBatchingEngine:
         req.swap = None
         self.stats.swap_ins += 1
         return filled
+
+    # -- faults: the recovery ladder ------------------------------------------
+    # A faulted span quarantines the VARIANT before the request: each rung
+    # names a dispatch decision with a safe bottom — decode_cuda (the
+    # decode kernel -> grouped), prefill_cuda (the prefill kernel ->
+    # gather), spec (-> off), horizon (-> single steps).  A demotion pins
+    # the safe variant through the resolvers for ``probation_steps`` clean
+    # decode spans, then lifts; the VPE's state is never touched.
+
+    def _take_fault(self, site: str):
+        """The injection hook: the plan's fault for this call of ``site``,
+        or None (always None without a plan)."""
+        return self.faults.take(site) if self.faults is not None else None
+
+    def _rung_demoted(self, rung: str) -> bool:
+        return rung in self._demoted
+
+    def _demote(self, rung: str) -> None:
+        """Quarantine a rung for a fresh probation window (a repeated fault
+        refreshes the window without counting a second demotion).  A
+        demoted prefill kernel also re-resolves the slots mid-prefill:
+        their next chunk must not run it again."""
+        if rung not in self._demoted:
+            self.stats.demotions[rung] = self.stats.demotions.get(rung, 0) + 1
+        self._demoted[rung] = self.probation_steps
+        if rung == "prefill_cuda":
+            for s in self.slots:
+                if s.prefilling and s.kernel in kvcache.PAGED_KERNEL_IMPLS:
+                    s.kernel = "gather"
+                    s.kernel_bucket = None      # walls of two backends: drop
+
+    def _tick_probation(self) -> None:
+        """One clean decode span (no fault taken, no trip): every demoted
+        rung's window counts down, and at zero the rung is re-promoted."""
+        for rung in list(self._demoted):
+            self._demoted[rung] -= 1
+            if self._demoted[rung] <= 0:
+                del self._demoted[rung]
+                self.stats.repromotions += 1
+
+    def _charge_fault(self, req: Request) -> bool:
+        """Charge one fault to the request; True when its budget is spent
+        and it must fail."""
+        req.faults += 1
+        return req.faults >= self.max_request_faults
+
+    def _numeric_fault(self, i: int, detail: str) -> None:
+        """Quarantine slot ``i`` after poisoned logits: whatever the span
+        wrote into its KV is untrusted, so it is preempted WITHOUT swap
+        (swap would keep the poison) and resumes by recomputing from its
+        committed tokens, or fails when its fault budget is spent.  Decode
+        writes land only in the slot's private tail pages, so releasing
+        them drops every tainted byte."""
+        slot = self.slots[i]
+        self.stats.numeric_faults += 1
+        if self._charge_fault(slot.req):
+            self._fail_request(slot.req, "numeric_fault", detail, slot=i)
+            return
+        swap_save, self.swap = self.swap, False
+        try:
+            self._preempt_slot(i)
+        finally:
+            self.swap = swap_save
+
+    def _span_device_fault(self, rung: Optional[str], touched: List[int],
+                           detail: str) -> None:
+        """Recover from a device fault at a decode span, taken before the
+        launch: engine state is intact and the touched slots retry next
+        step.  The variant takes the blame first (``rung`` is demoted);
+        with no rung left to blame (none given, or already demoted) each
+        touched request is charged and fails when its budget is spent.
+        Reserved pages the span did not write go back either way."""
+        self.stats.device_faults += 1
+        variant_blamed = rung is not None and not self._rung_demoted(rung)
+        if rung is not None:
+            self._demote(rung)
+        for i in touched:
+            slot = self.slots[i]
+            if slot.req is None or slot.prefilling:
+                continue
+            if not variant_blamed and self._charge_fault(slot.req):
+                self._fail_request(slot.req, "device_fault", detail, slot=i)
+            elif slot.layout == "paged":
+                self._rollback_reserved(i)
+
+    def _guarded_fence(self, value: torch.Tensor, fault
+                       ) -> Tuple[np.ndarray, bool]:
+        """Fence a decode span's device output through the watchdog when one
+        is armed; returns (the value on the host, tripped).  A trip — a
+        planned ``stall`` or a real fence past the watchdog's budget —
+        keeps the span (its value arrived, late): the caller commits it and
+        demotes the variant that stalled.  The watchdog raises after its
+        fence has drained, so the copy after it does not wait again."""
+        if fault is not None and fault.kind == "stall":
+            # planned stall: a trip without sleeping through one
+            if self.watchdog is not None:
+                self.watchdog.trips += 1
+            self.stats.watchdog_trips += 1
+            return value.cpu().numpy(), True
+        if self.watchdog is not None:
+            try:
+                return self.watchdog.guard(value).cpu().numpy(), False
+            except StragglerTimeout:
+                self.stats.watchdog_trips += 1
+                return value.cpu().numpy(), True
+        return value.cpu().numpy(), False
+
+    def _deadline_expired(self, req: Request, now: float) -> bool:
+        return (req.deadline_s is not None
+                and now - req.submit_t > req.deadline_s)
+
+    def _shed_expired(self) -> None:
+        """The deadline sweep at the top of :meth:`step` (armed once a
+        request with a deadline was submitted): expired queued requests
+        are shed on the host, expired resident ones stop decoding."""
+        if not self._deadlines_live:
+            return
+        now = time.perf_counter()
+        expired = [r for r in self.queue if self._deadline_expired(r, now)]
+        if expired:
+            self.queue = [r for r in self.queue
+                          if not self._deadline_expired(r, now)]
+            for r in expired:
+                self._fail_request(
+                    r, "deadline",
+                    f"expired in queue after {now - r.submit_t:.3f}s "
+                    f"(deadline {r.deadline_s:.3f}s)")
+        for i, s in enumerate(self.slots):
+            if s.req is not None and self._deadline_expired(s.req, now):
+                self._fail_request(
+                    s.req, "deadline",
+                    f"expired after {now - s.req.submit_t:.3f}s resident "
+                    f"(deadline {s.req.deadline_s:.3f}s)", slot=i)
 
     # -- admission ---------------------------------------------------------
     def _pop_next(self) -> Request:
@@ -978,11 +1316,20 @@ class ContinuousBatchingEngine:
                 return
             slot = self.slots[i]
             req = self._pop_next()
+            now = time.perf_counter()
+            if self._deadline_expired(req, now):
+                # expired while queued: shed at the admission edge, before
+                # placement and prefill are spent on it
+                self._fail_request(
+                    req, "deadline",
+                    f"expired in queue after {now - req.submit_t:.3f}s "
+                    f"(deadline {req.deadline_s:.3f}s)")
+                continue
             if req.admit_step < 0:
                 # first admission only: a preempted or rolled-back request
                 # keeps its record
                 req.admit_step = self.stats.decode_steps
-                req.queue_wait_s = time.perf_counter() - req.submit_t
+                req.queue_wait_s = now - req.submit_t
                 self.stats.queue_wait_s.append(req.queue_wait_s)
             req.status = "running"
             # a preempted request resumes by prefilling its prompt and the
@@ -1023,6 +1370,7 @@ class ContinuousBatchingEngine:
             slot.req = req
             slot.layout = layout
             slot.admit_bucket = lbucket
+            slot.tainted = False
             if layout == "paged":
                 # placement only; the prompt runs as chunks between decode
                 # steps (:meth:`_run_prefill_chunks`).  When the whole
@@ -1034,6 +1382,16 @@ class ContinuousBatchingEngine:
                                       use_matched if variant == "reuse" else 0,
                                       rbucket, variant, occ)
                 except _PagePressure:
+                    self._unadmit(i, req)
+                    return
+                except SimulatedFault as e:
+                    # an injected allocation fault: the placement already
+                    # rolled its references back, so the pool is clean;
+                    # charge the request, then retry it later or fail it
+                    self.stats.device_faults += 1
+                    if self._charge_fault(req):
+                        self._fail_request(req, "device_fault", str(e), slot=i)
+                        continue
                     self._unadmit(i, req)
                     return
                 continue
@@ -1226,7 +1584,9 @@ class ContinuousBatchingEngine:
                 P = 0
                 pages = self._suffix_page_ids(0, S, None, acquired,
                                               exclude=i, rank=rank)
-        except _PagePressure:
+        except (_PagePressure, SimulatedFault):
+            # the same all-or-nothing rollback for pressure and for an
+            # injected allocation fault: a failed placement leaks no page
             for pid in aliased + acquired:
                 self.pages.unref(pid)
             self.stats.placement_rollbacks += 1
@@ -1252,7 +1612,8 @@ class ContinuousBatchingEngine:
         slot.chunk_costs = []
         slot.chunk, slot.chunk_bucket, slot.chunk_variant = \
             self._select_chunk(S, occ)
-        slot.kernel, slot.kernel_bucket = self._select_prefill_kernel(S, occ)
+        slot.kernel, slot.kernel_bucket, slot.kernel_variant = \
+            self._select_prefill_kernel(S, occ)
         self._masks_dirty = True
 
     def _select_chunk(self, S: int, occ: int):
@@ -1270,19 +1631,29 @@ class ContinuousBatchingEngine:
             return 0, None, None
         return self.prefill_chunk, None, None
 
+    def _resolve_kernel(self, name: str) -> str:
+        """The chunk-attention backend that runs: ``gather`` while the
+        ``prefill_cuda`` rung is demoted."""
+        if name in kvcache.PAGED_KERNEL_IMPLS \
+                and self._rung_demoted("prefill_cuda"):
+            return "gather"
+        return name
+
     def _select_prefill_kernel(self, S: int, occ: int):
-        """This admission's chunk-attention backend and, in auto mode with
-        a VPE, its ``prefill_kernel`` bucket (else None): the
-        ``prefill_chunk`` axis's key, fed from the same chunk costs."""
+        """This admission's chunk-attention backend (resolved) and, in auto
+        mode with a VPE, its ``prefill_kernel`` bucket and selected name
+        (else None, None): the ``prefill_chunk`` axis's key, fed from the
+        same chunk costs."""
         if self.prefill_kernel != "auto":
-            return self.prefill_kernel, None
+            return self._resolve_kernel(self.prefill_kernel), None, None
         if self.vpe is None:
-            return SERVE_AXES["prefill_kernel"][0], None
+            return SERVE_AXES["prefill_kernel"][0], None, None
         bucket = prefill_chunk_bucket(S, occ, self.num_slots,
                                       levels=self.occupancy_levels)
         if self.slo_weight > 0:
             bucket = bucket + self._slo_bucket()
-        return self.vpe.controller.select("prefill_kernel", bucket), bucket
+        name = self.vpe.controller.select("prefill_kernel", bucket)
+        return self._resolve_kernel(name), bucket, name
 
     # -- chunked prefill ---------------------------------------------------
     def _effective_chunk_budget(self) -> int:
@@ -1318,7 +1689,24 @@ class ContinuousBatchingEngine:
         partial match; after a swap resume: the swapped-out fill); the
         final chunk yields the next token."""
         slot = self.slots[i]
-        prompt = slot.req.effective_prompt()
+        req = slot.req
+        fault = self._take_fault("prefill")
+        if fault is not None and fault.kind == "device":
+            # the chunk call raised before its launch: nothing computed,
+            # fill_pos unmoved.  The kernel backend takes the blame when it
+            # ran (the demotion re-resolves this slot's next chunk);
+            # otherwise the request is charged
+            self.stats.device_faults += 1
+            if slot.kernel in kvcache.PAGED_KERNEL_IMPLS:
+                self._demote("prefill_cuda")
+            elif self._charge_fault(req):
+                self._fail_request(
+                    req, "device_fault",
+                    "injected device fault in prefill chunk", slot=i)
+            else:
+                self._preempt_slot(i)
+            return
+        prompt = req.effective_prompt()
         S = len(prompt)
         base = slot.fill_pos
         chunk = slot.chunk
@@ -1343,6 +1731,18 @@ class ContinuousBatchingEngine:
             dt * (1.0 + self.slo_weight * self._queue_pressure()))
         self.stats.prefill_s += dt
         self.stats.prefill_chunks += 1
+        if fault is not None:
+            if fault.kind == "nan":
+                # poisoned chunk logits: the K/V the chunk wrote is
+                # untrusted too — quarantine the slot before fill_pos
+                # counts the poisoned positions
+                self._numeric_fault(i, "injected NaN logits in prefill chunk")
+                return
+            # stall: the chunk arrived late — keep it, count the trip
+            if self.watchdog is not None:
+                self.watchdog.trips += 1
+            self.stats.watchdog_trips += 1
+            slot.tainted = True
         slot.fill_pos = base + clen
         if slot.fill_pos >= S:
             self._finish_prefill(i, logits)
@@ -1360,7 +1760,7 @@ class ContinuousBatchingEngine:
         # a resumed residency prefilled its prompt and its earlier output
         self.cache["length"][i] = len(req.prompt) + len(req.out)
         slot.admit_wall = slot.place_wall + sum(slot.chunk_walls)
-        if self.vpe is not None:
+        if self.vpe is not None and not slot.tainted:
             if slot.reuse_bucket is not None:
                 self.vpe.profiler.record("prefix_reuse", slot.reuse_variant,
                                          slot.reuse_bucket, slot.admit_wall)
@@ -1376,11 +1776,12 @@ class ContinuousBatchingEngine:
                                               slot.chunk_bucket,
                                               slot.chunk_variant)
             if slot.kernel_bucket is not None:
-                self.vpe.profiler.record("prefill_kernel", slot.kernel,
+                self.vpe.profiler.record("prefill_kernel", slot.kernel_variant,
                                          slot.kernel_bucket,
                                          sum(slot.chunk_costs))
                 self.vpe.controller.on_sample("prefill_kernel",
-                                              slot.kernel_bucket, slot.kernel)
+                                              slot.kernel_bucket,
+                                              slot.kernel_variant)
         slot.reuse_bucket = None
         slot.chunk_bucket = None
         slot.kernel_bucket = None
@@ -1433,6 +1834,13 @@ class ContinuousBatchingEngine:
         # positions in KV before this emission: prompt + earlier output
         eff_len = len(req.prompt) + len(req.out)
         req.out.append(first)
+        if self.proposer is not None:
+            # seed the slot's draft context from the prompt and what an
+            # earlier residency emitted, then commit the first token: the
+            # table learns the prompt before the first decode call
+            self.proposer.observe_prompt(
+                i, [int(t) for t in req.prompt] + req.out[:-1])
+            self.proposer.observe(i, [first])
         self.stats.tokens_out += 1
         self.stats.prefill_tokens += 1
         slot.prefilling = False
@@ -1459,7 +1867,8 @@ class ContinuousBatchingEngine:
                 # unpin: the matched and inserted blocks become evictable
                 self.prefix_cache.release(req.cache_handle)
                 req.cache_handle = None
-            if slot.admit_bucket is not None and self.vpe is not None:
+            if slot.admit_bucket is not None and self.vpe is not None \
+                    and not slot.tainted:
                 # the kv_layout sample: admission wall + this request's
                 # decode share from the calls that did not capture,
                 # extrapolated over all its steps; a residency whose every
@@ -1481,6 +1890,8 @@ class ContinuousBatchingEngine:
             slot.admit_bucket = None
             self.completed.append(req)
             slot.req = None   # freed mid-decode; refilled next admission
+            if self.proposer is not None:
+                self.proposer.forget_slot(i)
             self._masks_dirty = True
 
     # -- decode -------------------------------------------------------------
@@ -1515,6 +1926,15 @@ class ContinuousBatchingEngine:
             except _PagePressure:
                 # pages it took in this loop go back with the rest
                 self._preempt_slot(i)
+            except SimulatedFault as e:
+                # an injected allocation fault mid-growth: nothing was
+                # computed, so the request resumes by preemption or, its
+                # budget spent, fails; its pages go back either way
+                self.stats.device_faults += 1
+                if self._charge_fault(slot.req):
+                    self._fail_request(slot.req, "device_fault", str(e), slot=i)
+                else:
+                    self._preempt_slot(i)
         splices = [(i, col, pid) for (i, col, pid) in splices
                    if self.slots[i].req is not None
                    and col < len(self.slots[i].pages)
@@ -1550,8 +1970,10 @@ class ContinuousBatchingEngine:
 
     def _resolve_impl(self, name: str) -> str:
         """The decode variant that runs: the kernel variant is grouped on
-        an engine without pages (the contiguous layout's rung)."""
-        if name in kvcache.PAGED_KERNEL_IMPLS and self.pages is None:
+        an engine without pages (the contiguous layout's rung) and while
+        the ``decode_cuda`` rung is demoted."""
+        if name in kvcache.PAGED_KERNEL_IMPLS and (
+                self.pages is None or self._rung_demoted("decode_cuda")):
             return "grouped"
         return name
 
@@ -1570,7 +1992,10 @@ class ContinuousBatchingEngine:
         """This step's decode horizon and, on the measured axis, its VPE
         bucket and variant name.  The bucket is keyed by the queue depth
         left after this step's admissions — the requests a fused horizon
-        would delay — × occupancy."""
+        would delay — × occupancy.  While the ``horizon`` rung is demoted
+        every step is a single step, a pinned horizon's too."""
+        if self._rung_demoted("horizon"):
+            return 1, None, None
         if self.decode_horizon != "auto":
             return int(self.decode_horizon), None, None
         if self.vpe is None:
@@ -1587,14 +2012,20 @@ class ContinuousBatchingEngine:
 
     def _decode(self, H: int, hbucket, hname,
                 remaining: Dict[int, int], t_h: float) -> None:
-        """One decode call of H steps (H = 1 is a single step): reserve
-        every page the call can write (one block-table scatter), run the H
-        steps on the device, fence once on the (slots, H) token block,
-        commit each slot's valid tokens, roll its unused reserved pages
-        back and retire it if it stopped.  Growth may preempt decoding
-        slots (the grower itself included): they leave ``remaining``, and
-        the masks are refreshed, before the budget row is written and the
-        graph replays, so a victim replays with live 0 and budget 0."""
+        """One decode call of H steps (H = 1 is a single step, fault site
+        ``decode``; H > 1 a fused horizon, site ``fused``): reserve every
+        page the call can write (one block-table scatter), run the H steps
+        on the device, fence once on the (slots, H) token block, commit
+        each slot's valid tokens, roll its unused reserved pages back and
+        retire it if it stopped.  Growth may preempt decoding slots (the
+        grower itself included): they leave ``remaining``, and the masks
+        are refreshed, before the budget row is written and the graph
+        replays, so a victim replays with live 0 and budget 0.  A planned
+        device fault skips the launch (a fused call's blames ``horizon``,
+        a single step's the kernel variant when it would have run it); a
+        poisoned slot commits nothing and is quarantined."""
+        fused = H > 1
+        fault = self._take_fault("fused" if fused else "decode")
         if self.pages is not None:
             self._grow_block_tables(span=H, remaining=remaining)
             remaining = {i: r for i, r in remaining.items()
@@ -1603,66 +2034,281 @@ class ContinuousBatchingEngine:
             if not remaining:
                 return
         self._refresh_device_masks()
+        if fused and fault is not None and fault.kind == "device":
+            self._span_device_fault(
+                "horizon", list(remaining),
+                "injected device fault in fused horizon call")
+            return
+        bucket = occupancy_bucket(len(remaining), self.num_slots,
+                                  levels=self.occupancy_levels)
+        name = self._select_decode_impl(bucket)
+        impl = self._resolve_impl(name)
+        if not fused and fault is not None and fault.kind == "device":
+            # the kernel variant takes the blame only when it would have
+            # run: grouped has no rung below it
+            rung = "decode_cuda" if impl in kvcache.PAGED_KERNEL_IMPLS else None
+            self._span_device_fault(rung, list(remaining),
+                                    "injected device fault in decode step")
+            return
         budget = np.zeros((self.num_slots,), np.int32)
         for i, rem in remaining.items():
             budget[i] = rem
         self.graphs.budget.copy_(torch.from_numpy(budget))
-        bucket = occupancy_bucket(len(remaining), self.num_slots,
-                                  levels=self.occupancy_levels)
-        name = self._select_decode_impl(bucket)
         t0 = time.perf_counter()
         # greedy argmax on the device; only the (slots, H) token block and
         # valid mask cross to the host, and that copy is the call's fence
-        toks, emits, captured = self.graphs.run(self._resolve_impl(name), H)
+        out, captured = self.graphs.launch(impl, H)
+        host, tripped = self._guarded_fence(out, fault)
+        toks, emits = host[0], host[1]
         dt = time.perf_counter() - t0
         self.stats.decode_s += dt
         self.stats.decode_steps += H
         self.stats.horizon_hist[H] = self.stats.horizon_hist.get(H, 0) + 1
-        self.stats.tainted_steps += captured
+        if tripped:
+            # the fence stalled: its tokens arrived and are committed, and
+            # the variant that hung is demoted (a grouped single step has
+            # nothing below it)
+            if fused:
+                self._demote("horizon")
+            elif impl in kvcache.PAGED_KERNEL_IMPLS:
+                self._demote("decode_cuda")
+        if fault is not None and fault.kind == "nan":
+            # poisoned logits: an out-of-vocab sentinel on the planned
+            # slot's rows (all rows without one); the validation below
+            # quarantines what a real NaN would hit
+            toks = toks.copy()
+            if fused:
+                rows = ([fault.slot] if fault.slot is not None
+                        and fault.slot in remaining else list(remaining))
+                toks[rows, :] = -1
+            elif fault.slot is not None:
+                toks[fault.slot, :] = -1
+            else:
+                toks[:, :] = -1
+        tainted = captured or tripped
+        self.stats.tainted_steps += tainted
         valid_total = int(emits.sum())
-        if H > 1:
+        if fused:
             self.stats.horizon_calls += 1
             self.stats.horizon_tokens += valid_total
-        if self.vpe is not None and not captured:
+        if self.vpe is not None and not tainted:
             # the decode-attention axis keeps per-STEP units
             self.vpe.profiler.record(self._axis, name, bucket, dt / H)
             self.vpe.controller.on_sample(self._axis, bucket, name)
         share = dt / max(valid_total, 1)
+        vocab = self.cfg.vocab_size
+        quarantine: List[int] = []
+        probe_off = probe_acc = 0
+        self._probe_tick += 1
+        probing = (self.spec_draft == "auto"
+                   and self._probe_tick % self._probe_every == 0)
         for i in remaining:
             slot = self.slots[i]
             # a slot stops at most once, so its valid tokens are a prefix
             e = int(emits[i].sum())
             new_toks = [int(t) for t in toks[i, :e]]
+            if any(t < 0 or t >= vocab for t in new_toks):
+                # garbage logits for this slot: nothing of the call is
+                # committed, and it is quarantined after the loop
+                quarantine.append(i)
+                continue
             slot.req.out.extend(new_toks)
+            if self.proposer is not None:
+                if probing and new_toks:
+                    # the counterfactual probe reads the context before
+                    # observe() moves it
+                    probe_acc += self._probe_accept(i, new_toks)
+                    probe_off += len(new_toks)
+                self.proposer.observe(i, new_toks)
             slot.tok = new_toks[-1]
             slot.pos += e
             slot.steps_resident += e
-            if not captured:
+            if not tainted:
                 slot.clean_step_shares.extend([share] * e)
             self.stats.tokens_out += e
             if slot.layout == "paged":
                 self._rollback_reserved(i)
             self._retire_if_done(i)
-        if self.vpe is not None and hbucket is not None and not captured \
-                and valid_total:
+        for i in quarantine:
+            self._numeric_fault(
+                i, "out-of-range token from "
+                + ("fused horizon call" if fused else "decode step"))
+        self._update_accept_ema(probe_off, probe_acc)
+        if fault is None and not tripped:
+            self._tick_probation()
+        if self.vpe is not None and not tainted and valid_total:
             # per-TOKEN wall of the whole span (reservation, call, fence,
             # commit — the host work a horizon amortizes); frozen steps
             # emit nothing, so an over-long horizon pays for itself here.
             # The SLO charge makes the same wall cost more while queued
-            # (above all interactive) requests wait it out.
+            # (above all interactive) requests wait it out.  With the spec
+            # axis live and "off" selected, this plain call is its off
+            # variant, fed in the verify path's units.
             charge = 1.0 + self.slo_weight * self._queue_pressure()
-            self.vpe.profiler.record("decode_horizon", hname, hbucket,
-                                     (time.perf_counter() - t_h) / valid_total
-                                     * charge)
-            self.vpe.controller.on_sample("decode_horizon", hbucket, hname)
+            per_tok = (time.perf_counter() - t_h) / valid_total * charge
+            if hbucket is not None:
+                self.vpe.profiler.record("decode_horizon", hname, hbucket,
+                                         per_tok)
+                self.vpe.controller.on_sample("decode_horizon", hbucket, hname)
+            if self._spec_off_pending is not None:
+                sb, sn = self._spec_off_pending
+                self.vpe.profiler.record("spec_draft", sn, sb, per_tok)
+                self.vpe.controller.on_sample("spec_draft", sb, sn)
+
+    # -- speculative decoding ------------------------------------------------
+    def _select_spec(self, n_active: int
+                     ) -> Tuple[int, Optional[Tuple], Optional[str]]:
+        """This step's verify span (0 = off) and, on the measured axis, its
+        VPE bucket and variant name.  Runs before the horizon is chosen: a
+        step that speculates replaces the decode call, so the horizon axis
+        sees no sample for it.  The bucket is the horizon axis's queue
+        depth x occupancy and the engine's measured acceptance level."""
+        if self._rung_demoted("spec") or self.spec_draft == "off":
+            return 0, None, None
+        if self.spec_draft != "auto":
+            return int(self.spec_draft), None, None
+        if self.vpe is None:
+            return 0, None, None
+        bucket = spec_accept_bucket(len(self.queue), n_active, self.num_slots,
+                                    self._accept_ema,
+                                    levels=self.occupancy_levels)
+        if self.slo_weight > 0:
+            bucket = bucket + self._slo_bucket()
+        name = self.vpe.controller.select("spec_draft", bucket)
+        return (0 if name == "off" else int(name)), bucket, name
+
+    def _update_accept_ema(self, offered: int, accepted: int) -> None:
+        # acceptance is a property of the traffic, not a timing: a capture
+        # or a stall does not spoil it, so the EMA always moves
+        if not offered:
+            return
+        frac = accepted / offered
+        self._accept_ema = (frac if self._accept_ema is None
+                            else 0.8 * self._accept_ema + 0.2 * frac)
+
+    def _probe_accept(self, i: int, new_toks: List[int]) -> int:
+        """How many of a plain call's committed tokens the proposer WOULD
+        have drafted (the longest matching prefix, the verify's rule) —
+        the acceptance signal stays live while the axis has selected
+        ``off``, at no device cost and with no effect on the output."""
+        drafts = self.proposer.draft(i, len(new_toks))
+        e = 0
+        while e < len(new_toks) and drafts[e] == new_toks[e]:
+            e += 1
+        return e
+
+    def _spec_decode(self, S: int, sbucket, sname,
+                     remaining: Dict[int, int], t_h: float) -> None:
+        """One speculative verify call: reserve pages for the whole
+        S-position span, draft S-1 tokens a decoding slot from the n-gram
+        table, run the one-pass verify (a graph replay on the card), fence
+        once, commit each slot's verified prefix, roll the rejected tail's
+        pages back and retire stopped slots — :meth:`_decode`'s structure
+        with the drafts as input and the acceptance counted."""
+        fault = self._take_fault("spec")
+        self._grow_block_tables(span=S, remaining=remaining)
+        remaining = {i: r for i, r in remaining.items()
+                     if self.slots[i].req is not None
+                     and not self.slots[i].prefilling}
+        if not remaining:
+            return
+        self._refresh_device_masks()
+        if fault is not None and fault.kind == "device":
+            self._span_device_fault(
+                "spec", list(remaining),
+                "injected device fault in speculative verify call")
+            return
+        # column 0 is each slot's last committed token (its score is the
+        # token a plain step would emit), columns 1.. the drafts; a miss
+        # pads with a wrong token, so speculation measures as a loss where
+        # the table has nothing
+        tokens = np.zeros((self.num_slots, S), np.int32)
+        for i, slot in enumerate(self.slots):
+            if slot.req is not None:
+                tokens[i, 0] = slot.tok
+            if i in remaining:
+                tokens[i, 1:] = self.proposer.draft(i, S - 1)
+        budget = np.zeros((self.num_slots,), np.int32)
+        for i, rem in remaining.items():
+            budget[i] = rem
+        self.graphs.budget.copy_(torch.from_numpy(budget))
+        t0 = time.perf_counter()
+        out, captured = self.graphs.verify(tokens)
+        host, tripped = self._guarded_fence(out, fault)
+        toks, emits = host[0], host[1]
+        dt = time.perf_counter() - t0
+        self.stats.decode_s += dt
+        self.stats.decode_steps += 1
+        self.stats.spec_calls += 1
+        if tripped:
+            self._demote("spec")
+        if fault is not None and fault.kind == "nan":
+            toks = toks.copy()
+            rows = ([fault.slot] if fault.slot is not None
+                    and fault.slot in remaining else list(remaining))
+            toks[rows, :] = -1
+        tainted = captured or tripped
+        self.stats.tainted_steps += tainted
+        valid_total = int(emits.sum())
+        share = dt / max(valid_total, 1)
+        vocab = self.cfg.vocab_size
+        quarantine: List[int] = []
+        offered_total = accepted_total = 0
+        for i in remaining:
+            slot = self.slots[i]
+            # the committed tokens are a prefix of the span
+            e = int(emits[i].sum())
+            new_toks = [int(t) for t in toks[i, :e]]
+            if any(t < 0 or t >= vocab for t in new_toks):
+                quarantine.append(i)
+                continue
+            # the drafts this slot's budget could still commit (k drafts
+            # need k + 1 <= budget), and those that landed
+            offered = min(S - 1, max(remaining[i] - 1, 0))
+            acc = max(e - 1, 0)
+            offered_total += offered
+            accepted_total += acc
+            self.stats.draft_tokens += offered
+            self.stats.accepted_tokens += acc
+            self.stats.accept_hist[acc] = self.stats.accept_hist.get(acc, 0) + 1
+            slot.req.out.extend(new_toks)
+            self.proposer.observe(i, new_toks)
+            slot.tok = new_toks[-1]
+            slot.pos += e
+            slot.steps_resident += e
+            if not tainted:
+                slot.clean_step_shares.extend([share] * e)
+            self.stats.tokens_out += e
+            if slot.layout == "paged":
+                self._rollback_reserved(i)
+            self._retire_if_done(i)
+        for i in quarantine:
+            self._numeric_fault(
+                i, "out-of-range token from speculative verify call")
+        self._update_accept_ema(offered_total, accepted_total)
+        if fault is None and not tripped:
+            self._tick_probation()
+        if self.vpe is not None and sbucket is not None and not tainted \
+                and valid_total:
+            # per-COMMITTED-token wall of the whole span (drafting,
+            # reservation, call, fence, commit): drafts that miss commit
+            # ~1 token a call and price the span out
+            charge = 1.0 + self.slo_weight * self._queue_pressure()
+            self.vpe.profiler.record("spec_draft", sname, sbucket,
+                                     (time.perf_counter() - t_h)
+                                     / valid_total * charge)
+            self.vpe.controller.on_sample("spec_draft", sbucket, sname)
 
     def step(self) -> bool:
         """One engine iteration; returns False when fully idle.
 
-        Admission and at most ``chunks_per_step`` prefill chunks run
-        first, then ONE decode call advances the decoding slots — the wall
-        between two decode calls is bounded by the chunk budget
-        (``stats.decode_stall_s``) and the horizon."""
+        The deadline sweep, then admission and at most ``chunks_per_step``
+        prefill chunks, then ONE decode call — a speculative verify when
+        the spec axis or pin says so, else a decode call of H steps —
+        advances the decoding slots: the wall between two decode calls is
+        bounded by the chunk budget (``stats.decode_stall_s``) and the
+        horizon."""
+        self._shed_expired()
         had_decoders = self.num_decoding > 0
         admits_before = len(self.stats.queue_wait_s)
         t_p = time.perf_counter()
@@ -1674,18 +2320,31 @@ class ContinuousBatchingEngine:
             return prefill_work
         if had_decoders and prefill_work:
             self.stats.decode_stall_s.append(time.perf_counter() - t_p)
-        # the horizon axis's timed span starts here: it holds the host work
-        # a fused horizon amortizes, not only the fenced device wall
+        # the horizon and spec axes' timed span starts here: it holds the
+        # host work a fused call amortizes, not only the fenced device wall
         t_h = time.perf_counter()
-        H, hbucket, hname = self._select_horizon(n_active)
         # tokens each decoding slot may still emit: the call's budget, and
-        # the horizon's clamp onto the DECLARED set ({1, H} pinned, {1} +
-        # horizon_choices auto) — an arbitrary clamped length would capture
-        # a new graph mid-serve
+        # the clamp of its span onto the DECLARED set — an arbitrary
+        # clamped length would capture a new graph mid-serve
         remaining = {i: s.req.max_new_tokens - len(s.req.out)
                      for i, s in enumerate(self.slots)
                      if s.req is not None and not s.prefilling}
         cap = pad_to_bucket(max(remaining.values()), minimum=1)
+        self._spec_off_pending = None
+        S, sbucket, sname = self._select_spec(n_active)
+        if S > 1:
+            choices = (self.spec_choices if self.spec_draft == "auto"
+                       else (int(self.spec_draft),))
+            fit = [c for c in choices if c <= S and c <= cap]
+            S = max(fit) if fit else 0
+        if S > 1:
+            self._spec_decode(S, sbucket, sname, remaining, t_h)
+            return True
+        if sbucket is not None:
+            # the axis chose "off" (or the span clamped out): the plain
+            # call below is its off variant
+            self._spec_off_pending = (sbucket, sname)
+        H, hbucket, hname = self._select_horizon(n_active)
         allowed = [1] + [c for c in
                          (self.horizon_choices
                           if self.decode_horizon == "auto" else (H,))

@@ -5,7 +5,8 @@ fused horizons against single steps, the prefix cache warm against cold on
 each KV layout, the contiguous and ``auto`` decode graphs, the flash kernel
 in contiguous admissions, a training step with the flash kernel, and the
 paper's six algorithms under the VPE with the matmul and conv2d kernels,
-and, under a page budget, preemption and swap between graph replays.
+under a page budget, preemption and swap between graph replays, and the
+speculative verify graphs and a demoted decode-kernel rung.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
 entry points default to the card.  This file imports no JAX, so it runs on
@@ -463,6 +464,112 @@ def test_cuda_engine_fused_horizon_equals_single_step(cuda_device):
             == 2 * sum(st.horizon_hist) * cfg.num_layers
     assert out[16] == out[1]
     assert set(eng.stats.horizon_hist) == {1, 16}
+
+
+def _verify_tokens(cfg, S, seed, first):
+    """(3, S) verify inputs: each slot's last token, then random drafts."""
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (3, S))
+    toks[:, 0] = first
+    return toks.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [4, 16])
+def test_cuda_verify_graph_replay_equals_eager(cuda_device, S):
+    """Reduced qwen3-8b in f32: two calls of a captured verify graph, each
+    with new drafts written in place into its token buffer, give the token
+    blocks, valid masks, final tokens and lengths of the eager
+    ``spec_verify_paged`` on a copy of the state, and the pool within 1e-5;
+    one capture, two replays, no buffer moved."""
+    from repro_torch.runtime.decode_graphs import DecodeGraphs
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    pool, cache, inputs = _decode_state(cfg, cuda_device, seed=S)
+    inputs[4] = torch.tensor([S, 2, 0], dtype=torch.int32)
+    e_pool, e_cache, e_inputs = _clone(pool), _clone(cache), inputs.clone()
+    graphs = DecodeGraphs(cfg, params, "paged", cache, inputs, pool=pool)
+    before = [t.data_ptr() for t in (inputs, cache["bt"], cache["length"],
+                                     pool["k"], pool["v"])]
+    for call in range(2):
+        toks = _verify_tokens(cfg, S, call, inputs[0].cpu().numpy())
+        out, captured = graphs.verify(toks)
+        out = out.cpu().numpy()
+        assert captured == (call == 0)
+        _, _, e_g, e_valid, e_final = tmodel.spec_verify_paged(
+            cfg, params, e_pool, e_cache, torch.from_numpy(toks).to(cuda_device),
+            e_inputs[1], e_inputs[2], e_inputs[4])
+        e_inputs[0].copy_(e_final)
+        np.testing.assert_array_equal(out[1], e_valid.cpu().numpy())
+        np.testing.assert_array_equal(out[0] * out[1], (e_g * e_valid).cpu().numpy())
+        assert torch.equal(inputs, e_inputs)
+        assert torch.equal(cache["length"], e_cache["length"])
+        for k in "kv":
+            torch.testing.assert_close(pool[k][:, :-1], e_pool[k][:, :-1],
+                                       rtol=1e-5, atol=1e-5)
+        assert out[1].sum(1)[2] == 0 and 1 <= out[1].sum(1)[1] <= 2
+    assert (graphs.verify_captures, graphs.verify_replays) == (1, 2)
+    assert graphs.captures == 0
+    assert [t.data_ptr() for t in (inputs, cache["bt"], cache["length"],
+                                   pool["k"], pool["v"])] == before
+
+
+@pytest.mark.cuda
+def test_cuda_verify_capture_moves_nothing(cuda_device):
+    """The verify graph's warm-up and capture, with ``live`` at zero, leave
+    every length and every page but the trash page as they were, and put
+    ``live`` back; the first replay then writes the span."""
+    from repro_torch.runtime.decode_graphs import DecodeGraphs
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    pool, cache, inputs = _decode_state(cfg, cuda_device, seed=3)
+    graphs = DecodeGraphs(cfg, params, "paged", cache, inputs, pool=pool)
+    S = 4
+    graphs.verify_tokens[S] = torch.from_numpy(
+        _verify_tokens(cfg, S, 0, inputs[0].cpu().numpy())).to(cuda_device)
+    snap_pool, snap_len, live = _clone(pool), cache["length"].clone(), inputs[1].clone()
+    entry = graphs._capture(lambda: graphs._verify_call(S), None)
+    torch.cuda.synchronize()
+    assert torch.equal(cache["length"], snap_len)
+    assert torch.equal(inputs[1], live)
+    for k in "kv":
+        assert torch.equal(pool[k][:, :-1], snap_pool[k][:, :-1])
+    entry.graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(cache["length"], snap_len)
+    assert not all(torch.equal(pool[k][:, :-1], snap_pool[k][:, :-1]) for k in "kv")
+
+
+@pytest.mark.cuda
+def test_cuda_demoted_decode_rung_runs_grouped_and_repromotes(cuda_device):
+    """Reduced qwen3-8b in f32, both kernels pinned: a planned stall on a
+    single decode step demotes ``decode_cuda``; the next steps replay the
+    ``grouped`` graph, and after the probation window the kernel's graph
+    replays again; the tokens are the fault-free run's."""
+    from repro_torch.runtime.serve_faults import FaultPlan, FaultSpec
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 40, 3)]
+    out = {}
+    for plan in (None, FaultPlan([FaultSpec("decode", "stall", 2)])):
+        eng = tserve.ContinuousBatchingEngine(
+            cfg, params, slots=2, max_len=64, block_size=8, kv_layout="paged",
+            prefill_chunk=8, decode_impl="cuda", prefill_kernel="cuda",
+            fault_plan=plan, watchdog=True, probation_steps=3, device=cuda_device)
+        for i, p in enumerate(prompts):
+            eng.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=16))
+        out[plan is None] = {r.rid: r.out for r in eng.run()}
+        eng.check_kv()
+        assert eng.pages.drained
+    st = eng.stats
+    assert st.demotions == {"decode_cuda": 1} and st.repromotions == 1
+    assert st.watchdog_trips == 1
+    grouped, kernel = eng.graphs.graphs[("grouped", 1)], eng.graphs.graphs[("cuda", 1)]
+    assert grouped.replays == 3
+    assert kernel.replays == sum(st.horizon_hist.values()) - 3
+    assert eng.graphs.replayed_calls_of("cuda") == kernel.replays * cfg.num_layers
+    assert out[False] == out[True]
 
 
 @pytest.mark.cuda

@@ -137,12 +137,18 @@ def test_intake_failures_do_not_raise(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(spec_draft="auto"), "8(g)"), (dict(spec_draft=4), "8(g)"),
-    (dict(max_queue_depth=3), "8(h)"), (dict(mesh_shape=(1, 2)), "8(i)")])
+    (dict(mesh_shape=(1, 2)), "8(i)"), (dict(mesh_shape=(2, 1)), "8(i)"),
+    (dict(mesh_shape=(2, 2), spec_draft=4), "8(i)"),
+    (dict(mesh_shape=(1, 4), max_queue_depth=3), "8(i)")])
 def test_unported_features_name_their_roadmap_item(setup, kw, item):
+    """The mesh is the one feature still refused: speculation, faults and
+    deadlines are ported (the engine builds with them, below)."""
     _, tcfg, _, tp = setup
     with pytest.raises(ValueError, match=rf"ROADMAP queue 1, item {re.escape(item)}"):
         tserve.ContinuousBatchingEngine(tcfg, tp, device="cpu", **{**ENGINE, **kw})
+    rest = {k: v for k, v in kw.items() if k != "mesh_shape"}
+    tserve.ContinuousBatchingEngine(tcfg, tp, device="cpu", **{**ENGINE, **rest})
+    assert tserve.LATER == {"mesh": "8(i) mesh and replicas"}
 
 
 def test_bad_arguments_raise(setup):
@@ -170,12 +176,43 @@ def test_launcher(capsys):
     out = capsys.readouterr().out
     assert "completed 3 requests" in out
     assert "op/bucket decision table" in out
-    for argv, item in ((["--deadline", "2"], "8(h)"), (["--mesh", "1,2"], "8(i)"),
-                       (["--spec-draft", "4"], "8(g)")):
+    for argv, item in ((["--mesh", "1,2"], "8(i)"), (["--mesh=2,1"], "8(i)")):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
                           "--continuous", *argv])
         assert f"item {item}" in capsys.readouterr().err
+
+
+# the summary segments and extra lines of repro.launch.serve, word for word
+# (src/repro/runtime/serve_loop.py ServeStats.summary, src/repro/launch/
+# serve.py main), with each number a pattern
+SPEC_WORDING = (r", \d+ spec verifies \(\d+/\d+ drafts, \d+% accept\)",
+                r"\nspec accept histogram \(drafts accepted -> slot-calls\): "
+                r"\d+:\d+(, \d+:\d+)*\n")
+FAULT_WORDING = (r", faults survived \d+ device / \d+ numeric / \d+ stalls",
+                 r"\nfault storm \(seed 5\): \d+/8 fired \[(none|"
+                 r"[a-z_]+/[a-z]+@\d+(, [a-z_]+/[a-z]+@\d+)*)\]\n")
+
+
+@pytest.mark.parametrize("argv,wording", [
+    (["--spec-draft", "4", "--decode-horizon", "4"], SPEC_WORDING),
+    (["--watchdog", "--fault-seed", "5", "--fault-storm", "8", "--deadline", "30",
+      "--max-queue-depth", "16"], FAULT_WORDING)])
+def test_launcher_spec_and_faults(argv, wording):
+    """``python -m repro_torch.launch.serve`` with speculation, then with
+    the fault storm, deadlines and the queue bound: every request completes
+    and the summary lines read as the reference launcher's."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = {**os.environ, "PYTHONPATH": src, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-8b",
+         "--smoke", "--device", "cpu", "--continuous", "--kv-layout", "paged",
+         "--requests", "4", "--new-tokens", "12", "--max-len", "48", *argv],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "completed 4 requests; " in proc.stdout
+    for pattern in wording:
+        assert re.search(pattern, proc.stdout), (pattern, proc.stdout)
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -228,6 +265,20 @@ def test_port_imports_neither_jax_nor_repro():
                                priority="interactive" if rid % 2 == 0 else "batch"))
         assert all(r.status == "done" for r in eng.run())
         assert eng.stats.preemptions > 0 and eng.stats.swap_ins > 0
+        eng.check_kv()
+        from repro_torch.runtime.serve_faults import FaultPlan, FaultSpec
+        plan = FaultPlan([FaultSpec("spec", "nan", 1, slot=0),
+                          FaultSpec("decode", "stall", 0)])
+        eng = ContinuousBatchingEngine(cfg, params, slots=2, max_len=32,
+                                       block_size=8, kv_layout="paged",
+                                       decode_horizon=4, spec_draft=4,
+                                       fault_plan=plan, watchdog=True,
+                                       device="cpu")
+        for rid in (0, 1):
+            eng.submit(Request(rid=rid, prompt=np.arange(9, dtype=np.int32),
+                               max_new_tokens=12))
+        assert all(r.status == "done" for r in eng.run())
+        assert eng.stats.spec_calls > 0 and eng.stats.numeric_faults == 1
         eng.check_kv()
         assert "repro_torch.runtime.decode_graphs" in sys.modules
         assert "repro_torch.runtime.prefix_cache" in sys.modules

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The device's idle time a decode step of the serve engine.
 
-    PYTHONPATH=src python3 tools/decode_idle.py [--steps N] [--horizon H]
+    PYTHONPATH=src python3 tools/decode_idle.py [--steps N] [--horizon H | --spec S]
 
 Serves full-width qwen3-8b (random weights from a seed) on the engine of
 ``chip_smoke.py``'s phase 4 (slots 4, max_len 1024, block 16, chunk 128,
@@ -14,6 +14,11 @@ two windows of N steady decode calls each:
 2. **profiled**: the next N calls under torch.profiler; the device's busy
    time is the sum of its kernels' and copies' durations, read from device
    timestamps (the profiler's cost falls on the host clock, not on them).
+
+With ``--spec S`` every call is a speculative verify of span S (the
+engine at ``decode_horizon = spec_draft = S``; the table is cold, so a
+call commits about one token a slot).  The profiled window also lists
+the kernels that took the most device time.
 
 Idle a step is (wall - busy) / steps, and for a graph engine also (wall -
 span) / steps.  An eager engine issues its kernels one by one, so the
@@ -44,6 +49,8 @@ def main(argv=None) -> int:
                     help="decode calls in each window")
     ap.add_argument("--horizon", type=int, default=1,
                     help="the engine's decode_horizon (1 = single steps)")
+    ap.add_argument("--spec", type=int, default=0,
+                    help="speculative verify calls of this span instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_idle: needs a CUDA device", file=sys.stderr)
@@ -58,6 +65,8 @@ def main(argv=None) -> int:
     cfg = get_config("qwen3-8b")
     params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
     kw = {} if args.horizon == 1 else dict(decode_horizon=args.horizon)
+    if args.spec:
+        kw = dict(decode_horizon=args.spec, spec_draft=args.spec)
     engine = ContinuousBatchingEngine(
         cfg, params, vpe=VPE(), slots=SLOTS, max_len=MAX_LEN, block_size=BS,
         kv_layout="paged", prefill_chunk=CHUNK, decode_impl="cuda",
@@ -76,17 +85,24 @@ def main(argv=None) -> int:
 
     # window 1, unprofiled: the wall, and each replay's span
     spans = []
-    if graphs is not None:
-        run = graphs.run
+    # the engine's replaying calls: ``launch`` (no fence; newer trees) or
+    # ``run`` (launch and fence), and ``verify`` where it speculates
+    entries = ["launch" if hasattr(graphs, "launch") else "run"]
+    if hasattr(graphs, "verify"):
+        entries.append("verify")
 
-        def timed(*a, **k):
+    def timed(run):
+        def call(*a, **k):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             out = run(*a, **k)
             end.record()
             spans.append((start, end))
             return out
-        graphs.run = timed
+        return call
+    if graphs is not None:
+        for entry in entries:
+            setattr(graphs, entry, timed(getattr(graphs, entry)))
     steps0, chunks0 = st.decode_steps, st.prefill_chunks
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -96,7 +112,8 @@ def main(argv=None) -> int:
         wall_us = (time.perf_counter() - t0) * 1e6
     finally:
         if graphs is not None:
-            del graphs.run                  # the bound method again
+            for entry in entries:
+                delattr(graphs, entry)      # the bound method again
     torch.cuda.synchronize()
     steps = st.decode_steps - steps0
 
@@ -106,14 +123,23 @@ def main(argv=None) -> int:
         for _ in range(args.steps):
             engine.step()
         torch.cuda.synchronize()
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False))
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
     if st.prefill_chunks != chunks0 or st.decode_steps - steps1 != steps:
         raise AssertionError(f"the windows were not {args.steps} steady decode calls "
                              f"each: {st.prefill_chunks - chunks0} prefill chunks, "
                              f"steps {steps} / {st.decode_steps - steps1}")
-    out = dict(kind=kind, horizon=args.horizon, calls=args.steps, steps=steps,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    for name, (n, us) in top:
+        print(f"  {us / steps} us a step in {n / steps} calls a step "
+              f"({us / busy_us} of busy): {name[:100]}")
+    out = dict(kind=kind, horizon=args.horizon, spec=args.spec,
+               calls=args.steps, steps=steps,
                wall_us_per_step=wall_us / steps, busy_us_per_step=busy_us / steps,
                idle_us_per_step=(wall_us - busy_us) / steps,
                idle_share=1 - busy_us / wall_us)
@@ -121,7 +147,8 @@ def main(argv=None) -> int:
         span_us = sum(a.elapsed_time(b) for a, b in spans) * 1e3
         out.update(span_us_per_step=span_us / steps,
                    span_idle_us_per_step=(wall_us - span_us) / steps)
-    print(f"decode_idle ({kind}, H = {args.horizon}): {steps} steps a window; wall "
+    print(f"decode_idle ({kind}, H = {args.horizon}, spec {args.spec}): {steps} "
+          f"steps a window; wall "
           f"{out['wall_us_per_step']} us a step, device busy {out['busy_us_per_step']} "
           f"us a step (profiled window), idle {out['idle_us_per_step']} us a step "
           f"(share {out['idle_share']})"
