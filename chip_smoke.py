@@ -14,13 +14,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    wgmma serialization ptxas reports, and one line for each conv2d
    instantiation (dtype, taps, tile) with its registers and spills;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   (paged kernels at qwen3-8b's head shapes; the flash kernel at
-   h2o-danube-3-4b's and qwen3-8b's, the training path's 4096 tokens
-   among them, and the autograd wiring of its gradient), bf16 (the
-   tensor-core bodies of flash and prefill) and f32 (CUDA-core bodies);
-   then, at the shapes its path gives it, its time beside its plain
-   version's, one PyTorch library call's (timed only: the port never calls
-   it) and its bound;
+   (paged kernels at qwen3-8b's head shapes and at qwen2-moe-a2.7b's, a
+   group of 1; the flash kernel at h2o-danube-3-4b's, qwen3-8b's and
+   qwen2-moe-a2.7b's, the training path's 4096 tokens among them, and the
+   autograd wiring of its gradient), bf16 (the tensor-core bodies of flash
+   and prefill) and f32 (CUDA-core bodies); then, at the shapes its path
+   gives it, its time beside its plain version's, one PyTorch library
+   call's (timed only: the port never calls it) and its bound, and the
+   decode kernel's time at qwen2-moe-a2.7b's heads;
 4. serving path: full-width qwen3-8b, all 36 layers (random weights from
    a seeded generator on the card), served by the continuous-batching
    engine on the paged layout with both paged kernels pinned, one decode
@@ -95,6 +96,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    on the paged and ``auto`` layouts against single steps (each prompt
    served twice, so drafts land); full width in bf16, first-step logits of
    the two;
+12. the MoE path: full-width qwen2-moe-a2.7b, all 24 layers in bf16
+   (random weights from a seeded generator on the card; weights, pool and
+   peak memory printed), on phase 4's engine and traffic: (a) H = 1 with
+   phase 4's gates and steady window; (b) H = 16, tokens (a)'s request by
+   request; (c) speculation at S = 4, the traffic twice, verify replays,
+   pass 2 accepting more, tokens (a)'s or parting at a near-tie (margins
+   from the served chunks: an MoE layer's capacity depends on the rows
+   routed together); (d) first-step prefill and decode logits, cuda vs
+   gather, within 0.25 with the gather path's routing replayed (the rows
+   routed elsewhere and the unpinned difference printed); (e) reduced
+   qwen2-moe-a2.7b and moonshot-v1-16b-a3b in f32, token for token:
+   kernels against the gather path, H = 4 and 16 against 1, S = 4 against
+   H = 1, paged against contiguous against ``auto`` (prompts whose rows
+   route without a drop); (f) training at full width and 2 layers, 1 x
+   4096 tokens, ``flash_cuda`` pinned, 3 steps: finite losses, 2 flash
+   launches a layer a step;
 7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
    master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
    with the VPE free until it concludes its ``attn_impl`` trial, then with
@@ -135,9 +152,13 @@ without ``src/repro_torch`` beside this script, it exits non-zero and
 prints no result.  ``--report`` also writes every measurement as JSON;
 ``--trace`` adds phase 6, which profiles 8 steady single decode steps, one
 steady 16-step horizon, 4 steady verify calls of span 4 (all graph
-replays) and one prompt's prefill chunks, and one profiled training step in phase 7 (device busy share,
-time by kernel, the profiler's own cost included), and writes the chrome
-traces there, gzipped.
+replays) and one prompt's prefill chunks of qwen3-8b, phase 12's profile
+of 8 steady decode steps of qwen2-moe-a2.7b (expert GEMMs apart), both in
+a child process of their own (:func:`in_child`: late in a long process
+the profiler loses the first records of a window), and one profiled
+training step in phase 7 (device busy share, time by kernel, the
+profiler's own cost included), and writes the chrome traces there,
+gzipped.
 """
 
 from __future__ import annotations
@@ -170,12 +191,22 @@ SLOTS, MAX_LEN, CHUNK, NEW_TOKENS, REQUESTS = 4, 1024, 128, 32, 8
 NB = MAX_LEN // BS
 VOCAB = 151936
 
+# the MoE path (phase 12): full-width qwen2-moe-a2.7b served by phase 4's
+# engine; its heads (Hq = Hkv = 16, D = 128: a group of 1) checked and
+# timed in phase 3; trained at full width and 2 layers
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_HEADS = (16, 16, 128)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+# reduced MoE parity (phase 12e): the reduced configs of both MoE archs
+MOE_PARITY_ARCHS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
+
 # the training path: full h2o-danube-3-4b at 1 x 4096 tokens
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "h2o-danube-3-4b", 1, 4096, 4
-# flash kernel checks: (Hq, Hkv, D) of h2o-danube-3-4b and qwen3-8b, and
+# flash kernel checks: (Hq, Hkv, D) of h2o-danube-3-4b, qwen3-8b and
+# qwen2-moe-a2.7b, and
 # (S, T, causal, window): S = T, S < T, T off the 64-key tile, and the
 # training path's own shape
-FLASH_HEADS = ((32, 8, 120), (32, 8, 128))
+FLASH_HEADS = ((32, 8, 120), (32, 8, 128), MOE_HEADS)
 FLASH_CASES = ((2048, 2048, True, None), (2048, 2048, True, 1024),
                (2048, 2048, False, None), (2048, 2048, False, 1024),
                (300, 1100, True, 1024), (1000, 1000, True, 4096),
@@ -290,12 +321,12 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
 
 # -- inputs ------------------------------------------------------------------------
 
-def pool_inputs(gen, dtype, n_pages, S, B):
+def pool_inputs(gen, dtype, n_pages, S, B, hq=HQ, hkv=HKV):
     import torch
     dev = gen.device
-    q = torch.randn((B, HQ, S, D), generator=gen, device=dev).to(dtype)
-    kp = torch.randn((n_pages, HKV, BS, D), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((n_pages, HKV, BS, D), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, hq, S, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n_pages, hkv, BS, D), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((n_pages, hkv, BS, D), generator=gen, device=dev).to(dtype)
     return q, kp, vp
 
 
@@ -315,7 +346,7 @@ def distinct_tables(gen, B, n_pages):
 
 # -- work each kernel must do (the bound) ----------------------------------------
 
-def decode_work(bt, lengths, window, elem):
+def decode_work(bt, lengths, window, elem, hq=HQ, hkv=HKV):
     """(bytes, ops) the decode function needs on these inputs: each page a
     sequence attends to read once (shared pages once), q, tables and
     lengths read, the output written; 4*D ops per (query head, column)."""
@@ -330,9 +361,9 @@ def decode_work(bt, lengths, window, elem):
                 pages.add(row[j])
         cols += L + 1 - max(lo, 0)
     B = len(bt)
-    nbytes = (2 * len(pages) * HKV * BS * D * elem + 2 * B * HQ * D * elem
+    nbytes = (2 * len(pages) * hkv * BS * D * elem + 2 * B * hq * D * elem
               + B * NB * 4 + B * 4)
-    return nbytes, 4 * D * HQ * cols
+    return nbytes, 4 * D * hq * cols
 
 
 def prefill_work(bt, base, chunk_len, C, window, elem):
@@ -384,6 +415,20 @@ def device_ms(fn, flush, iters=20):
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in times]))
+
+
+def profile_window(fn):
+    """Run ``fn`` under torch.profiler (CPU and CUDA activities), fenced.
+    Returns (the profile, fn's wall in us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
 
 
 # -- phases --------------------------------------------------------------------------
@@ -441,55 +486,62 @@ def phase_build():
 
 
 def phase_kernel_checks(dev):
-    """Every kernel against its plain version, bf16 and f32 pools."""
+    """Every kernel against its plain version, bf16 and f32 pools, at
+    qwen3-8b's heads (a group of 4) and qwen2-moe-a2.7b's (a group of 1:
+    three of the decode block's four query rows are padding)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
-    say("[3] kernels against their plain versions (qwen3-8b heads: Hq=32, "
-        "Hkv=8, D=128, bs=16, nb=64)")
+    say("[3] kernels against their plain versions (D=128, bs=16, nb=64; "
+        f"qwen3-8b heads Hq={HQ}, Hkv={HKV}, and {MOE_ARCH} heads "
+        f"Hq={MOE_HEADS[0]}, Hkv={MOE_HEADS[1]})")
     gen = torch.Generator(dev).manual_seed(3)
     errors = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0}
-    B, n_pages = 4, 4 * NB
-    for dtype in (torch.bfloat16, torch.float32):
-        for window in (None, 100):
-            for read_dtype in (None, torch.bfloat16):
-                q, kp, vp = pool_inputs(gen, dtype, n_pages, 1, B)
+    n_pages = 4 * NB
+    for hq, hkv in ((HQ, HKV), MOE_HEADS[:2]):
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in (None, 100):
+                for read_dtype in (None, torch.bfloat16):
+                    B = 4
+                    q, kp, vp = pool_inputs(gen, dtype, n_pages, 1, B, hq, hkv)
+                    bt = shared_tables(gen, B, n_pages)
+                    lengths = torch.randint(0, NB * BS, (B,), generator=gen,
+                                            device=dev, dtype=torch.int32)
+                    got = pa.paged_attention_cuda(q, kp, vp, bt, lengths,
+                                                  window=window, read_dtype=read_dtype)
+                    want = ref.paged_attention_ref(q, kp, vp, bt, lengths,
+                                                   window=window, read_dtype=read_dtype)
+                    torch.cuda.synchronize()
+                    name = (f"decode Hq={hq} Hkv={hkv} {str(dtype)[6:]} window={window} "
+                            f"read_dtype={str(read_dtype)[6:] if read_dtype else None}")
+                    err = check_close(name, got, want, *tolerance(dtype, read_dtype))
+                    errors["paged_decode_attention"] = max(
+                        errors["paged_decode_attention"], err)
+            for C, window in ((16, None), (128, None), (512, None), (128, 100)):
+                B = 2
+                q, kp, vp = pool_inputs(gen, dtype, n_pages, C, B, hq, hkv)
                 bt = shared_tables(gen, B, n_pages)
-                lengths = torch.randint(0, NB * BS, (B,), generator=gen,
-                                        device=dev, dtype=torch.int32)
-                got = pa.paged_attention_cuda(q, kp, vp, bt, lengths, window=window,
-                                              read_dtype=read_dtype)
-                want = ref.paged_attention_ref(q, kp, vp, bt, lengths, window=window,
-                                               read_dtype=read_dtype)
+                base = torch.randint(1, NB * BS - C + 1, (B,), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                chunk_len = C - 5
+                got = pa.paged_prefill_attention_cuda(q, kp, vp, bt, base,
+                                                      chunk_len=chunk_len, window=window)
+                want = ref.paged_prefill_attention_ref(q, kp, vp, bt, base,
+                                                       chunk_len=chunk_len,
+                                                       window=window)
                 torch.cuda.synchronize()
-                name = (f"decode {str(dtype)[6:]} window={window} "
-                        f"read_dtype={str(read_dtype)[6:] if read_dtype else None}")
-                err = check_close(name, got, want, *tolerance(dtype, read_dtype))
-                errors["paged_decode_attention"] = max(
-                    errors["paged_decode_attention"], err)
-        for C, window in ((16, None), (128, None), (512, None), (128, 100)):
-            B = 2
-            q, kp, vp = pool_inputs(gen, dtype, n_pages, C, B)
-            bt = shared_tables(gen, B, n_pages)
-            base = torch.randint(1, NB * BS - C + 1, (B,), generator=gen,
-                                 device=dev, dtype=torch.int32)
-            chunk_len = C - 5
-            got = pa.paged_prefill_attention_cuda(q, kp, vp, bt, base,
-                                                  chunk_len=chunk_len, window=window)
-            want = ref.paged_prefill_attention_ref(q, kp, vp, bt, base,
-                                                   chunk_len=chunk_len, window=window)
-            torch.cuda.synchronize()
-            name = (f"prefill {str(dtype)[6:]} C={C} chunk_len={chunk_len} "
-                    f"base={base.tolist()} window={window}")
-            err = check_close(name, got, want, *tolerance(dtype, None))
-            errors["paged_prefill_attention"] = max(
-                errors["paged_prefill_attention"], err)
+                name = (f"prefill Hq={hq} Hkv={hkv} {str(dtype)[6:]} C={C} "
+                        f"chunk_len={chunk_len} base={base.tolist()} window={window}")
+                err = check_close(name, got, want, *tolerance(dtype, None))
+                errors["paged_prefill_attention"] = max(
+                    errors["paged_prefill_attention"], err)
     return errors
 
 
-def decode_timing_case(gen, prompt_lens):
-    """Decode at the main path's shapes: every slot mid-way through its new
-    tokens, each slot its own pages, the read_dtype body the engine runs."""
+def decode_timing_case(gen, prompt_lens, hq=HQ, hkv=HKV):
+    """Decode at the main path's shapes (at ``hq``/``hkv`` heads): every
+    slot mid-way through its new tokens, each slot its own pages, the
+    read_dtype body the engine runs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
@@ -497,7 +549,7 @@ def decode_timing_case(gen, prompt_lens):
     from repro_torch.models.kvcache import paged_gather_layer
     dev, dt = gen.device, torch.bfloat16
     n_pages = SLOTS * NB + SLOTS + 1
-    q, kp, vp = pool_inputs(gen, dt, n_pages, 1, SLOTS)
+    q, kp, vp = pool_inputs(gen, dt, n_pages, 1, SLOTS, hq, hkv)
     bt = distinct_tables(gen, SLOTS, n_pages)
     lengths = torch.tensor([p + NEW_TOKENS // 2 for p in prompt_lens[:SLOTS]],
                            dtype=torch.int32, device=dev)
@@ -506,14 +558,14 @@ def decode_timing_case(gen, prompt_lens):
     col = torch.arange(NB * BS, device=dev)
     mask = (col[None, :] <= lengths[:, None].long())[:, None, None, :]
     return dict(
-        shape=f"B={SLOTS} lengths={lengths.tolist()}",
+        shape=f"B={SLOTS} Hq={hq} Hkv={hkv} lengths={lengths.tolist()}",
         kernel=lambda: pa.paged_attention_cuda(q, kp, vp, bt, lengths,
                                                read_dtype=dt),
         plain=lambda: ref.paged_attention_ref(q, kp, vp, bt, lengths,
                                               read_dtype=dt),
         library=lambda: F.scaled_dot_product_attention(
             q, kg, vg, attn_mask=mask, enable_gqa=True),
-        work=decode_work(bt, lengths, None, 2))
+        work=decode_work(bt, lengths, None, 2, hq, hkv))
 
 
 def prefill_timing_case(gen):
@@ -553,14 +605,22 @@ def phase_kernel_times(dev, prompt_lens):
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
     splits, kps = pa.decode_split_plan(SLOTS, HKV, NB, BS, build.sm_count(dev))
+    splits1, kps1 = pa.decode_split_plan(SLOTS, MOE_HEADS[1], NB, BS,
+                                         build.sm_count(dev))
     say("[3b] kernel times at the main path's shapes (bf16, median of 20 "
         "calls, L2 flushed before each); decode: grid of "
         f"{splits} splits of {kps} keys x {HKV} KV heads x {SLOTS} sequences, "
-        "3 device launches a call (stats pass, value pass, combine)")
+        "3 device launches a call (stats pass, value pass, combine); at "
+        f"{MOE_ARCH}'s heads (g1) {splits1} splits of {kps1} keys x "
+        f"{MOE_HEADS[1]} KV heads")
     gen = torch.Generator(dev).manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
+    # the MoE path's decode (a group of 1) is a row of its own: the kernels
+    # line holds the main path's shapes
     rows = {"paged_decode_attention": decode_timing_case(gen, prompt_lens),
-            "paged_prefill_attention": prefill_timing_case(gen)}
+            "paged_prefill_attention": prefill_timing_case(gen),
+            "paged_decode_attention_g1": decode_timing_case(
+                gen, prompt_lens, *MOE_HEADS[:2])}
     out = {}
     for name, r in rows.items():
         err = float((r["kernel"]().float() - r["plain"]().float()).abs().max())
@@ -803,6 +863,12 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
         tokens={r.rid - rid0: r.out for r in served}, first_logits=first_logits)
 
 
+# fills ahead of a profiled window in this process (:func:`steady_window`):
+# more than the records a late session has lost at a window's start (8-10
+# in tools/trace_loss.py, between 33 and about 130 in one --trace run)
+PREFIX_FILLS = 1024
+
+
 def steady_window(engine, cfg, calls):
     """Steady decode on ``engine``, after its timed run: four prompts fill
     every slot, then ``calls`` decode calls run back to back with no
@@ -813,7 +879,6 @@ def steady_window(engine, cfg, calls):
     body): the check that a replay really launches them."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.serve_loop import Request
     for i, p in enumerate(traffic(cfg.vocab_size, seed=5)[:SLOTS]):
         engine.submit(Request(rid=1000 + i, prompt=p, max_new_tokens=400))
@@ -853,9 +918,12 @@ def steady_window(engine, cfg, calls):
                idle_us_per_step=(wall_us - span_us) / steps,
                idle_share=1 - span_us / wall_us)
     steps0 = st.decode_steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.step()
-        torch.cuda.synchronize()
+    # late in a long process a profiler session loses a prefix of its
+    # window's device records (PERF.md section 7): one-element fills ahead
+    # of the step take that loss, and no fill is a decode kernel
+    fill = torch.empty((1,), device=graphs.device)
+    prof, _ = profile_window(lambda: ([fill.fill_(0) for _ in range(PREFIX_FILLS)],
+                                      engine.step()))
     profiled_steps = st.decode_steps - steps0
     launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                    and kernel_group(e.name) == "paged decode kernels")
@@ -920,10 +988,10 @@ def phase_main_path(dev):
     return cfg, params, prompts, main
 
 
-def first_difference(label, main, run):
-    """Raise unless each request's tokens in ``run`` are phase 4's."""
+def first_difference(label, main, run, ref_label="phase 4"):
+    """Raise unless each request's tokens in ``run`` are ``main``'s."""
     differ = [rid for rid, toks in main["tokens"].items() if run["tokens"][rid] != toks]
-    say(f"  tokens equal to phase 4's (H = 1), request by request: {not differ}")
+    say(f"  tokens equal to {ref_label}'s (H = 1), request by request: {not differ}")
     if differ:
         rid = differ[0]
         a, b = main["tokens"][rid], run["tokens"][rid]
@@ -992,19 +1060,40 @@ def warm_up(engine, prompt):
     engine.run()
 
 
+def served_logits(cfg, params, seq):
+    """The logits after ``seq``, prefilled by a new engine on the gather
+    path in the main path's 128-token chunks."""
+    from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=1, max_len=MAX_LEN, block_size=BS, kv_layout="paged",
+        prefill_chunk=CHUNK, decode_impl="grouped", prefill_kernel="gather",
+        device=params["embed"].device)
+    eng.first_logits = {}
+    eng.submit(Request(rid=0, prompt=seq, max_new_tokens=1))
+    eng.run()
+    return eng.first_logits[0].float()
+
+
 def token_margin(cfg, params, prompt, before, a, b):
-    """Where two runs part: a full forward over the prompt and the tokens
-    before that position; logit[a] - logit[b] at its last position, and the
-    top-2 margin there."""
+    """Where two runs part: the logits after the prompt and the tokens
+    before that position; logit[a] - logit[b] there, and the top-2 margin.
+    A dense model's come from a full forward.  An MoE model's come from
+    the serving path's own chunks (:func:`served_logits`): an MoE layer's
+    capacity depends on the tokens routed together, and a whole-sequence
+    forward can drop assignments the served chunks did not."""
     import torch
     from repro_torch.models import model as model_lib
-    seq = np.concatenate([prompt, np.asarray(before, np.int32)])[None]
-    with torch.no_grad():
-        logits = model_lib.forward(cfg, params, {"tokens": torch.from_numpy(seq).to(
-            params["embed"].device)})[0, -1]
+    seq = np.concatenate([prompt, np.asarray(before, np.int32)])
+    if cfg.family == "moe":
+        logits, via = served_logits(cfg, params, seq), "served chunks"
+    else:
+        with torch.no_grad():
+            logits = model_lib.forward(cfg, params, {"tokens": torch.from_numpy(
+                seq[None]).to(params["embed"].device)})[0, -1]
+        via = "full forward"
     top2 = torch.topk(logits, 2).values
     return dict(a_minus_b=float(logits[a] - logits[b]),
-                top2_margin=float(top2[0] - top2[1]))
+                top2_margin=float(top2[0] - top2[1]), via=via)
 
 
 def compare_runs(label, ref_label, ref, run, cfg, params, prompts, atol=None,
@@ -1035,7 +1124,7 @@ def compare_runs(label, ref_label, ref, run, cfg, params, prompts, atol=None,
         f"requests" + "".join(
             f"; request {p['rid']} parts at position {p['position']} ({p['ref_token']}"
             f" / {p['token']}), logit margin there {p['a_minus_b']} (top-2 "
-            f"{p['top2_margin']}, full forward)" for p in parts))
+            f"{p['top2_margin']}, {p['via']})" for p in parts))
     if atol is not None and max(errs) > atol:
         raise AssertionError(f"{label}: first-token logits differ from {ref_label}'s "
                              f"by {max(errs)} > {atol}")
@@ -1343,7 +1432,8 @@ def say_spec(label, run):
         f"{run['verify_captures_in_run']}, replays {run['verify_replays_in_run']}")
 
 
-def phase_speculation(cfg, params, dev, prompts, main, main_logits):
+def phase_speculation(cfg, params, dev, prompts, main, main_logits, spans=(4, 16),
+                      tag="4g", ref_label="phase 4"):
     """Phase 4g: speculative decoding on phase 4's engine (paged, both
     kernels pinned) at ``decode_horizon = spec_draft = S`` for S = 4 and
     16, phase 4's traffic twice on one engine: pass 1 on a cold n-gram
@@ -1355,31 +1445,31 @@ def phase_speculation(cfg, params, dev, prompts, main, main_logits):
     import torch
     t0 = time.perf_counter()
     ref = dict(main, first_logits=main_logits)
-    say(f"[4g] speculation: {cfg.name} at full width, phase 4's engine, "
-        f"decode_horizon = spec_draft = S, phase 4's traffic twice on one engine")
+    say(f"[{tag}] speculation: {cfg.name} at full width, {ref_label}'s engine, "
+        f"decode_horizon = spec_draft = S, {ref_label}'s traffic twice on one engine")
     out = {}
-    for S in (4, 16):
+    for S in spans:
         engine = serving_engine(cfg, params, dev, S, spec_draft=S)
         passes = []
         for k in range(2):
-            label = f"phase 4g S={S} pass {k + 1}"
+            label = f"phase {tag} S={S} pass {k + 1}"
             # the verify read is the gather path: a pass whose every step
             # speculates launches no decode kernel, so only the prefill
             # kernel is required (decode launches are printed)
             run = serve_traffic(engine, cfg, prompts, label, rid0=100 * (k + 1),
                                 kernels=("paged_prefill_attention",), idle=True)
             say_spec(label, run)
-            run["compare"] = compare_runs(label, "phase 4", ref, run, cfg, params,
+            run["compare"] = compare_runs(label, ref_label, ref, run, cfg, params,
                                           prompts, tie=TIE_MARGIN)
             run.pop("first_logits")
             passes.append(run)
         cold, warm = passes
         if warm["captures_in_run"] or warm["verify_captures_in_run"]:
-            raise AssertionError(f"phase 4g S={S}: a capture in pass 2")
+            raise AssertionError(f"phase {tag} S={S}: a capture in pass 2")
         if not (cold["verify_replays_in_run"] and warm["verify_replays_in_run"]):
-            raise AssertionError(f"phase 4g S={S}: no verify replay in a pass")
+            raise AssertionError(f"phase {tag} S={S}: no verify replay in a pass")
         if not warm["spec"]["accept_rate"] > (cold["spec"]["accept_rate"] or 0.0):
-            raise AssertionError(f"phase 4g S={S}: pass 2's accept rate "
+            raise AssertionError(f"phase {tag} S={S}: pass 2's accept rate "
                                  f"{warm['spec']['accept_rate']} is not above pass "
                                  f"1's {cold['spec']['accept_rate']}")
         out[S] = passes
@@ -1387,7 +1477,7 @@ def phase_speculation(cfg, params, dev, prompts, main, main_logits):
         gc.collect()
         torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
-    say(f"  phase 4g wall {wall} s")
+    say(f"  phase {tag} wall {wall} s")
     return dict(spans=out, wall_s=wall)
 
 
@@ -1711,32 +1801,106 @@ def first_step_logits(cfg, params, dev, prompts, kernel, decode_impl, tokens=Non
     return pre, dec[:, 0], tokens
 
 
-def phase_full_width_parity(cfg, params, dev, prompts, atol):
+class RoutingLog:
+    """Installed on ``repro_torch.models.moe`` for one run, then removed:
+    records the experts of every ``route`` call, or, given the calls of
+    another run, replays them — each call then takes the recorded experts
+    and weighs them by its own gates, renormalised as ``route`` does."""
+
+    def __init__(self, replay=None):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe.route
+        self.calls = []
+        self.replay = iter(replay) if replay is not None else None
+        moe.route = self.route
+
+    def route(self, s, router_w, x):
+        import torch
+        if self.replay is None:
+            weights, experts = self.real(s, router_w, x)
+        else:
+            experts = next(self.replay)
+            gates = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            weights = torch.gather(gates, -1, experts)
+            if s.norm_topk_prob:
+                weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+        self.calls.append(experts)
+        return weights, experts
+
+    def remove(self):
+        self.moe.route = self.real
+
+
+def routing_flips(a, b, real):
+    """(rows whose expert set differs between two runs' route calls, rows):
+    the first ``real[i]`` rows of call i, its tokens that are not padding."""
+    differ = sum(int((x[:r].sort(-1).values != y[:r].sort(-1).values).any(-1).sum())
+                 for x, y, r in zip(a, b, real, strict=True))
+    return differ, sum(real)
+
+
+def phase_full_width_parity(cfg, params, dev, prompts, atol, tag="5b"):
+    """First-step prefill and decode logits, the kernels' path (cuda) against
+    the gather path, within ``atol``.  An MoE model's routing is discrete:
+    where a row's k-th and (k+1)-th gates nearly tie, the two paths'
+    roundings can send it to another expert, and the logits then move by
+    more than the kernels' error.  So for MoE the unpinned difference and
+    the rows routed elsewhere are printed, and the gate holds the kernels'
+    path run again with the gather path's routing replayed
+    (:class:`RoutingLog`)."""
     import torch
+    moe = cfg.family == "moe"
+    log = RoutingLog() if moe else None
     ref_pre, ref_dec, toks = first_step_logits(cfg, params, dev, prompts,
                                                "gather", "grouped")
+    if moe:
+        log.remove()
+        free = RoutingLog()
     got_pre, got_dec, _ = first_step_logits(cfg, params, dev, prompts, "cuda",
                                             "cuda", tokens=toks)
+    gated = {"prefill": got_pre, "decode": got_dec}
+    flips = None
+    if moe:
+        free.remove()
+        # first_step_logits' route calls: each chunk of each prompt, then
+        # the decode step, one a layer
+        real = [min(CHUNK, len(p) - base) for p in prompts
+                for base in range(0, len(p), CHUNK) for _ in range(cfg.num_layers)]
+        real += [len(prompts)] * cfg.num_layers
+        flips = routing_flips(log.calls, free.calls, real)
+        pinned = RoutingLog(replay=log.calls)
+        pin_pre, pin_dec, _ = first_step_logits(cfg, params, dev, prompts, "cuda",
+                                                "cuda", tokens=toks)
+        pinned.remove()
+        gated = {"prefill": pin_pre, "decode": pin_dec}
+        say(f"[{tag}] {cfg.name}: {flips[0]} of {flips[1]} routed rows chose other "
+            f"experts on the kernels' path than on the gather path (padding "
+            f"rows left out)")
     torch.cuda.synchronize()
     out = {}
     for what, want, got in (("prefill", ref_pre, got_pre), ("decode", ref_dec, got_dec)):
-        if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
+        if not (torch.isfinite(want).all() and torch.isfinite(got).all()
+                and torch.isfinite(gated[what]).all()):
             raise AssertionError(f"{what} logits are not finite")
         err = float((got - want).abs().max())
+        gate_err = float((gated[what] - want).abs().max())
         same = torch.argmax(got, -1) == torch.argmax(want, -1)
         top2 = torch.topk(want, 2, dim=-1).values
         margins = (top2[:, 0] - top2[:, 1]).tolist()
-        say(f"[5b] full width bf16 {what} logits, cuda vs gather: max abs diff "
-            f"{err} (tolerance {atol}), logit scale {float(want.abs().max())}, "
+        say(f"[{tag}] {cfg.name} full width bf16 {what} logits, cuda vs gather: "
+            f"max abs diff {err}"
+            + (f", {gate_err} with the gather path's routing replayed" if moe else "")
+            + f" (tolerance {atol}), logit scale {float(want.abs().max())}, "
             f"argmax equal {same.tolist()}, reference top-2 margins {margins}")
         if not bool(same.all()):
             b = int((~same).nonzero()[0])
             say(f"  first sequence whose argmax differs: {b}, reference top-2 "
                 f"margin {margins[b]}")
-        if err > atol:
-            raise AssertionError(f"{what} logits differ by {err} > {atol}")
-        out[what] = dict(max_abs_diff=err, argmax_equal=same.tolist(),
-                         top2_margin=margins)
+        if gate_err > atol:
+            raise AssertionError(f"{what} logits differ by {gate_err} > {atol}")
+        out[what] = dict(max_abs_diff=err, gated_max_abs_diff=gate_err,
+                         argmax_equal=same.tolist(), top2_margin=margins,
+                         routing_flips=flips)
     return out
 
 
@@ -1758,20 +1922,19 @@ def kernel_group(name):
     return "other elementwise/reduction"
 
 
-def profiled(fn, label, trace_dir, ranges=()):
-    """Run ``fn`` under torch.profiler; print its wall, the device's busy
-    share of it, the device time by kernel and by kernel group, and the
-    span on the device timeline of each named ``record_function`` range
-    (summed over its occurrences).  Returns a summary."""
-    import torch
+EXPERT_GROUP = "expert GEMMs"
+
+
+def profiled(fn, label, trace_dir, ranges=(), experts=None):
+    """Run ``fn`` under torch.profiler (:func:`profile_window`); print its
+    wall, the device's busy share of it, the device time by kernel and by
+    kernel group, and the span on the device timeline of each named
+    ``record_function`` range (summed over its occurrences).  ``experts``:
+    the (kernel name, grid) pairs of the MoE expert products
+    (:func:`expert_gemm_kernels`), counted under :data:`EXPERT_GROUP`.
+    Returns a summary."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, wall_us = profile_window(fn)
     by_name, decode_spans = {}, []
     for e in prof.events():
         if getattr(e, "is_user_annotation", False):
@@ -1788,36 +1951,95 @@ def profiled(fn, label, trace_dir, ranges=()):
                    if start < end)
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    path = trace_dir / f"trace_{label}.json.gz"
+    prof.export_chrome_trace(str(path))
+    with gzip.open(path, "rt") as f:
+        trace = json.load(f)["traceEvents"]
+    grids = {}
+    for e in trace:
+        if e.get("cat") == "kernel":
+            grids.setdefault(e["name"], set()).add(tuple(e.get("args", {}).get("grid", ())))
     say(f"  trace {label}: wall {wall_us} us, device busy {busy_us} us "
         f"({busy_us / wall_us} of the wall; idle share {1 - busy_us / wall_us}), "
         f"{sum(n for n, _ in by_name.values())} device events")
     for name, (n, us) in top:
-        say(f"    {us} us in {n} calls ({us / busy_us if busy_us else 0} of busy): "
-            f"{name[:100]}")
-    groups = {}
+        say(f"    {us} us in {n} calls ({us / busy_us if busy_us else 0} of busy), "
+            f"grids {sorted(grids.get(name, ()))[:3]}: {name[:100]}")
+    groups, counts = {}, {}
     for name, (n, us) in by_name.items():
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + us
+        counts[kernel_group(name)] = counts.get(kernel_group(name), 0) + n
+    if experts:
+        for e in trace:
+            grid = tuple(e.get("args", {}).get("grid", ()))
+            if e.get("cat") == "kernel" and (e["name"], grid) in experts:
+                g = kernel_group(e["name"])
+                groups[g] -= e["dur"]
+                counts[g] -= 1
+                groups[EXPERT_GROUP] = groups.get(EXPERT_GROUP, 0.0) + e["dur"]
+                counts[EXPERT_GROUP] = counts.get(EXPERT_GROUP, 0) + 1
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        say(f"    group {group}: {us} us ({us / busy_us if busy_us else 0} of busy)")
-    trace_dir.mkdir(parents=True, exist_ok=True)
-    path = trace_dir / f"trace_{label}.json.gz"
-    prof.export_chrome_trace(str(path))
+        say(f"    group {group}: {us} us in {counts[group]} events "
+            f"({us / busy_us if busy_us else 0} of busy)")
     # a range's span on the device timeline, summed over its occurrences
     in_range = {r: 0.0 for r in ranges}
-    if ranges:
-        with gzip.open(path, "rt") as f:
-            for e in json.load(f)["traceEvents"]:
-                if e.get("cat") == "gpu_user_annotation" and e.get("name") in in_range:
-                    in_range[e["name"]] += e["dur"]
+    for e in trace:
+        if e.get("cat") == "gpu_user_annotation" and e.get("name") in in_range:
+            in_range[e["name"]] += e["dur"]
     for name, us in in_range.items():
         say(f"    range {name}: {us} us on the device timeline "
             f"({us / busy_us if busy_us else 0} of busy)")
-    counts = {}
-    for name, (n, _) in by_name.items():
-        counts[kernel_group(name)] = counts.get(kernel_group(name), 0) + n
     return dict(wall_us=wall_us, busy_us=busy_us, ranges=in_range, groups=groups,
                 counts=counts, decode_overlaps=overlaps,
                 top=[(name, n, us) for name, (n, us) in top])
+
+
+def trace_engine_kw(dev):
+    from repro_torch.core import VPE
+    return dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS, kv_layout="paged",
+                prefill_chunk=CHUNK, decode_impl="cuda", prefill_kernel="cuda",
+                device=dev, vpe=VPE())
+
+
+def trace_decode_window(cfg, params, dev, trace_dir, horizon, steps, new_tokens,
+                        label, experts=None):
+    """A profiler window over ``steps`` steady decode calls of horizon
+    ``horizon`` at 4 busy slots (graph replays, no prefill, no capture),
+    on a new engine; raises unless the device launches of the paged
+    decode kernels are 3 a step a layer.  ``experts``: see
+    :func:`profiled`."""
+    from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
+    eng = ContinuousBatchingEngine(cfg, params, decode_horizon=horizon,
+                                   **trace_engine_kw(dev))
+    for i, p in enumerate(traffic(cfg.vocab_size, seed=5)[:SLOTS]):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+    while eng.num_decoding < SLOTS:
+        eng.step()
+    st = eng.stats
+    before = (st.decode_steps, eng.graphs.captures, st.horizon_calls)
+    r = profiled(lambda: [eng.step() for _ in range(steps)], label, trace_dir,
+                 experts=experts)
+    decode_steps = st.decode_steps - before[0]
+    launches = r["counts"].get("paged decode kernels", 0)
+    r.update(decode_steps=decode_steps, horizon=horizon, decode_launches=launches,
+             profiled_idle_us_per_step=(r["wall_us"] - r["busy_us"]) / decode_steps,
+             wall_us_per_step=r["wall_us"] / decode_steps)
+    say(f"  {label}: {decode_steps} decode steps in {steps} calls, device "
+        f"launches of the paged decode kernels {launches} (expected "
+        f"{3 * decode_steps * cfg.num_layers}; {r['decode_overlaps']} start before "
+        f"the one ahead of them ends), captures in the window "
+        f"{eng.graphs.captures - before[1]}, idle us a step (profiled) "
+        f"{r['profiled_idle_us_per_step']}, wall us a step {r['wall_us_per_step']}")
+    if decode_steps != horizon * steps or eng.graphs.captures != before[1] \
+            or st.horizon_calls - before[2] != (steps if horizon > 1 else 0):
+        raise AssertionError(f"{label}: the window was not {steps} steady "
+                             f"replays of H={horizon}")
+    if launches != 3 * decode_steps * cfg.num_layers:
+        raise AssertionError(f"{label}: {launches} paged decode launches in the "
+                             f"trace, expected 3 x {decode_steps} x "
+                             f"{cfg.num_layers}")
+    return r
 
 
 def phase_trace(cfg, params, dev, trace_dir):
@@ -1829,45 +2051,14 @@ def phase_trace(cfg, params, dev, trace_dir):
     cost (the unprofiled idle time is phase 4's steady window).  The device
     launches of the decode kernels must be 3 per step per layer, as in the
     profiled call of phases 4 and 4b."""
-    from repro_torch.core import VPE
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
-    kw = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BS, kv_layout="paged",
-              prefill_chunk=CHUNK, decode_impl="cuda", prefill_kernel="cuda",
-              device=dev, vpe=VPE())
+    kw = trace_engine_kw(dev)
     prompts = traffic(cfg.vocab_size, seed=5)
-    say("[6] traces (torch.profiler)")
     out = {}
     for horizon, steps, new_tokens in ((1, 8, NEW_TOKENS), (16, 1, 400)):
-        eng = ContinuousBatchingEngine(cfg, params, decode_horizon=horizon, **kw)
-        for i, p in enumerate(prompts[:SLOTS]):
-            eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
-        while eng.num_decoding < SLOTS:
-            eng.step()
-        st = eng.stats
-        before = (st.decode_steps, eng.graphs.captures, st.horizon_calls)
         label = f"decode_{steps}_steps" if horizon == 1 else "decode_horizon_16"
-        r = profiled(lambda: [eng.step() for _ in range(steps)], label, trace_dir)
-        decode_steps = st.decode_steps - before[0]
-        launches = r["counts"].get("paged decode kernels", 0)
-        r.update(decode_steps=decode_steps, horizon=horizon, decode_launches=launches,
-                 profiled_idle_us_per_step=(r["wall_us"] - r["busy_us"]) / decode_steps,
-                 wall_us_per_step=r["wall_us"] / decode_steps)
-        say(f"  {label}: {decode_steps} decode steps in {steps} calls, device "
-            f"launches of the paged decode kernels {launches} (expected "
-            f"{3 * decode_steps * cfg.num_layers}; {r['decode_overlaps']} start before "
-            f"the one ahead of them ends), captures in the window "
-            f"{eng.graphs.captures - before[1]}, idle us a step (profiled) "
-            f"{r['profiled_idle_us_per_step']}, wall us a step {r['wall_us_per_step']}")
-        if decode_steps != horizon * steps or eng.graphs.captures != before[1] \
-                or st.horizon_calls - before[2] != (steps if horizon > 1 else 0):
-            raise AssertionError(f"{label}: the window was not {steps} steady "
-                                 f"replays of H={horizon}")
-        if launches != 3 * decode_steps * cfg.num_layers:
-            raise AssertionError(f"{label}: {launches} paged decode launches in the "
-                                 f"trace, expected 3 x {decode_steps} x "
-                                 f"{cfg.num_layers}")
-        out[label] = r
-        del eng
+        out[label] = trace_decode_window(cfg, params, dev, trace_dir, horizon, steps,
+                                         new_tokens, label)
     # four steady speculative verify calls of span 4 at 4 busy slots (a
     # cold table: each commits about a token a slot), graph replays
     eng = ContinuousBatchingEngine(cfg, params, decode_horizon=4, spec_draft=4, **kw)
@@ -1897,6 +2088,302 @@ def phase_trace(cfg, params, dev, trace_dir):
     out["prefill"] = profiled(lambda: [eng.step() for _ in range(4)],
                               "prefill_4_chunks", trace_dir)
     return out
+
+# -- traced windows in a child process ---------------------------------------------------
+#
+# Late in a long process a torch.profiler session loses a prefix of its
+# window's device records: the first 8-10 of 28,803 in five of six late
+# decode windows (tools/trace_loss.py), records past layer 0's decode
+# kernels (3 of 864 decode launches) in phase 6 of one --trace run, 5 of 20
+# conv2d kernels in phase 10.  Idle margins of 0.25 s around the work do
+# not change it: the records are lost inside the profiler, not at the
+# window's edges.  So the traced windows whose launches are gated exactly
+# run in a child process started for them, where nothing earlier has used
+# the profiler; the child draws the model's weights from the seed the
+# parent used, after the parent has freed its copy.
+
+def in_child(fn_name, *args):
+    """``fn_name(*args)``, a function of this module, run in a spawned
+    child process: returns its (picklable) result, or raises with the
+    child's traceback if it failed or exited without one."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=_child_main, args=(fn_name, args, results))
+    proc.start()
+    try:
+        while True:
+            try:
+                status, out = results.get(timeout=5)
+                break
+            except queue.Empty:
+                if not proc.is_alive():
+                    raise AssertionError(f"{fn_name}: the child process exited with "
+                                         f"code {proc.exitcode} and no result")
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+    if status != "ok":
+        raise AssertionError(f"{fn_name} failed in its child process:\n{out}")
+    return out
+
+
+def _child_main(fn_name, args, results):
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        results.put(("ok", globals()[fn_name](*args)))
+    except Exception:       # the parent raises it, with this traceback
+        import traceback
+        results.put(("error", traceback.format_exc()))
+
+
+def child_trace_main(dev, trace_dir):
+    """Phase 6 on phase 4's model (qwen3-8b, seed 0), in a child process."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config("qwen3-8b")
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    return phase_trace(cfg, params, dev, trace_dir)
+
+
+def expert_gemm_kernels(cfg, params, dev, trace_dir):
+    """The (kernel name, grid) pairs of a decode step's three expert
+    products — a (1, E, C, d) buffer through layer 0's stacked expert
+    weights, the einsums of ``moe._routed_experts`` — read from one
+    profiled eager call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import moe_spec
+    spec = moe_spec(cfg)
+    w = {k: params["layers"][f"moe_experts_{k}"][0] for k in ("gate", "up", "down")}
+    buf = torch.zeros((1, spec.padded_experts, capacity(spec, SLOTS), cfg.d_model),
+                      dtype=w["gate"].dtype, device=dev)
+
+    def products():
+        g = torch.einsum("gecd,edf->gecf", buf, w["gate"])
+        u = torch.einsum("gecd,edf->gecf", buf, w["up"])
+        torch.einsum("gecf,efd->gecd", F.silu(g) * u, w["down"])
+
+    products()
+    prof, _ = profile_window(products)
+    path = trace_dir / "trace_moe_expert_products.json.gz"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    with gzip.open(path, "rt") as f:
+        return {(e["name"], tuple(e.get("args", {}).get("grid", ())))
+                for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel" and kernel_group(e["name"]).endswith("GEMMs")}
+
+
+def child_trace_moe(dev, trace_dir):
+    """Phase 12's trace on its model (qwen2-moe-a2.7b, seed 0), in a child
+    process: 8 steady decode steps, their paged decode launches gated at 3
+    a layer a step, and the breakdown by kernel group, expert GEMMs apart."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config(MOE_ARCH)
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    experts = expert_gemm_kernels(cfg, params, dev, trace_dir)
+    say(f"  expert products' kernels (name, grid): {sorted(experts)}")
+    trace = trace_decode_window(cfg, params, dev, trace_dir, 1, 8, NEW_TOKENS,
+                                "moe_decode_8_steps", experts=experts)
+    steps = trace["decode_steps"]
+    trace["us_per_step"] = {g: us / steps for g, us in trace["groups"].items()}
+    say(f"  moe_decode_8_steps by group, us a step: {trace['us_per_step']}; gaps "
+        f"(wall - busy, profiled) {trace['profiled_idle_us_per_step']}; "
+        f"{EXPERT_GROUP} events {trace['counts'].get(EXPERT_GROUP, 0)} (3 a layer a "
+        f"step: {3 * cfg.num_layers * steps})")
+    return trace
+
+
+# -- the MoE path ------------------------------------------------------------------------
+
+def tree_bytes(tree) -> int:
+    import torch
+    return sum(t.numel() * t.element_size() for t in torch.utils._pytree.tree_leaves(tree))
+
+
+def phase_moe(dev, trace_dir):
+    """Phase 12: full-width qwen2-moe-a2.7b, all 24 layers in bf16 (random
+    weights from a seeded generator on the card), on phase 4's engine and
+    traffic: (a) H = 1 with phase 4's gates and steady window; (b) H = 16,
+    tokens (a)'s request by request; (c) speculation at S = 4, the traffic
+    twice, tokens (a)'s or parting at a near-tie; (d) first-step logits,
+    cuda vs gather; with ``trace_dir`` a profiled window of 8 steady decode
+    steps in a child process (:func:`child_trace_moe`); then (e) reduced
+    MoE parity and (f) training."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import moe_spec
+    cfg = get_config(MOE_ARCH)
+    spec = moe_spec(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    expert_bytes = sum(tree_bytes(v) for k, v in params["layers"].items()
+                       if k.startswith("moe_experts_"))
+    say(f"[12] MoE path: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} routed experts "
+        f"(padded to {spec.padded_experts}) top-{cfg.top_k} + {cfg.num_shared_experts} "
+        f"shared, {cfg.moe_groups} routing groups, capacity factor "
+        f"{cfg.capacity_factor}; {cfg.param_count()} params ({cfg.active_param_count()} "
+        f"active a token) in {cfg.dtype}, router in float32; weights {weight_bytes} B "
+        f"({expert_bytes} B of them expert weights, all read by each decode step), "
+        f"initialised in {time.perf_counter() - t0} s")
+    prompts = traffic(cfg.vocab_size)
+    t_serve = time.perf_counter()
+    say(f"[12a] {cfg.name}: phase 4's engine (paged, both kernels pinned, H = 1) and "
+        f"traffic")
+    main = phase_serving(cfg, params, dev, prompts, 1, "phase 12a", steady_calls=8)
+    main_logits = main.pop("first_logits")
+    say(f"[12b] {cfg.name}: decode_horizon=16, phase 12a's traffic")
+    fused = phase_serving(cfg, params, dev, prompts, 16, "phase 12b", steady_calls=2)
+    fused.pop("first_logits")
+    first_difference("phase 12b", main, fused, "phase 12a")
+    spec_run = phase_speculation(cfg, params, dev, prompts, main, main_logits,
+                                 spans=(4,), tag="12c", ref_label="phase 12a")
+    logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25,
+                                     tag="12d")
+    peak = torch.cuda.max_memory_allocated()
+    serve_wall = time.perf_counter() - t_serve
+    say(f"  phase 12a-d: weights {weight_bytes} B, peak memory {peak} B "
+        f"({peak / 2 ** 30} GiB), wall {serve_wall} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = None
+    if trace_dir:
+        say(f"[12t] trace of 8 steady decode steps of {cfg.name} (torch.profiler, in "
+            f"a child process)")
+        trace = in_child("child_trace_moe", dev, trace_dir)
+    reduced = phase_moe_reduced_parity(dev)
+    train = phase_moe_train(dev)
+    return dict(weight_bytes=weight_bytes, expert_bytes=expert_bytes, peak_bytes=peak,
+                serve=main, fused=fused, speculation=spec_run, logits=logits,
+                trace=trace, reduced=reduced, train=train)
+
+
+def phase_moe_reduced_parity(dev):
+    """Phase 12e: reduced qwen2-moe-a2.7b and moonshot-v1-16b-a3b in f32 on
+    the card, token for token: the kernels against the gather path, H = 4
+    and 16 against 1, speculation at S = 4 against H = 1 (each prompt
+    served twice), and paged against contiguous against ``auto`` (no VPE:
+    every admission contiguous; then every admission forced paged).  With
+    4 slots and prompts of at most 64 padded tokens every call routes at
+    most 8 tokens a group, under the capacity floor of 8, so nothing drops
+    and the layouts route alike: a decode step's 4 rows in one group, a
+    verify call's 16 in 16, a 16-token chunk in 16, a whole prompt in 16
+    groups of at most 4."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import pad_to_bucket
+    from repro_torch.models import model as model_lib
+    out = {}
+    for name in MOE_PARITY_ARCHS:
+        cfg = get_config(name).reduced()
+        params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(1))
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                   for n in rng.integers(5, 60, 6)]
+        if max(pad_to_bucket(len(p)) for p in prompts) > 8 * cfg.moe_groups:
+            raise AssertionError("a whole prompt would route more than 8 tokens a group")
+        kw = dict(slots=4, max_len=96, block_size=BS, prefill_chunk=16)
+        runs = {"gather": run_engine(cfg, params, dev, ("grouped", "gather"), prompts,
+                                     12, **kw)}
+        kernels = run_engine(cfg, params, dev, ("cuda", "cuda"), prompts, 12, **kw)
+        for H in (4, 16):
+            runs[f"H={H}"] = run_engine(cfg, params, dev, ("cuda", "cuda"), prompts, 12,
+                                        decode_horizon=H, **kw)
+        for label, extra in (("contiguous", dict(kv_layout="contiguous")),
+                             ("auto", dict(kv_layout="auto")),
+                             ("auto, forced paged", dict(kv_layout="auto",
+                                                         force_paged="all"))):
+            runs[label] = run_engine(cfg, params, dev, ("cuda", "cuda"), prompts, 12,
+                                     **{**kw, **extra})
+        st = []
+        twice = run_engine(cfg, params, dev, ("cuda", "cuda"), prompts + prompts, 12,
+                           decode_horizon=4, spec_draft=4, stats=st, **kw)
+        st = st[0]
+        equal = {label: got == kernels for label, got in runs.items()}
+        equal["spec_draft=4"] = twice == {i: kernels[i % len(prompts)]
+                                          for i in range(2 * len(prompts))}
+        say(f"[12e] reduced {cfg.name} ({cfg.dtype}, {cfg.num_experts} experts top-"
+            f"{cfg.top_k}, {cfg.moe_groups} groups): tokens == (cuda, cuda) H=1 paged: "
+            f"{equal}; spec: {st.spec_calls} verify calls, {st.accepted_tokens}/"
+            f"{st.draft_tokens} drafts accepted")
+        if not all(equal.values()) or not st.spec_calls or not st.accepted_tokens:
+            raise AssertionError(f"reduced {cfg.name}: {equal}, {st.spec_calls} verify "
+                                 f"calls, {st.accepted_tokens} accepted")
+        out[name] = dict(equal=equal, spec_calls=st.spec_calls,
+                         accepted=st.accepted_tokens, drafts=st.draft_tokens)
+        del params
+    return out
+
+
+def phase_moe_train(dev):
+    """Phase 12f: qwen2-moe-a2.7b at full width and 2 layers, 1 x 4096
+    tokens (16 routing groups of 256 tokens, capacity 24: assignments may
+    drop, as in the reference), ``TrainLoop`` with ``flash_cuda`` pinned
+    for 3 steps; gates: finite losses and 2 flash launches a layer a step
+    (remat)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.train_loop import STATIC_BUCKET, TrainLoop, TrainLoopConfig
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+    loop = TrainLoop(cfg, TrainLoopConfig(total_steps=1000, warmup_steps=100,
+                                          log_every=0), data, seed=0, device=dev)
+    loop.vpe.controller.force("attn_impl", STATIC_BUCKET, "flash_cuda",
+                              reason="chip_smoke counts the kernel's launches")
+    torch.cuda.synchronize()
+    state_bytes = tree_bytes((loop.params, loop.opt_state))
+    say(f"[12f] MoE training: {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"{cfg.param_count()} params ({cfg.active_param_count()} active a token), "
+        f"state {state_bytes} B, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"flash_cuda pinned, set up in {time.perf_counter() - t0} s")
+    fa.reset_launch_counts()
+    metrics = loop.run(MOE_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    secs = [m["step_time_s"] for m in metrics]
+    step_s = float(np.median(secs))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    expected = 2 * cfg.num_layers * MOE_TRAIN_STEPS
+    say(f"  losses {losses}, step seconds {secs}; median {step_s} s, "
+        f"{tokens / step_s} tokens/s; peak memory {peak} B ({peak / 2 ** 30} GiB); "
+        f"flash launches {launches} (expected {expected}: 2 per layer per step "
+        f"under remat)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"MoE training: non-finite loss: {losses}")
+    if launches != expected:
+        raise AssertionError(f"MoE training: flash launches {launches} != {expected}")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_s=secs, tokens_per_s=tokens / step_s,
+                peak_bytes=peak, state_bytes=state_bytes, launches=launches)
+
 
 # -- the training path ------------------------------------------------------------------
 
@@ -2340,19 +2827,18 @@ def profiled_kernel_ms(fn, flush, name, iters=20, warmup=10):
     """Median device time, in ms, of the kernel whose name holds ``name``,
     read from torch.profiler over the last ``iters`` of ``warmup + iters``
     calls of ``fn`` made as :func:`device_ms` makes them (L2 flushed before
-    each); None unless the profiler shows that many.  Late in this script
-    the profiler has shown only 15 kernels of 20 calls in a session, hence
-    the calls beyond the measured ones."""
-    import torch
+    each); None unless the profiler shows that many.  Late in a long
+    process a profiler session loses the first records of its window
+    (PERF.md section 7), hence the calls beyond the measured ones."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(warmup + iters):
             flush.zero_()
             fn()
-        torch.cuda.synchronize()
+
+    prof, _ = profile_window(calls)
     spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and name in e.name)
     if len(spans) < iters:
@@ -2583,10 +3069,14 @@ def main(argv=None) -> int:
     del main_logits, cold_4d
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
-    traces = phase_trace(cfg, params, dev, args.trace) if args.trace else None
-    del params                      # the training phase needs the whole card
+    del params                      # the later phases need the card
     gc.collect()
     torch.cuda.empty_cache()
+    traces = None
+    if args.trace:
+        say("[6] traces (torch.profiler, in a child process)")
+        traces = in_child("child_trace_main", dev, args.trace)
+    moe = phase_moe(dev, args.trace)
     train = phase_train(dev, args.trace)
     train_parity = phase_train_parity(dev)
     main_run["launches"]["flash_attention"] = train["launches"]
@@ -2618,7 +3108,7 @@ def main(argv=None) -> int:
                  fused_horizons=fused, auto_horizon=auto, prefix_cache=prefix,
                  layouts=layouts, pressure=pressure, speculation=spec,
                  faults=faults,
-                 full_width_logits=logits, traces=traces, train=train,
+                 full_width_logits=logits, traces=traces, moe=moe, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1, default=str))

@@ -1,17 +1,22 @@
 """Architecture registry of the port: ``get_config(name)`` / ``ARCHS``.
 
-The dense architectures the port serves; each module is a copy of its
-``repro.configs`` counterpart.
+The architectures of the families the port serves (dense, moe, vlm);
+each module is a copy of its ``repro.configs`` counterpart.
 """
 
 from __future__ import annotations
 
 from .base import ModelConfig
+from .chameleon_34b import CONFIG as chameleon_34b
 from .h2o_danube_3_4b import CONFIG as h2o_danube_3_4b
+from .moonshot_v1_16b_a3b import CONFIG as moonshot_v1_16b_a3b
+from .qwen2_5_32b import CONFIG as qwen2_5_32b
 from .qwen2_7b import CONFIG as qwen2_7b
+from .qwen2_moe_a2_7b import CONFIG as qwen2_moe_a2_7b
 from .qwen3_8b import CONFIG as qwen3_8b
 
-ARCHS = {c.name: c for c in (qwen2_7b, qwen3_8b, h2o_danube_3_4b)}
+ARCHS = {c.name: c for c in (qwen2_7b, qwen3_8b, h2o_danube_3_4b, qwen2_5_32b,
+                             chameleon_34b, qwen2_moe_a2_7b, moonshot_v1_16b_a3b)}
 
 
 def get_config(name: str) -> ModelConfig:

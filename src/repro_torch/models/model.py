@@ -3,8 +3,9 @@ the port.
 
 The subset of ``repro.models.model`` the serving paths (the contiguous,
 paged and ``auto`` KV layouts, and the wave path's lockstep cache) and the
-training loop need.  Only the dense family is ported; the other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+training loop need.  The dense, moe and vlm families are ported (all three
+are the transformer, as in the reference); ssm, hybrid and encdec raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,11 @@ from repro_torch.configs.base import ModelConfig
 from . import transformer
 
 _SLOT_FAMILIES = ("dense", "moe", "vlm")
-_PORTED = {"dense": transformer}
+_PORTED = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,   # chameleon: early-fusion = ordinary token ids
+}
 
 
 def supports_slot_serving(cfg: ModelConfig) -> bool:
@@ -32,8 +37,8 @@ def supports_slot_serving(cfg: ModelConfig) -> bool:
 def family_module(cfg: ModelConfig):
     if cfg.family not in _PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"'Other families'); the port serves {sorted(_PORTED)}")
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item "
+            f"1c: ssm, hybrid and encdec); the port serves {sorted(_PORTED)}")
     return _PORTED[cfg.family]
 
 
@@ -42,10 +47,16 @@ def param_shapes(cfg: ModelConfig) -> Any:
 
 
 def count_params_from_shapes(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Analytic parameter count (dense: every parameter is active)."""
-    leaves = pytree.tree_leaves(param_shapes(cfg),
-                                is_leaf=lambda x: isinstance(x, tuple))
-    return sum(math.prod(shape) for shape in leaves)
+    """Analytic parameter count; ``active_only`` scales each ``experts_``
+    leaf by ``top_k / num_experts`` (the reference's per-token count)."""
+    total = 0
+    for path, shape in pytree.tree_flatten_with_path(
+            param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))[0]:
+        n = math.prod(shape)
+        if active_only and any("experts_" in str(getattr(k, "key", k)) for k in path):
+            n = int(n * cfg.top_k / max(cfg.num_experts, 1))
+        total += n
+    return total
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Any:

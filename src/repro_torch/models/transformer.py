@@ -1,16 +1,24 @@
-"""Decoder-only transformer, dense family: parameters, the whole-sequence
-training forward and the serving steps of the three KV layouts
-(contiguous slot cache, paged pool, and ``auto``'s both at once).
+"""Decoder-only transformer (families: dense, moe, vlm): parameters, the
+whole-sequence training forward and the serving steps of the three KV
+layouts (contiguous slot cache, paged pool, and ``auto``'s both at once).
 
-The counterpart of the dense half of ``repro.models.transformer``.  The
-parameter dict has the reference's layout — per-layer weights stacked on a
-leading L axis under ``params["layers"]`` — and the steps walk the layers
-in a Python loop where the reference scans (``params["layers"][name][l]``
-is a view, so the loop copies no weights).  The training forward splits
-each stack once with ``torch.unbind`` instead: under autograd, indexing
-``W[l]`` per layer would make every layer's backward add a zero-filled
-gradient of the whole stack, while ``unbind``'s backward stacks the
-per-layer gradients once.
+The counterpart of ``repro.models.transformer``.  Covers qwen2-7b (GQA +
+QKV bias), qwen3-8b (qk_norm), qwen2.5-32b, h2o-danube-3-4b (SWA),
+chameleon-34b (vlm: qk_norm, early-fusion token ids) and qwen2-moe-a2.7b
+and moonshot-v1-16b-a3b (shared + routed top-k MoE, :mod:`.moe`).  Every
+FFN site goes through :func:`_ffn`, which routes the rows it is given
+together: a decode step routes all slots, live or not, a verify call B*S
+rows, a prefill chunk or a whole prompt its padded length, as the
+reference does, because an MoE layer's capacity depends on that count.
+
+The parameter dict has the reference's layout — per-layer weights stacked
+on a leading L axis under ``params["layers"]`` — and the steps walk the
+layers in a Python loop where the reference scans (``params["layers"][name]
+[l]`` is a view, so the loop copies no weights).  The training forward
+splits each stack once with ``torch.unbind`` instead: under autograd,
+indexing ``W[l]`` per layer would make every layer's backward add a
+zero-filled gradient of the whole stack, while ``unbind``'s backward
+stacks the per-layer gradients once.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
-from . import kvcache, layers
+from . import kvcache, layers, moe
 from .layers import AttnSpec, Params
 
 
@@ -41,6 +49,18 @@ def attn_spec(cfg: ModelConfig) -> AttnSpec:
     )
 
 
+def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    return moe.MoESpec(
+        d_model=cfg.d_model,
+        num_experts=cfg.num_experts,
+        top_k=cfg.top_k,
+        moe_d_ff=cfg.moe_d_ff,
+        num_shared_experts=cfg.num_shared_experts,
+        capacity_factor=cfg.capacity_factor,
+        pad_to=cfg.moe_pad_experts,
+    )
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -51,8 +71,12 @@ def layer_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
     s = attn_spec(cfg)
     shapes: Dict[str, Tuple] = {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
     shapes.update({f"attn_{k}": v for k, v in layers.attn_param_shapes(s).items()})
-    shapes.update({f"ffn_{k}": v for k, v in
-                   layers.swiglu_param_shapes(cfg.d_model, cfg.d_ff).items()})
+    if cfg.family == "moe":
+        shapes.update({f"moe_{k}": v for k, v in
+                       moe.moe_param_shapes(moe_spec(cfg)).items()})
+    else:
+        shapes.update({f"ffn_{k}": v for k, v in
+                       layers.swiglu_param_shapes(cfg.d_model, cfg.d_ff).items()})
     return shapes
 
 
@@ -71,22 +95,28 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters on ``gen``'s device, drawn from ``gen``: the same
-    distributions as the reference's ``init_params`` (not the same
-    numbers — parity tests convert the reference's parameters instead,
-    :mod:`repro_torch.models.convert`)."""
+    distributions and dtypes as the reference's ``init_params`` (an MoE
+    router stays f32), not the same numbers — parity tests convert the
+    reference's parameters instead, :mod:`repro_torch.models.convert`."""
     dt = _dtype(cfg)
     dev = gen.device
     s = attn_spec(cfg)
     # filled layer by layer: a full-width model never holds two copies
-    stacked = {k: torch.empty((cfg.num_layers, *shape), dtype=dt, device=dev)
-               for k, shape in layer_param_shapes(cfg).items()}
+    stacked: Params = {}
     for l in range(cfg.num_layers):
         p: Params = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
                      "ln2": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
         p.update({f"attn_{k}": v for k, v in layers.init_attn(gen, s, dt).items()})
-        p.update({f"ffn_{k}": v for k, v in
-                  layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt).items()})
+        if cfg.family == "moe":
+            p.update({f"moe_{k}": v for k, v in
+                      moe.init_moe(gen, moe_spec(cfg), dt).items()})
+        else:
+            p.update({f"ffn_{k}": v for k, v in
+                      layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt).items()})
         for k, v in p.items():
+            if l == 0:
+                stacked[k] = torch.empty((cfg.num_layers, *v.shape), dtype=v.dtype,
+                                         device=dev)
             stacked[k][l] = v
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
     params: Params = {
@@ -108,7 +138,7 @@ def layer_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
     x = x + layers.attn_block(_sub(p, "attn_"), s, h, positions, causal=True,
                               attn_impl=cfg.attn_impl)
     h = layers.rmsnorm(x, p["ln2"], cfg.rms_eps)
-    return x + layers.swiglu(_sub(p, "ffn_"), h)
+    return x + _ffn(cfg, p, h)
 
 
 def _unbind_layers(stacked: Params, num_layers: int) -> list:
@@ -192,6 +222,15 @@ def _sub(p: Params, prefix: str) -> Params:
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
 
 
+def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """The FFN half of a layer on h (B, S, d): the MoE block for the moe
+    family (its B*S rows routed together), SwiGLU otherwise."""
+    if cfg.family == "moe":
+        return moe.moe_block(_sub(lp, "moe_"), moe_spec(cfg), h,
+                             groups=cfg.moe_groups)
+    return layers.swiglu(_sub(lp, "ffn_"), h)
+
+
 def _layer_kv_fwd(cfg: ModelConfig, s: AttnSpec, lp: Params, x: torch.Tensor,
                   positions: torch.Tensor, attn_call
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -202,7 +241,7 @@ def _layer_kv_fwd(cfg: ModelConfig, s: AttnSpec, lp: Params, x: torch.Tensor,
     o = attn_call(q, k, v)
     x = x + layers._merge_heads(o) @ lp["attn_wo"]
     h = layers.rmsnorm(x, lp["ln2"], cfg.rms_eps)
-    return x + layers.swiglu(_sub(lp, "ffn_"), h), k, v
+    return x + _ffn(cfg, lp, h), k, v
 
 
 def _prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -407,10 +446,10 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Dict,
 
 def _post_attn(cfg: ModelConfig, lp: Params, x: torch.Tensor, o: torch.Tensor
                ) -> torch.Tensor:
-    """Output projection + FFN half of a decode layer."""
+    """Output projection + FFN (or MoE) half of a decode or verify layer."""
     x = x + layers._merge_heads(o) @ lp["attn_wo"]
     h = layers.rmsnorm(x, lp["ln2"], cfg.rms_eps)
-    return x + layers.swiglu(_sub(lp, "ffn_"), h)
+    return x + _ffn(cfg, lp, h)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict,

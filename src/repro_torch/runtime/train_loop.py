@@ -45,6 +45,8 @@ STATIC_BUCKET = ("static",)
 # implementation axes per ported family (first variant = default)
 IMPL_AXES: Dict[str, Dict[str, List[str]]] = {
     "dense": {"attn_impl": ["reference", "flash_cuda"]},
+    "vlm": {"attn_impl": ["reference", "flash_cuda"]},
+    "moe": {"attn_impl": ["reference", "flash_cuda"]},
 }
 
 

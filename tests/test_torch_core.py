@@ -22,17 +22,18 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("name", sorted(tconfigs.ARCHS))
 def test_configs_are_copies(name):
     """Field for field equal to the reference, full and reduced, and the
-    analytic parameter count agrees."""
+    analytic parameter counts (total and active) agree."""
     full, ref = tconfigs.get_config(name), jconfigs.get_config(name)
     assert dataclasses.asdict(full) == dataclasses.asdict(ref)
     assert dataclasses.asdict(full.reduced()) == dataclasses.asdict(ref.reduced())
     assert full.param_count() == ref.param_count()
     assert full.reduced().param_count() == ref.reduced().param_count()
+    assert full.active_param_count() == ref.active_param_count()
 
 
 def test_get_config_unknown_raises():
     with pytest.raises(KeyError):
-        tconfigs.get_config("qwen2-moe-a2.7b")
+        tconfigs.get_config("rwkv6-7b")
 
 
 class TestBucketKeys:

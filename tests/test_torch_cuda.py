@@ -5,8 +5,10 @@ fused horizons against single steps, the prefix cache warm against cold on
 each KV layout, the contiguous and ``auto`` decode graphs, the flash kernel
 in contiguous admissions, a training step with the flash kernel, and the
 paper's six algorithms under the VPE with the matmul and conv2d kernels,
-under a page budget, preemption and swap between graph replays, and the
-speculative verify graphs and a demoted decode-kernel rung.
+under a page budget, preemption and swap between graph replays, the
+speculative verify graphs and a demoted decode-kernel rung, and the MoE
+decode graph (reduced qwen2-moe-a2.7b) and the paged and flash kernels at
+its heads (a group of 1).
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
 entry points default to the card.  This file imports no JAX, so it runs on
@@ -57,6 +59,10 @@ DECODE_CASES = [
     dict(B=2, Hq=28, Hkv=4, bs=16, nb=8, D=20, window=None),
     dict(B=2, Hq=32, Hkv=2, bs=8, nb=10, D=64, window=7),
     dict(B=2, Hq=8, Hkv=2, bs=16, nb=8, D=192, window=None),
+    # qwen2-moe-a2.7b's heads: a group of 1, three of a block's four query
+    # rows padding
+    dict(B=4, Hq=16, Hkv=16, bs=16, nb=64, D=128, window=None),
+    dict(B=4, Hq=16, Hkv=16, bs=16, nb=64, D=128, window=100),
 ]
 PREFILL_CASES = [
     dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, C=16, D=32, window=None),
@@ -70,6 +76,8 @@ PREFILL_CASES = [
     dict(B=2, Hq=32, Hkv=8, bs=16, nb=40, C=128, D=128, window=None, chunk_len=100),
     dict(B=2, Hq=32, Hkv=8, bs=16, nb=40, C=128, D=128, window=100, chunk_len=100),
     dict(B=1, Hq=4, Hkv=2, bs=8, nb=6, C=16, D=20, window=None),
+    # qwen2-moe-a2.7b's heads (a group of 1) on the main path's chunk
+    dict(B=2, Hq=16, Hkv=16, bs=16, nb=40, C=128, D=128, window=None, chunk_len=100),
 ]
 # (B, Hq, Hkv, S, T, D): danube heads (D=120), qwen3 heads (D=128), MHA,
 # S < T (rows aligned at the end), T not a multiple of the 64-key tile;
@@ -85,6 +93,8 @@ FLASH_CASES = [
     dict(B=1, Hq=8, Hkv=8, S=333, T=333, D=120),
     dict(B=1, Hq=8, Hkv=2, S=96, T=160, D=100),
     dict(B=1, Hq=4, Hkv=1, S=64, T=64, D=60),
+    # qwen2-moe-a2.7b's heads, training
+    dict(B=1, Hq=16, Hkv=16, S=1024, T=1024, D=128),
 ]
 # f32: the same sums in another order; bf16: one rounding step of the
 # output (2^-8 relative); f32 with read_dtype: a probability on a bf16
@@ -387,6 +397,36 @@ def test_cuda_decode_graph_replay_equals_eager(cuda_device, impl, horizon):
     calls = horizon * cfg.num_layers if impl == "cuda" else 0
     assert counted == 2 * calls
     assert graphs.replayed_calls == 2 * calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [1, 4])
+def test_cuda_moe_decode_graph_replay_equals_eager(cuda_device, horizon):
+    """Reduced qwen2-moe-a2.7b in f32: the MoE block captures (no host
+    sync in its routing, scatter or gather), and two replays of the
+    decode graph give the eager loop's tokens, valid masks and lengths,
+    and its pool within 1e-5."""
+    from repro_torch.runtime.decode_graphs import DecodeGraphs
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    assert params["layers"]["moe_router"].dtype == torch.float32
+    pool, cache, inputs = _decode_state(cfg, cuda_device, seed=7 + horizon)
+    e_pool, e_cache, e_inputs = _clone(pool), _clone(cache), inputs.clone()
+    graphs = DecodeGraphs(cfg, params, "paged", cache, inputs, pool=pool)
+    for _ in range(2):
+        toks, valid, _ = graphs.run("cuda", horizon)
+        _, _, e_toks, e_valid, e_final = tmodel.decode_steps_paged(
+            cfg, params, e_pool, e_cache, e_inputs[0][:, None], e_inputs[1],
+            e_inputs[2], e_inputs[4], horizon, decode_impl="cuda")
+        e_inputs[0].copy_(e_final)
+        np.testing.assert_array_equal(valid, e_valid.cpu().numpy())
+        np.testing.assert_array_equal(toks * valid, (e_toks * e_valid).cpu().numpy())
+        assert torch.equal(inputs, e_inputs)
+        assert torch.equal(cache["length"], e_cache["length"])
+        for k in "kv":
+            torch.testing.assert_close(pool[k][:, :-1], e_pool[k][:, :-1],
+                                       rtol=1e-5, atol=1e-5)
+    assert (graphs.captures, graphs.replays) == (1, 2)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Port model steps against ``repro`` on the same (converted) weights:
 ``decode_step_paged`` and ``prefill_chunk_paged`` logits and pool
 updates on three reduced dense archs (GQA + qk_norm, QKV bias, sliding
-window), every attention backend of each package paired with its
-counterpart.  f32, logits within 1e-4."""
+window), reduced qwen2-moe-a2.7b (MoE) and chameleon-34b (vlm), every
+attention backend of each package paired with its counterpart.  f32,
+logits within 1e-4."""
 
 import dataclasses
 
@@ -25,7 +26,8 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 torch.set_num_threads(1)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 KV_TOL = dict(rtol=1e-5, atol=1e-5)
-ARCH_NAMES = ["qwen3-8b", "qwen2-7b", "h2o-danube-3-4b"]
+ARCH_NAMES = ["qwen3-8b", "qwen2-7b", "h2o-danube-3-4b", "qwen2-moe-a2.7b",
+              "chameleon-34b"]
 BS, NB, PAGES = 8, 6, 14          # 48 positions per slot: past danube's window
 
 
@@ -169,7 +171,16 @@ def test_copy_page_against_reference():
 
 
 def test_other_families_not_ported():
-    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), family="moe")
-    assert tmodel.supports_slot_serving(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_params(cfg, torch.Generator("cpu"))
+    """ssm, hybrid and encdec are still refused, naming their ROADMAP
+    item; moe and vlm init."""
+    base = get_config("qwen3-8b").reduced()
+    for family in ("ssm", "hybrid", "encdec"):
+        cfg = dataclasses.replace(base, family=family)
+        assert not tmodel.supports_slot_serving(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1c"):
+            tmodel.init_params(cfg, torch.Generator("cpu"))
+    for name in ("qwen2-moe-a2.7b", "chameleon-34b"):
+        cfg = get_config(name).reduced()
+        assert tmodel.supports_slot_serving(cfg)
+        params = tmodel.init_params(cfg, torch.Generator("cpu").manual_seed(0))
+        assert params["layers"].keys() == tmodel.param_shapes(cfg)["layers"].keys()
