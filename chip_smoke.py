@@ -112,6 +112,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    route without a drop); (f) training at full width and 2 layers, 1 x
    4096 tokens, ``flash_cuda`` pinned, 3 steps: finite losses, 2 flash
    launches a layer a step;
+13. the recurrent and encoder-decoder families, each model freed before
+   the next: (a) zamba2-1.2b, (b) rwkv6-7b and (c) whisper-base at full
+   width in bf16 (random weights from a seeded generator on the card;
+   weights, cache and peak bytes printed), two waves of 4 requests on
+   ``ServeLoop(batch=4)`` + ``WaveScheduler`` (whisper: ``generate`` with
+   seeded frames), 32 new tokens each, ``flash_cuda`` pinned where there
+   is attention; printed: prefill s, decode tok/s, the decode wall a step
+   and the flash launches (zeroed just before the run): 6 a prefill for
+   zamba2, 18 for whisper, none for rwkv6; gates: tokens in range,
+   first-step logits ``flash_cuda`` against ``reference`` within 0.25,
+   and (zamba2, rwkv6) prefill against a step-by-step decode replay of
+   wave 1 on the same weights in f32 within 2e-2 (the bf16 difference
+   printed); (d) the flash kernel at these families' shapes (head_dim 64,
+   causal and non-causal, S < T and S > T) against its plain version,
+   bf16 and f32, and its time at zamba2's training shape and whisper's
+   encoder beside the plain version's, one SDPA call's and the bound; (e)
+   the reduced configs in f32 (zamba2 also with a mamba tail): tokens
+   equal across ``attn_impl`` (rwkv6: ``wkv_impl``), prefill against the
+   decode replay; (f) training at 1 x 4096 tokens, 3 steps: zamba2-1.2b at
+   full width (12 flash launches a step) and rwkv6-7b at full width cut
+   to 2 layers, and one whisper-base ``loss_fn`` backward with frames (36
+   flash launches): finite losses and gradients;
 7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
    master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
    with the VPE free until it concludes its ``attn_impl`` trial, then with
@@ -2385,6 +2407,474 @@ def phase_moe_train(dev):
                 peak_bytes=peak, state_bytes=state_bytes, launches=launches)
 
 
+# -- the recurrent and encoder-decoder families (phase 13) --------------------------------
+
+FAMILY_SLOTS, FAMILY_NEW, FAMILY_MAX_LEN = 4, 32, 1024
+# two waves of 4 requests, 64..512 prompt tokens; each wave's longest prompt
+# (256, 512) makes its left-padded span a multiple of 128, so both chunked
+# scans' length checks (SSD chunk 128, WKV chunk 32) hold without padding
+FAMILY_WAVES = ((64, 100, 180, 256), (120, 300, 400, 512))
+# whisper-base: each wave's 4 prompts of one length (no left-pad) against
+# 1500 frames
+WHISPER_WAVES = (32, 256)
+# limits on logits at the last prompt position: full-width bf16
+# flash_cuda against reference, 0.25 (the bf16 tie scale of phases 5b and
+# 12d, written down before the first chip run); prefill against a
+# step-by-step decode replay in f32 weights, full width and reduced: the
+# reference's test_prefill_matches_decode_replay limit.  In bf16 the replay
+# is printed, not gated: random-weight zamba2 and rwkv6 amplify a one-step
+# bf16 rounding difference ~200x over their layers (0.77 and 0.34 on the
+# card, against 0.0089 and 0.00018 in f32)
+FAMILY_LOGIT_ATOL, REPLAY_TOL = 0.25, 2e-2
+# the flash kernel at this phase's shapes (Hq, Hkv, S, T, D, causal):
+# zamba2-1.2b's shared block (prefill spans 256 and 512, training 4096);
+# whisper-base's encoder (1500 frames), decoder self-attention (32, 256
+# tokens) and cross-attention (32 and 256 rows against 1500 frames; and 32
+# rows against 24 frames, the reduced config's negative row offset T - S)
+FAMILY_FLASH_CASES = ((32, 32, 256, 256, 64, True), (32, 32, 512, 512, 64, True),
+                      (32, 32, 4096, 4096, 64, True), (8, 8, 1500, 1500, 64, False),
+                      (8, 8, 32, 32, 64, True), (8, 8, 256, 256, 64, True),
+                      (8, 8, 32, 1500, 64, False), (8, 8, 256, 1500, 64, False),
+                      (8, 8, 32, 24, 64, False))
+# timed: zamba2-1.2b's training shape and whisper-base's encoder
+FAMILY_FLASH_TIMES = ((32, 32, 4096, 4096, 64, True), (8, 8, 1500, 1500, 64, False))
+FAMILY_TRAIN_STEPS, RWKV_TRAIN_LAYERS = 3, 2
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill under ``flash_cuda``: one a shared-block
+    application (hybrid); encoder self, decoder self and cross a layer
+    (encdec); none (ssm)."""
+    from repro_torch.models import hybrid
+    if cfg.family == "hybrid":
+        return hybrid.macro_counts(cfg)[0]
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.decoder_layers
+    return 0
+
+
+def family_waves(cfg, waves, seed=13):
+    """Prompts a wave: seeded ids of the wave's lengths (``WHISPER_WAVES``
+    gives one length a wave)."""
+    rng = np.random.default_rng(seed)
+    lens = [(n,) * FAMILY_SLOTS if isinstance(n, int) else n for n in waves]
+    return [[rng.integers(0, cfg.vocab_size, m).astype(np.int32) for m in w]
+            for w in lens]
+
+
+def left_padded(wave):
+    """A wave's (B, span) tokens as ``WaveScheduler`` builds them."""
+    span = max(len(p) for p in wave)
+    toks = np.zeros((len(wave), span), np.int32)
+    for i, p in enumerate(wave):
+        toks[i, -len(p):] = p
+    return toks
+
+
+def serve_waves(cfg, params, dev, waves, label, frames=None):
+    """The waves on ``ServeLoop(batch=4)``: through ``WaveScheduler``, or for
+    encdec one ``generate`` a wave with {"tokens", "frames"} (the
+    scheduler hands ``generate`` tokens only, as the reference's does).
+    The flash launch count is zeroed just before and read just after."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.serve_loop import Request, ServeLoop, WaveScheduler
+    serve = ServeLoop(cfg, params, max_len=FAMILY_MAX_LEN, batch=FAMILY_SLOTS,
+                      device=dev)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    if frames is None:
+        sched = WaveScheduler(serve)
+        for i, p in enumerate(p for wave in waves for p in wave):
+            sched.submit(Request(rid=i, prompt=p, max_new_tokens=FAMILY_NEW))
+        tokens = {r.rid: list(r.out) for r in sched.run()}
+    else:
+        tokens = {}
+        for w, wave in enumerate(waves):
+            out = serve.generate({"tokens": np.stack(wave), "frames": frames}, FAMILY_NEW)
+            tokens.update({w * FAMILY_SLOTS + i: [int(t) for t in row]
+                           for i, row in enumerate(out)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    st = serve.stats
+    steps = len(waves) * FAMILY_NEW
+    run = dict(tokens=tokens, prefill_s=st.prefill_s, decode_s=st.decode_s,
+               decode_tok_per_s=st.decode_tok_per_s, step_ms=st.decode_s / steps * 1e3,
+               flash_launches=launches, wall_s=wall)
+    say(f"  {label}: {len(tokens)} requests in {len(waves)} waves of {FAMILY_SLOTS}, "
+        f"{FAMILY_NEW} new tokens each; prefill {st.prefill_s} s, decode "
+        f"{st.decode_tok_per_s} tok/s, decode wall a step {run['step_ms']} ms "
+        f"({steps} steps), wall {wall} s; flash launches {launches}")
+    bad = [t for out in tokens.values() for t in out if not 0 <= t < cfg.vocab_size]
+    if bad or any(len(out) != FAMILY_NEW for out in tokens.values()):
+        raise AssertionError(f"{label}: tokens out of range or missing: {bad[:8]}")
+    expected = flash_per_prefill(cfg) * len(waves) if cfg.attn_impl == "flash_cuda" else 0
+    if launches != expected:
+        raise AssertionError(f"{label}: flash launches {launches} != {expected} "
+                             f"({flash_per_prefill(cfg)} a prefill)")
+    return run
+
+
+def last_logits(cfg, params, dev, toks, frames=None):
+    """(B, V) f32 logits at the last prompt position: one prefill."""
+    import torch
+    from repro_torch.models import model as model_lib
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if frames is not None:
+        batch["frames"] = frames
+    cache = model_lib.init_cache(cfg, toks.shape[0], FAMILY_MAX_LEN, dev)
+    return model_lib.prefill(cfg, params, batch, cache)[1][:, -1].float()
+
+
+def replay_logits(cfg, params, dev, toks):
+    """(B, V) f32 logits at the last prompt position: the prompt decoded one
+    token at a time from an empty cache."""
+    import torch
+    from repro_torch.models import model as model_lib
+    t = torch.as_tensor(toks, device=dev)
+    cache = model_lib.init_cache(cfg, t.shape[0], FAMILY_MAX_LEN, dev)
+    for i in range(t.shape[1]):
+        cache, logits = model_lib.decode_step(cfg, params, cache, t[:, i:i + 1])
+    return logits[:, -1].float()
+
+
+def decode_step_breakdown(cfg, params, dev, toks, frames, label):
+    """One eager lockstep decode step after a prefill of ``toks``: the
+    device kernels it launches and their summed time (torch.profiler, one
+    profiled step after 3 warm ones), and the mean wall of 5 unprofiled
+    steps; the card's idle share is 1 - busy / wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.models import model as model_lib
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if frames is not None:
+        batch["frames"] = frames
+    cache = model_lib.init_cache(cfg, toks.shape[0], FAMILY_MAX_LEN, dev)
+    cache, logits = model_lib.prefill(cfg, params, batch, cache)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    for _ in range(3):
+        cache, _ = model_lib.decode_step(cfg, params, cache, tok)
+    holder = {}
+
+    def one():
+        holder["cache"] = model_lib.decode_step(cfg, params, cache, tok)[0]
+
+    prof, wall_us = profile_window(one)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    cache = holder.pop("cache")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        cache, _ = model_lib.decode_step(cfg, params, cache, tok)
+    torch.cuda.synchronize()
+    step_us = (time.perf_counter() - t0) / 5 * 1e6
+    say(f"  {label}: a decode step launches {len(kernels)} kernels, device busy "
+        f"{busy_us} us (profiled wall {wall_us} us); unprofiled {step_us} us a step, "
+        f"idle share {1 - busy_us / step_us}")
+    return dict(kernels=len(kernels), busy_us=busy_us, profiled_wall_us=wall_us,
+                step_us=step_us, idle_share=1 - busy_us / step_us)
+
+
+def logit_gate(label, got, want, atol):
+    """Max abs difference of two (B, V) logit blocks within ``atol``; both
+    finite; the argmax agreement printed."""
+    import torch
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    diff = float((got - want).abs().max())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    say(f"  {label}: max |diff| {diff} (limit {atol}), argmax equal in {agree} of "
+        f"{got.shape[0]}")
+    if diff > atol:
+        raise AssertionError(f"{label}: logits differ by {diff} > {atol}")
+    return dict(max_abs_diff=diff, argmax_equal=agree)
+
+
+def phase_family_serving(dev, name, tag):
+    """Phase 13a-c: ``name`` at full width in bf16 (random weights from a
+    seeded generator on the card), two waves of 4 on ``ServeLoop`` with
+    ``flash_cuda`` pinned where the family has attention; gates: tokens in
+    range, the flash launches a prefill, first-step logits ``flash_cuda``
+    against ``reference`` within ``FAMILY_LOGIT_ATOL``; for the recurrent
+    families prefill against a step-by-step decode replay of wave 1,
+    printed in bf16, then gated within ``REPLAY_TOL`` on the same weights
+    in f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(0)
+    params = model_lib.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    cache_bytes = tree_bytes(model_lib.init_cache(cfg, FAMILY_SLOTS, FAMILY_MAX_LEN, dev))
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.randn((FAMILY_SLOTS, cfg.source_len, cfg.d_model), generator=gen,
+                             device=dev).to(getattr(torch, cfg.dtype))
+    waves = family_waves(cfg, WHISPER_WAVES if frames is not None else FAMILY_WAVES)
+    run_cfg = (cfg if cfg.attention_free
+               else dataclasses.replace(cfg, attn_impl="flash_cuda"))
+    say(f"[{tag}] {cfg.name} ({cfg.family}) at full width: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.param_count()} params in {cfg.dtype}; weights "
+        f"{weight_bytes} B, lockstep cache {cache_bytes} B at batch {FAMILY_SLOTS} x "
+        f"max_len {FAMILY_MAX_LEN}; attn_impl {run_cfg.attn_impl}"
+        + (" (no attention: no kernel runs in this phase)" if cfg.attention_free else
+           f" ({flash_per_prefill(cfg)} flash launches a prefill)")
+        + f"; prompt lengths {[[len(p) for p in w] for w in waves]}; initialised in "
+        f"{time.perf_counter() - t0} s")
+    run = serve_waves(run_cfg, params, dev, waves, f"phase {tag}", frames)
+    toks = np.stack(waves[0]) if frames is not None else left_padded(waves[0])
+    run["decode_step"] = decode_step_breakdown(run_cfg, params, dev, toks, frames,
+                                               f"phase {tag}")
+    first = last_logits(run_cfg, params, dev, toks, frames)
+    if not cfg.attention_free:
+        run["flash_vs_reference"] = logit_gate(
+            f"phase {tag} first-step logits, flash_cuda vs reference", first,
+            last_logits(cfg, params, dev, toks, frames), FAMILY_LOGIT_ATOL)
+    if cfg.family != "encdec":
+        t1 = time.perf_counter()
+        replay = replay_logits(run_cfg, params, dev, toks)
+        run["replay_step_ms"] = (time.perf_counter() - t1) / toks.shape[1] * 1e3
+        run["prefill_vs_replay_bf16"] = float((first - replay).abs().max())
+        say(f"  phase {tag} wave 1 ({toks.shape[1]} tokens), bf16: prefill vs decode "
+            f"replay max |diff| {run['prefill_vs_replay_bf16']} (not gated), argmax "
+            f"equal in {int((first.argmax(-1) == replay.argmax(-1)).sum())} of "
+            f"{toks.shape[0]}; replay {run['replay_step_ms']} ms a step")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  phase {tag}: weights {weight_bytes} B, cache {cache_bytes} B, peak memory "
+        f"{peak} B ({peak / 2 ** 30} GiB)")
+    run.update(weight_bytes=weight_bytes, cache_bytes=cache_bytes, peak_bytes=peak)
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.family != "encdec":
+        f32 = dataclasses.replace(run_cfg, dtype="float32")
+        params = model_lib.init_params(f32, torch.Generator(dev).manual_seed(0))
+        run["prefill_vs_replay_f32"] = logit_gate(
+            f"phase {tag} wave 1, the same weights in f32: prefill vs decode replay",
+            last_logits(f32, params, dev, toks), replay_logits(f32, params, dev, toks),
+            REPLAY_TOL)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return run
+
+
+def phase_family_flash(dev):
+    """Phase 13d: the flash kernel at this phase's shapes against its plain
+    version, bf16 and f32 with phase 3's tolerances; then, at zamba2's
+    training shape and whisper's encoder, its time beside the plain
+    version's, one SDPA call's (timed only) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    say("[13d] flash kernel at the recurrent and encoder-decoder shapes (B=1, head_dim "
+        "64) against its plain version")
+    gen = torch.Generator(dev).manual_seed(13)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for Hq, Hkv, S, T, D, causal in FAMILY_FLASH_CASES:
+            q, k, v = flash_inputs(gen, dtype, Hq, Hkv, S, T, D)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                f"flash {str(dtype)[6:]} Hq={Hq} Hkv={Hkv} D={D} S={S} T={T} "
+                f"causal={causal} (row offset {T - S})", got, want,
+                *flash_tolerance(dtype)))
+            del q, k, v, got, want
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    times = {}
+    for Hq, Hkv, S, T, D, causal in FAMILY_FLASH_TIMES:
+        q, k, v = flash_inputs(gen, torch.bfloat16, Hq, Hkv, S, T, D)
+        kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: ref.attention_ref(q, k, v, causal=causal)  # noqa: E731
+        shape = f"B=1 Hq={Hq} Hkv={Hkv} S={S} T={T} D={D} causal={causal} bf16"
+        e = check_close(f"flash_attention [{shape}]", kernel(), plain(),
+                        *flash_tolerance(torch.bfloat16))
+        ms, plain_ms = device_ms(kernel, flush), device_ms(plain, flush)
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), flush)
+        nbytes, ops = flash_work(S, T, Hq, Hkv, D, causal, None, 2)
+        bound_ms, bound_by = bound(nbytes, ops, "bfloat16")
+        say(f"  flash_attention [{shape}]: kernel {ms} ms, plain {plain_ms} ms, SDPA "
+            f"{library_ms} ms, bound {bound_ms} ms ({bound_by}: {nbytes} B, {ops} ops), "
+            f"kernel/bound {ms / bound_ms}")
+        times[shape] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms, bytes=nbytes,
+                            ops=ops)
+        del q, k, v
+    del flush
+    return dict(max_abs_err=err, times=times)
+
+
+def phase_family_reduced_parity(dev):
+    """Phase 13e: the reduced configs in f32 on the card (zamba2-1.2b also
+    at 5 layers, with a mamba tail): two waves through ``ServeLoop``, greedy
+    tokens equal between ``flash_cuda`` and ``reference`` (rwkv6-7b, which
+    has no attention: ``wkv_impl`` chunked and sequential), and prefill
+    against a decode replay within ``REPLAY_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    out = {}
+    for name, layers in (("zamba2-1.2b", None), ("zamba2-1.2b", 5), ("rwkv6-7b", None),
+                         ("whisper-base", None)):
+        cfg = get_config(name).reduced()
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        gen = torch.Generator(dev).manual_seed(2)
+        params = model_lib.init_params(cfg, gen)
+        frames = None
+        if cfg.family == "encdec":
+            frames = torch.randn((FAMILY_SLOTS, cfg.source_len, cfg.d_model),
+                                 generator=gen, device=dev)
+            waves = family_waves(cfg, (32, 16), seed=2)
+        else:
+            waves = family_waves(cfg, ((16, 9, 32, 20), (5, 12, 16, 7)), seed=2)
+        axis, variants = (("wkv_impl", ("chunked", "sequential")) if cfg.attention_free
+                          else ("attn_impl", ("flash_cuda", "reference")))
+        label = f"reduced {cfg.name} at {cfg.num_layers} layers"
+        runs = {v: serve_waves(dataclasses.replace(cfg, **{axis: v}), params, dev, waves,
+                               f"phase 13e {label}, {axis}={v}", frames)
+                for v in variants}
+        equal = runs[variants[0]]["tokens"] == runs[variants[1]]["tokens"]
+        say(f"  phase 13e {label}: tokens {axis} {variants[0]} == {variants[1]}: {equal}")
+        if not equal:
+            raise AssertionError(f"phase 13e {label}: tokens differ across {axis}")
+        out[f"{name}/{cfg.num_layers}"] = dict(equal=equal)
+        if cfg.family != "encdec":
+            toks = left_padded(waves[0])
+            out[f"{name}/{cfg.num_layers}"]["prefill_vs_replay"] = logit_gate(
+                f"phase 13e {label}: prefill vs decode replay",
+                last_logits(cfg, params, dev, toks),
+                replay_logits(cfg, params, dev, toks), REPLAY_TOL)
+        del params, frames
+    return out
+
+
+def phase_family_train(dev):
+    """Phase 13f: zamba2-1.2b at full width and rwkv6-7b at full width cut to
+    2 layers (its 7.5 B parameters with f32 master, m and v would need ~120
+    GB), ``TrainLoop`` at 1 x 4096 tokens, remat, the scan variant
+    ``chunked`` and ``flash_cuda`` pinned, 3 steps: finite losses and flash
+    launches of 2 a shared-block application a step (forward and remat
+    recompute; the backward runs the reference's VJP) — 12 for zamba2, none
+    for rwkv6.  Then whisper-base: one ``loss_fn`` backward at full width
+    with frames, 4 x 256 tokens: finite gradients and 2 flash launches an
+    attention (36)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.train_loop import STATIC_BUCKET, TrainLoop, TrainLoopConfig
+    out = {}
+    for name, layers, pinned in (
+            ("zamba2-1.2b", None, {"ssd_impl": "chunked", "attn_impl": "flash_cuda"}),
+            ("rwkv6-7b", RWKV_TRAIN_LAYERS, {"wkv_impl": "chunked"})):
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        data = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH, seed=0))
+        loop = TrainLoop(cfg, TrainLoopConfig(total_steps=1000, warmup_steps=100,
+                                              log_every=0), data, seed=0, device=dev)
+        for axis, variant in pinned.items():
+            loop.vpe.controller.force(axis, STATIC_BUCKET, variant,
+                                      reason="chip_smoke pins the variants")
+        torch.cuda.synchronize()
+        state_bytes = tree_bytes((loop.params, loop.opt_state))
+        say(f"[13f] training {cfg.name} at full width, {cfg.num_layers} layers, "
+            f"{cfg.param_count()} params, state {state_bytes} B, batch {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} tokens, remat {cfg.remat}, pinned {pinned}, set up in "
+            f"{time.perf_counter() - t0} s")
+        fa.reset_launch_counts()
+        metrics = loop.run(FAMILY_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in metrics]
+        secs = [m["step_time_s"] for m in metrics]
+        expected = 2 * flash_per_prefill(cfg) * FAMILY_TRAIN_STEPS
+        say(f"  losses {losses}, step seconds {secs}, {TRAIN_BATCH * TRAIN_SEQ / np.median(secs)} "
+            f"tokens/s; peak memory {peak} B ({peak / 2 ** 30} GiB); flash launches "
+            f"{launches} (expected {expected})")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"training {cfg.name}: non-finite loss: {losses}")
+        if launches != expected:
+            raise AssertionError(f"training {cfg.name}: flash launches {launches} != "
+                                 f"{expected}")
+        out[name] = dict(losses=losses, step_s=secs, peak_bytes=peak,
+                         state_bytes=state_bytes, launches=launches)
+        del loop
+    cfg = dataclasses.replace(get_config("whisper-base"), attn_impl="flash_cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(dev).manual_seed(3)
+    params = model_lib.init_params(cfg, gen)
+    leaves, spec = torch.utils._pytree.tree_flatten(params)
+    leaves = [p.requires_grad_() for p in leaves]
+    toks = torch.randint(0, cfg.vocab_size, (FAMILY_SLOTS, 257), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "frames": torch.randn((FAMILY_SLOTS, cfg.source_len, cfg.d_model),
+                                   generator=gen, device=dev).to(getattr(torch, cfg.dtype))}
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = model_lib.loss_fn(cfg, torch.utils._pytree.tree_unflatten(leaves, spec), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    expected = 2 * flash_per_prefill(cfg)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[13f] whisper-base loss_fn backward at full width, {FAMILY_SLOTS} x 256 tokens "
+        f"against {cfg.source_len} frames: loss {float(loss.detach())}, gradients finite "
+        f"{finite}, {wall} s, peak memory {peak} B; flash launches {launches} "
+        f"(expected {expected})")
+    if not (finite and np.isfinite(float(loss.detach()))):
+        raise AssertionError("whisper-base: non-finite loss or gradients")
+    if launches != expected:
+        raise AssertionError(f"whisper-base backward: flash launches {launches} != "
+                             f"{expected}")
+    out["whisper-base"] = dict(loss=float(loss.detach()), wall_s=wall, peak_bytes=peak,
+                               launches=launches)
+    del params, leaves, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(dev):
+    """Phase 13: the recurrent and encoder-decoder families."""
+    t0 = time.perf_counter()
+    out = {"zamba2-1.2b": phase_family_serving(dev, "zamba2-1.2b", "13a"),
+           "rwkv6-7b": phase_family_serving(dev, "rwkv6-7b", "13b"),
+           "whisper-base": phase_family_serving(dev, "whisper-base", "13c"),
+           "flash": phase_family_flash(dev),
+           "reduced": phase_family_reduced_parity(dev),
+           "train": phase_family_train(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"  phase 13 wall {out['wall_s']} s")
+    return out
+
+
 # -- the training path ------------------------------------------------------------------
 
 def flash_inputs(gen, dtype, Hq, Hkv, S, T, D):
@@ -3077,6 +3567,7 @@ def main(argv=None) -> int:
         say("[6] traces (torch.profiler, in a child process)")
         traces = in_child("child_trace_main", dev, args.trace)
     moe = phase_moe(dev, args.trace)
+    families = phase_families(dev)
     train = phase_train(dev, args.trace)
     train_parity = phase_train_parity(dev)
     main_run["launches"]["flash_attention"] = train["launches"]
@@ -3108,7 +3599,8 @@ def main(argv=None) -> int:
                  fused_horizons=fused, auto_horizon=auto, prefix_cache=prefix,
                  layouts=layouts, pressure=pressure, speculation=spec,
                  faults=faults,
-                 full_width_logits=logits, traces=traces, moe=moe, train=train,
+                 full_width_logits=logits, traces=traces, moe=moe,
+                 families=families, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1, default=str))

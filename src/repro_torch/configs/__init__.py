@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config(name)`` / ``ARCHS``.
 
-The architectures of the families the port serves (dense, moe, vlm);
-each module is a copy of its ``repro.configs`` counterpart.
+The architectures of every family the reference assembles (dense, moe,
+vlm, ssm, hybrid, encdec); each module is a copy of its ``repro.configs``
+counterpart.
 """
 
 from __future__ import annotations
@@ -14,9 +15,13 @@ from .qwen2_5_32b import CONFIG as qwen2_5_32b
 from .qwen2_7b import CONFIG as qwen2_7b
 from .qwen2_moe_a2_7b import CONFIG as qwen2_moe_a2_7b
 from .qwen3_8b import CONFIG as qwen3_8b
+from .rwkv6_7b import CONFIG as rwkv6_7b
+from .whisper_base import CONFIG as whisper_base
+from .zamba2_1_2b import CONFIG as zamba2_1_2b
 
 ARCHS = {c.name: c for c in (qwen2_7b, qwen3_8b, h2o_danube_3_4b, qwen2_5_32b,
-                             chameleon_34b, qwen2_moe_a2_7b, moonshot_v1_16b_a3b)}
+                             chameleon_34b, qwen2_moe_a2_7b, moonshot_v1_16b_a3b,
+                             rwkv6_7b, zamba2_1_2b, whisper_base)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,9 +1,12 @@
 """Config system: one frozen dataclass describes an architecture.
 
 A copy of ``repro.configs.base.ModelConfig`` (field for field, so the two
-packages' configs compare equal as dicts); the port serves the dense,
-moe and vlm families.  ``reduced()`` derives the family-preserving smoke
-config (small width/depth/vocab/experts) the CPU parity tests run.
+packages' configs compare equal as dicts); ``family`` selects the model
+assembly, as in the reference: dense, moe and vlm (the transformer), ssm
+(the RWKV6 stack), hybrid (Mamba2 + one shared attention block) and encdec
+(whisper-style, frontend stubbed).  ``reduced()`` derives the
+family-preserving smoke config (small width/depth/vocab/experts) the CPU
+parity tests run.
 """
 
 from __future__ import annotations

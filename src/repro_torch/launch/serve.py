@@ -10,9 +10,14 @@
          --max-queue-depth 16] [--device cpu]
 
 Without ``--continuous`` requests run in waves (``ServeLoop`` +
-``WaveScheduler``, the baseline).  The flags are those of
+``WaveScheduler``, the baseline), the only path of the recurrent and
+hybrid archs (rwkv6-7b, zamba2-1.2b): ``--continuous`` refuses them, as
+the reference's engine does.  The flags are those of
 ``repro.launch.serve``; ``--mesh``, whose replicas and shards are not
-ported, is rejected with the ROADMAP item that ports it.
+ported, is rejected with the ROADMAP item that ports it.  An encdec arch
+(whisper-base) is refused: its prefill needs frames, and neither this
+launcher nor the reference's has a source of them (serve it through
+``ServeLoop.generate`` with {"tokens", "frames"}).
 """
 
 from __future__ import annotations
@@ -33,6 +38,10 @@ from repro_torch.runtime.serve_loop import (LATER, SERVE_AXES,
 
 # flags of repro.launch.serve outside the port -> ROADMAP item
 _LATER_FLAGS = {"--mesh": "mesh"}
+NO_FRAMES = ("{arch} needs frame embeddings and this launcher has no source "
+             "of them (nor has the reference's); call ServeLoop.generate "
+             "with {{'tokens', 'frames'}} or model.loss_fn with a 'frames' "
+             "batch")
 
 
 def main(argv=None) -> None:
@@ -150,6 +159,8 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family == "encdec":
+        ap.error(NO_FRAMES.format(arch=args.arch))
     if args.smoke:
         cfg = cfg.reduced()
     params = model_lib.init_params(

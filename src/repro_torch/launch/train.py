@@ -5,12 +5,14 @@
     python -m repro_torch.launch.train --arch qwen3-8b --smoke \\
         --steps 4 --batch 4 --seq 32 --device cpu
 
-The flags are those of ``repro.launch.train``.  ``--smoke`` trains the
-reduced config; without it the full config is trained on one device (the
-port has no production mesh yet: ROADMAP queue 1, item 5).  The VPE
-trials the attention implementations (``reference``, ``flash_cuda``)
-inside the loop unless ``--no-vpe``; its decision table is printed at the
-end.
+The flags are those of ``repro.launch.train``; an encdec arch
+(whisper-base) is refused, since ``SyntheticStream`` yields no frames.
+``--smoke`` trains the reduced config; without it the full config is
+trained on one device (the port has no production mesh yet: ROADMAP
+queue 1, item 5).  The VPE trials the family's implementation axes
+(``attn_impl``: ``reference``, ``flash_cuda``; ``ssd_impl`` or
+``wkv_impl``: ``chunked``, ``sequential``) inside the loop unless
+``--no-vpe``; its decision table is printed at the end.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import argparse
 
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticStream
+from repro_torch.launch.serve import NO_FRAMES
 from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
 
 
@@ -42,6 +45,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.family == "encdec":
+        ap.error(NO_FRAMES.format(arch=args.arch))
     if args.smoke:
         cfg = cfg.reduced()
     data = SyntheticStream(DataConfig(

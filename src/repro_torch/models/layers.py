@@ -1,5 +1,5 @@
-"""Shared neural blocks: norms, RoPE, attention, GQA projections, FFN,
-initialisers.
+"""Shared neural blocks: norms, RoPE, attention, GQA projections, FFNs
+(SwiGLU and the GELU MLP), initialisers.
 
 Plain functions over parameter dicts of tensors, as in ``repro.models.
 layers``.  Weights keep the reference's ``(d_in, d_out)`` orientation, so
@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref as kref
@@ -261,3 +262,76 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp_param_shapes(d_model: int, d_ff: int) -> Dict[str, Tuple]:
+    return {"w_in": (d_model, d_ff), "b_in": (d_ff,), "w_out": (d_ff, d_model),
+            "b_out": (d_model,)}
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype: torch.dtype) -> Params:
+    dev = gen.device
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, dtype),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_out": dense_init(gen, d_ff, d_model, dtype),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation, so is this one's
+    (``F.gelu`` defaults to the exact erf)."""
+    return (F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh") @ p["w_out"]
+            + p["b_out"])
+
+
+# -- recurrent scans -----------------------------------------------------------
+
+def check_chunks(S: int, chunk: int) -> int:
+    """The chunk length ``min(chunk, S)`` of a chunked scan; raises where the
+    reference's ``assert S % c == 0`` fails (no padding)."""
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk "
+                         f"{c}")
+    return c
+
+
+# -- stacked layer weights -----------------------------------------------------
+
+def stack_layers(lead: Tuple[int, ...], make) -> Params:
+    """Stacks of ``math.prod(lead)`` layers' dicts from ``make()``, each of
+    shape ``lead + leaf shape`` in its leaf's own dtype (an f32 leaf stays
+    f32 in a bf16 model), filled one layer at a time so a full-width model
+    never holds two copies.  A zero in ``lead`` gives empty stacks (one
+    ``make()`` call still fixes their shapes and dtypes)."""
+    n = math.prod(lead)
+    first = make()
+    stacked = {k: torch.empty((*lead, *v.shape), dtype=v.dtype, device=v.device)
+               for k, v in first.items()}
+    for i in range(n):
+        p = first if i == 0 else make()
+        for k, v in p.items():
+            stacked[k].view(n, *v.shape)[i] = v
+    return stacked
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat == "full"``, while autograd records,
+    recomputed in the backward pass (non-reentrant ``torch.utils.
+    checkpoint``, keeping only the inputs) — the reference's
+    ``jax.checkpoint`` around a scan body."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def unstack_layers(stacked: Params, n: int) -> list:
+    """Per-layer dicts of views along the leading axis, one ``unbind`` per
+    stacked weight: under autograd ``unbind``'s backward stacks the
+    per-layer gradients once, where indexing ``W[l]`` per layer would add a
+    zero-filled gradient of the whole stack for every layer."""
+    split = {k: torch.unbind(v, 0) for k, v in stacked.items()}
+    return [{k: split[k][l] for k in stacked} for l in range(n)]

@@ -15,10 +15,8 @@ The parameter dict has the reference's layout — per-layer weights stacked
 on a leading L axis under ``params["layers"]`` — and the steps walk the
 layers in a Python loop where the reference scans (``params["layers"][name]
 [l]`` is a view, so the loop copies no weights).  The training forward
-splits each stack once with ``torch.unbind`` instead: under autograd,
-indexing ``W[l]`` per layer would make every layer's backward add a
-zero-filled gradient of the whole stack, while ``unbind``'s backward
-stacks the per-layer gradients once.
+splits each stack once with :func:`layers.unstack_layers` instead (see
+there why).
 """
 
 from __future__ import annotations
@@ -101,9 +99,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     dt = _dtype(cfg)
     dev = gen.device
     s = attn_spec(cfg)
-    # filled layer by layer: a full-width model never holds two copies
-    stacked: Params = {}
-    for l in range(cfg.num_layers):
+
+    def one() -> Params:
         p: Params = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
                      "ln2": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
         p.update({f"attn_{k}": v for k, v in layers.init_attn(gen, s, dt).items()})
@@ -113,11 +110,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         else:
             p.update({f"ffn_{k}": v for k, v in
                       layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt).items()})
-        for k, v in p.items():
-            if l == 0:
-                stacked[k] = torch.empty((cfg.num_layers, *v.shape), dtype=v.dtype,
-                                         device=dev)
-            stacked[k][l] = v
+        return p
+
+    stacked = layers.stack_layers((cfg.num_layers,), one)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
     params: Params = {
         "embed": embed.mul_(0.02).to(dt),
@@ -141,12 +136,6 @@ def layer_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return x + _ffn(cfg, p, h)
 
 
-def _unbind_layers(stacked: Params, num_layers: int) -> list:
-    """Per-layer dicts of views, one ``unbind`` per stacked weight."""
-    split = {k: torch.unbind(v, 0) for k, v in stacked.items()}
-    return [{k: split[k][l] for k in stacked} for l in range(num_layers)]
-
-
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in f32.  ``cfg.remat == "full"``
     recomputes each layer in the backward pass (non-reentrant
@@ -156,7 +145,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
     B, S = tokens.shape
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(S, device=tokens.device)
-    for lp in _unbind_layers(params["layers"], cfg.num_layers):
+    for lp in layers.unstack_layers(params["layers"], cfg.num_layers):
         if cfg.remat == "full":
             x = checkpoint(layer_fwd, cfg, lp, x, positions, use_reentrant=False)
         else:

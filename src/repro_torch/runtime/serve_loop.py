@@ -364,14 +364,16 @@ class ServeLoop:
 
     def generate(self, batch_in: Dict[str, np.ndarray],
                  max_new_tokens: int) -> np.ndarray:
-        """batch_in: {"tokens": (B, S)} -> (B, max_new_tokens) int32."""
-        tokens = torch.as_tensor(np.asarray(batch_in["tokens"], np.int32),
-                                 device=self.device)
-        B = tokens.shape[0]
+        """batch_in: {"tokens": (B, S)} (+ "frames" for encdec) -> (B,
+        max_new_tokens) int32.  Every key goes to ``prefill`` as a tensor on
+        the loop's device (tokens as int32)."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch_in.items()}
+        batch["tokens"] = batch["tokens"].to(torch.int32)
+        B = batch["tokens"].shape[0]
         cache = model_lib.init_cache(self.cfg, B, self.max_len, self.device)
         t0 = time.perf_counter()
-        cache, logits = model_lib.prefill(self.cfg, self.params,
-                                          {"tokens": tokens}, cache)
+        cache, logits = model_lib.prefill(self.cfg, self.params, batch, cache)
         fence(self.device)
         self.stats.prefill_s += time.perf_counter() - t0
         out = []

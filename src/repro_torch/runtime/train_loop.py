@@ -42,11 +42,15 @@ from repro_torch.optim import adamw, compression, schedule
 
 STATIC_BUCKET = ("static",)
 
-# implementation axes per ported family (first variant = default)
+# implementation axes applicable per family (first variant = default)
 IMPL_AXES: Dict[str, Dict[str, List[str]]] = {
     "dense": {"attn_impl": ["reference", "flash_cuda"]},
     "vlm": {"attn_impl": ["reference", "flash_cuda"]},
     "moe": {"attn_impl": ["reference", "flash_cuda"]},
+    "encdec": {"attn_impl": ["reference", "flash_cuda"]},
+    "hybrid": {"ssd_impl": ["chunked", "sequential"],
+               "attn_impl": ["reference", "flash_cuda"]},
+    "ssm": {"wkv_impl": ["chunked", "sequential"]},
 }
 
 
@@ -97,7 +101,10 @@ def make_train_step(
         with torch.enable_grad():
             leaves = [p.detach().requires_grad_() for p in leaves]
             loss = model_lib.loss_fn(cfg, pytree.tree_unflatten(leaves, spec), batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss never reads (a hybrid's empty tail stack) gets
+            # a zero gradient, as jax.grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), list(grads), spec
 
     def train_step(params, opt_state, batch, lr):
@@ -173,8 +180,8 @@ class TrainLoop:
 
     Parameters are drawn from ``seed`` on ``device`` unless given.  On a
     CUDA device the constructor builds the flash kernel and launches it
-    once at the model's head shape, so a card that cannot run it fails
-    here and no timed step pays for the build."""
+    once at the model's head shape (a family with attention), so a card
+    that cannot run it fails here and no timed step pays for the build."""
 
     def __init__(
         self,
@@ -208,7 +215,7 @@ class TrainLoop:
         self._bound_impl: Optional[Dict[str, str]] = None
         self._step_fn = None
         self.fault_hook: Optional[Callable[[int], None]] = None  # tests inject faults
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not cfg.attention_free:
             kflash.prepare(getattr(torch, cfg.dtype), cfg.num_heads,
                            cfg.num_kv_heads, cfg.head_dim, self.device)
 

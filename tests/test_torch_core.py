@@ -33,7 +33,8 @@ def test_configs_are_copies(name):
 
 def test_get_config_unknown_raises():
     with pytest.raises(KeyError):
-        tconfigs.get_config("rwkv6-7b")
+        tconfigs.get_config("no-such-arch")
+    assert sorted(tconfigs.ARCHS) == sorted(jconfigs.ARCHS)
 
 
 class TestBucketKeys:

@@ -6,9 +6,11 @@ each KV layout, the contiguous and ``auto`` decode graphs, the flash kernel
 in contiguous admissions, a training step with the flash kernel, and the
 paper's six algorithms under the VPE with the matmul and conv2d kernels,
 under a page budget, preemption and swap between graph replays, the
-speculative verify graphs and a demoted decode-kernel rung, and the MoE
+speculative verify graphs and a demoted decode-kernel rung, the MoE
 decode graph (reduced qwen2-moe-a2.7b) and the paged and flash kernels at
-its heads (a group of 1).
+its heads (a group of 1), and the flash kernel at the recurrent and
+encoder-decoder families' heads (D = 64; non-causal; S < T and S > T) with
+reduced zamba2-1.2b served in waves through it.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
 entry points default to the card.  This file imports no JAX, so it runs on
@@ -809,6 +811,59 @@ def test_cuda_flash_against_plain(cuda_device, case, causal, window, dtype):
     want = tref.attention_ref(q, k, v, causal=causal, window=window)
     atol, rtol = FLASH_TOLERANCES[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# the recurrent and encoder-decoder families' heads (D = 64): zamba2-1.2b's
+# causal shared block, whisper-base's non-causal encoder, and its
+# cross-attention with S < T (rows offset by T - S > 0) and S > T (the
+# reduced config's 32 rows against 24 frames: a negative offset)
+FAMILY_FLASH_CASES = [
+    dict(B=2, Hq=32, Hkv=32, S=256, T=256, D=64, causal=True),
+    dict(B=1, Hq=8, Hkv=8, S=1500, T=1500, D=64, causal=False),
+    dict(B=2, Hq=8, Hkv=8, S=32, T=1500, D=64, causal=False),
+    dict(B=2, Hq=8, Hkv=8, S=256, T=1500, D=64, causal=False),
+    dict(B=2, Hq=8, Hkv=8, S=32, T=24, D=64, causal=False),
+    dict(B=1, Hq=8, Hkv=8, S=200, T=70, D=64, causal=False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES)
+def test_cuda_flash_at_the_family_shapes(cuda_device, case, dtype):
+    q, k, v = _flash_inputs(case, cuda_device, dtype, seed=9)
+    got = tfa.flash_attention_cuda(q, k, v, causal=case["causal"])
+    torch.cuda.synchronize()
+    want = tref.attention_ref(q, k, v, causal=case["causal"])
+    atol, rtol = FLASH_TOLERANCES[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_wave_serving_flash_equals_reference(cuda_device):
+    """Reduced zamba2-1.2b (f32) served in waves on the card: the shared
+    block's prefill through the flash kernel (one launch a macro a wave)
+    gives the tokens of the reference attention."""
+    import dataclasses
+    cfg = get_config("zamba2-1.2b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (16, 9, 32, 20, 5, 12)]
+    out = {}
+    for impl in ("reference", "flash_cuda"):
+        sched = tserve.WaveScheduler(tserve.ServeLoop(
+            dataclasses.replace(cfg, attn_impl=impl), params, max_len=64, batch=4,
+            device=cuda_device))
+        for i, p in enumerate(prompts):
+            sched.submit(tserve.Request(rid=i, prompt=p, max_new_tokens=8))
+        before = tfa.flash_attention_cuda.launches
+        out[impl] = {r.rid: r.out for r in sched.run()}
+        launched = tfa.flash_attention_cuda.launches - before
+        # two waves, one launch a shared-block application each
+        assert launched == (2 * (cfg.num_layers // cfg.attn_every)
+                            if impl == "flash_cuda" else 0)
+    assert out["flash_cuda"] == out["reference"]
 
 
 @pytest.mark.cuda

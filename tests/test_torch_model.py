@@ -171,14 +171,29 @@ def test_copy_page_against_reference():
 
 
 def test_other_families_not_ported():
-    """ssm, hybrid and encdec are still refused, naming their ROADMAP
-    item; moe and vlm init."""
-    base = get_config("qwen3-8b").reduced()
-    for family in ("ssm", "hybrid", "encdec"):
-        cfg = dataclasses.replace(base, family=family)
+    """Every family of the reference has a module in the port; slot serving
+    stays the transformer families' (ssm, hybrid and encdec are not ported
+    to it, as in the reference): ``supports_slot_serving`` is False for
+    them, the continuous engine refuses them with the reference's message,
+    and so do the slot-serving entry points; moe and vlm init."""
+    from repro.models import model as jmodel_mod
+    from repro.runtime import serve_loop as jserve
+    from repro_torch.runtime import serve_loop as tserve
+    assert set(tmodel._FAMILIES) == set(jmodel_mod._FAMILIES)
+    for name in ("rwkv6-7b", "zamba2-1.2b", "whisper-base"):
+        cfg = get_config(name).reduced()
         assert not tmodel.supports_slot_serving(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1c"):
-            tmodel.init_params(cfg, torch.Generator("cpu"))
+        assert not jmodel_mod.supports_slot_serving(ARCHS[name].reduced())
+        params = tmodel.init_params(cfg, torch.Generator("cpu").manual_seed(0))
+        assert tmodel.family_module(cfg).__name__.rsplit(".", 1)[1] == \
+            jmodel_mod.family_module(ARCHS[name]).__name__.rsplit(".", 1)[1]
+        with pytest.raises(ValueError) as want:
+            jserve.ContinuousBatchingEngine(ARCHS[name].reduced(), None)
+        with pytest.raises(ValueError) as got:
+            tserve.ContinuousBatchingEngine(cfg, params, device="cpu")
+        assert str(got.value) == str(want.value)
+        with pytest.raises(ValueError, match="continuous batching unsupported"):
+            tmodel.init_slot_cache(cfg, 2, 16, torch.device("cpu"))
     for name in ("qwen2-moe-a2.7b", "chameleon-34b"):
         cfg = get_config(name).reduced()
         assert tmodel.supports_slot_serving(cfg)
