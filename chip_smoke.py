@@ -96,6 +96,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    on the paged and ``auto`` layouts against single steps (each prompt
    served twice, so drafts land); full width in bf16, first-step logits of
    the two;
+14. replicas: (a) phase 4's engine settings as a group of two replicas on
+   one card (``make_serve_engine(mesh_shape=(2, 1), mesh_devices=["cuda:0",
+   "cuda:0"])``, one copy of the weights), 16 requests (phase 4's 8 and 8
+   more from the same generator), each replica warmed by a request of its
+   own, launch counts zeroed just before the timed run and read just after
+   (they join phase 4's in the kernels line); printed per replica: admits,
+   captures, replays, pool bytes; for the group: TTFT, decode tok/s, the
+   group step's host wall, peak memory; gates: every request done, each
+   replica admitting at least 4, the pools drained, no capture in the run,
+   the launches one a layer a step or chunk, a single engine's tokens on
+   the same 16 requests or a parting at a near-tie (top-2 margin <= 0.25),
+   and the shared VPE's keys labelled ``xmesh:dp2mp1``; (b) failover on
+   reduced qwen3-8b in f32, the group of two on one card, device faults at
+   replica 0's decode calls and one lost dispatch, a replica budget of 2:
+   a quarantine and a re-admission, no canary in ``completed``, every
+   request done with a clean single engine's tokens, no failure;
 12. the MoE path: full-width qwen2-moe-a2.7b, all 24 layers in bf16
    (random weights from a seeded generator on the card; weights, pool and
    peak memory printed), on phase 4's engine and traffic: (a) H = 1 with
@@ -663,10 +679,17 @@ def phase_kernel_times(dev, prompt_lens):
     return out
 
 
-def traffic(vocab: int, seed: int = 0):
+def traffic(vocab: int, seed: int = 0, more: int = 0):
+    """The main path's prompts (64–512 tokens), then ``more`` drawn after
+    them from the same generator (phase 14a's traffic: the first 8 are
+    phase 4's)."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(64, 513, REQUESTS)
-    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+    if more:
+        lens = rng.integers(64, 513, more)
+        prompts += [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+    return prompts
 
 
 def serving_engine(cfg, params, dev, horizon, **kw):
@@ -3512,6 +3535,227 @@ def phase_paper_path(dev):
         launches=launches, launches_by_part=split, wall_s=wall)
 
 
+# phase 14: two engine replicas of the main path's engine on one card
+REPLICAS = 2
+REPLICA_DEVICES = ["cuda:0"] * REPLICAS
+# 14b's failover plan on reduced qwen3-8b (group of 2, 2 slots a replica):
+# the dispatch site's call 1 (the second handoff, to replica 1) is lost
+# and retried, so replica 1 starts a group step late and its first
+# admissions prefill in 16-token chunks: the decode site's calls 0 and 1
+# are replica 0's (the scheduling is the host's, the same on the CPU as
+# on the card).  The first demotes replica 0's decode_cuda rung, the
+# second finds no rung left and charges its requests; at a budget of 2
+# that quarantines replica 0.  No request reaches its fault budget of 3
+# (one charge a fault, one a migration), so none fails.
+FAILOVER_SPECS = (("decode", "device", 0), ("decode", "device", 1),
+                  ("dispatch", "device", 1))
+FAILOVER_BUDGET = 2
+
+
+def phase_replicas(cfg, params, dev, prompts):
+    """Phase 14a: full-width qwen3-8b through ``make_serve_engine(mesh_shape
+    =(2, 1))`` with both replicas on one card (one copy of the weights), the
+    main path's engine settings, and 16 requests (phase 4's 8 and 8 more
+    from the same generator).  The reference is a single engine serving the
+    same 16 requests in this process.  Each replica is warmed by a request
+    of its own, which captures its decode graph; the launch counts are
+    zeroed just before the timed run and read just after.  Gates: every
+    request done with 32 tokens, each replica admitted at least 4, the
+    pools audit-clean and drained, no capture in the timed run, decode
+    launches one a layer a step and prefill launches one a layer a chunk,
+    the single engine's tokens or a parting at a near-tie (top-2 margin <=
+    0.25), first-token logits within 0.25 of it, and the shared VPE's keys
+    labelled ``xmesh:dp2mp1``."""
+    import torch
+    from repro_torch.core import VPE, bucket_label
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.runtime.serve_loop import (EngineReplicaGroup, Request,
+                                                ServeStats, make_serve_engine)
+    say(f"[14a] replicas: {cfg.name} at full width, make_serve_engine(mesh_shape=("
+        f"{REPLICAS}, 1), mesh_devices={REPLICA_DEVICES}), the main path's engine "
+        f"a replica, {len(prompts)} requests")
+    warm = np.arange(1, 200, dtype=np.int32)
+    single = serving_engine(cfg, params, dev, 1)
+    warm_up(single, warm)
+    ref = serve_traffic(single, cfg, prompts, "phase 14a single engine")
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the main path's engine settings (serving_engine), a VPE shared
+    group = make_serve_engine(
+        cfg, params, mesh_shape=(REPLICAS, 1), mesh_devices=REPLICA_DEVICES,
+        slots=SLOTS, max_len=MAX_LEN, block_size=BS, kv_layout="paged",
+        prefill_chunk=CHUNK, decode_horizon=1, decode_impl="cuda",
+        prefill_kernel="cuda", vpe=VPE())
+    if not isinstance(group, EngineReplicaGroup) or any(
+            e.params is not params for e in group.engines):
+        raise AssertionError("phase 14a: not a group of replicas sharing the weights")
+    for eng in group.engines:
+        warm_up(eng, warm)
+        eng.stats = ServeStats()
+        eng.completed.clear()
+        eng.first_logits = {}
+    graphs = [e.graphs for e in group.engines]
+    before = [(g.captures, g.replays, g.replayed_calls) for g in graphs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    walls, both = [], []
+    step = group.step
+
+    def work():
+        return [(len(e.stats.queue_wait_s), e.stats.prefill_chunks,
+                 sum(e.stats.horizon_hist.values())) for e in group.engines]
+
+    def timed_step():
+        w0 = work()
+        t = time.perf_counter()
+        out = step()
+        walls.append(time.perf_counter() - t)
+        # a step in which both replicas only decoded: no admission, no
+        # chunk, one decode call each
+        if all(a1 == a0 and c1 == c0 and d1 == d0 + 1
+               for (a0, c0, d0), (a1, c1, d1) in zip(w0, work())):
+            both.append(walls[-1])
+        return out
+
+    group.step = timed_step
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(prompts):
+            group.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        done = group.run()
+        torch.cuda.synchronize()
+    finally:
+        del group.step
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = group.stats
+    replayed = sum(g.replayed_calls - b[2] for g, b in zip(graphs, before))
+    captures = [g.captures - b[0] for g, b in zip(graphs, before)]
+    launches = {"paged_decode_attention": pa.paged_attention_cuda.launches + replayed,
+                "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches}
+    per_replica = []
+    for r, (eng, g, b) in enumerate(zip(group.engines, graphs, before)):
+        pool = sum(t.numel() * t.element_size() for t in eng.page_pool.values())
+        per_replica.append(dict(
+            device=str(eng.device), admits=len(eng.stats.queue_wait_s),
+            completed=len(eng.completed), decode_steps=eng.stats.decode_steps,
+            captures=g.captures, captures_in_run=g.captures - b[0],
+            replays_in_run=g.replays - b[1], pool_bytes=pool,
+            graph_pool_bytes=g.pool_bytes()))
+        say(f"  replica {r} on {eng.device}: {per_replica[-1]}")
+    run = dict(
+        wall_s=wall, decode_steps=st.decode_steps, prefill_chunks=st.prefill_chunks,
+        mean_ttft_s=st.mean_ttft_s, max_ttft_s=max(st.ttft_s),
+        decode_tok_per_s=st.decode_tok_per_s,
+        tok_per_s_end_to_end=st.tokens_out / wall,
+        group_steps=len(walls), group_step_us=sum(walls) / len(walls) * 1e6,
+        decode_only_steps=len(both),
+        decode_only_step_us=sum(both) / len(both) * 1e6 if both else None,
+        peak_bytes=peak, launches=launches, replicas=per_replica,
+        tokens={r.rid: r.out for r in done if r.status == "done"},
+        first_logits={rid: x.float() for e in group.engines
+                      for rid, x in e.first_logits.items()})
+    say(f"  group: {st.summary()}")
+    say(f"  wall {wall} s, {len(walls)} group steps, {run['group_step_us']} us a "
+        f"group step (host; {len(both)} steps in which both replicas only decoded: "
+        f"{run['decode_only_step_us']} us a step), TTFT mean {st.mean_ttft_s} s max {run['max_ttft_s']} s, "
+        f"decode {st.decode_tok_per_s} tok/s (over the replicas' summed decode "
+        f"walls), {run['tok_per_s_end_to_end']} tok/s end to end, peak "
+        f"{peak} B, launches {launches} (decode: {replayed} in graph replays); "
+        f"single engine: decode {ref['decode_tok_per_s']} tok/s, TTFT mean "
+        f"{ref['mean_ttft_s']} s, wall {ref['wall_s']} s")
+    if len(done) != len(prompts) or any(
+            r.status != "done" or len(r.out) != NEW_TOKENS
+            or not all(0 <= t < cfg.vocab_size for t in r.out) for r in done):
+        raise AssertionError(f"phase 14a: requests not completed: "
+                             f"{[(r.rid, r.status, len(r.out)) for r in done]}")
+    if any(p["admits"] < len(prompts) // (2 * REPLICAS) for p in per_replica):
+        raise AssertionError(f"phase 14a: a replica admitted too few: {per_replica}")
+    group.check_kv()
+    if any(e.pages.num_live or any(s.pages for s in e.slots) for e in group.engines):
+        raise AssertionError("phase 14a: a replica's pool is not drained")
+    if any(captures):
+        raise AssertionError(f"phase 14a: captures in the timed run: {captures}")
+    if launches["paged_decode_attention"] != st.decode_steps * cfg.num_layers or \
+            launches["paged_prefill_attention"] != st.prefill_chunks * cfg.num_layers:
+        raise AssertionError(f"phase 14a: launches {launches} do not match "
+                             f"{st.decode_steps} steps and {st.prefill_chunks} chunks "
+                             f"x {cfg.num_layers} layers")
+    run["vs_single"] = compare_runs("phase 14a", "the single engine", ref, run, cfg,
+                                    params, prompts, atol=TIE_MARGIN, tie=TIE_MARGIN)
+    labels = sorted({bucket_label(b) for b in
+                     group.engines[0].vpe.profiler.buckets_seen("serve_decode_impl")})
+    say(f"  shared VPE's serve_decode_impl keys: {labels}")
+    if not labels or not all(lb.endswith("xmesh:dp2mp1") for lb in labels):
+        raise AssertionError(f"phase 14a: keys without the mesh: {labels}")
+    run["labels"] = labels
+    run.pop("first_logits")
+    run["single"] = {k: ref[k] for k in ("wall_s", "decode_tok_per_s", "mean_ttft_s",
+                                         "decode_steps", "launches")}
+    return run
+
+
+def phase_failover(dev):
+    """Phase 14b: replica failover on the card.  Reduced qwen3-8b in f32, a
+    group of 2 on one card (paged, both kernels pinned, 2 slots a replica),
+    a plan of device faults at replica 0's decode calls and one lost
+    dispatch, ``replica_fault_budget=2``.  Gates: the plan fired whole,
+    both decode faults on replica 0, at least one quarantine and one
+    re-admission, the group healthy at the end, no canary in
+    ``completed``, every request done with the tokens of a clean single
+    engine on the same requests, no failure (the plan charges no request
+    3 faults), the pools audit-clean and drained."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_faults import FaultPlan, FaultSpec
+    from repro_torch.runtime.serve_loop import Request, make_serve_engine
+    cfg = get_config("qwen3-8b").reduced()
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(2))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 60, 8)]
+    kw = dict(slots=2, max_len=96, block_size=BS, prefill_chunk=16)
+    clean = run_engine(cfg, params, dev, ("cuda", "cuda"), prompts, 12, **kw)
+    plan = FaultPlan([FaultSpec(*f) for f in FAILOVER_SPECS])
+    group = make_serve_engine(
+        cfg, params, mesh_shape=(REPLICAS, 1), mesh_devices=REPLICA_DEVICES,
+        kv_layout="paged", decode_impl="cuda", prefill_kernel="cuda",
+        fault_plan=plan, replica_fault_budget=FAILOVER_BUDGET, **kw)
+    for i, p in enumerate(prompts):
+        group.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+    done = group.run()
+    torch.cuda.synchronize()
+    st = group.stats
+    faults = [e.stats.device_faults for e in group.engines]
+    got = {r.rid: r.out for r in done if r.status == "done"}
+    fired = [(f.site, f.kind, f.at) for f in plan.injected]
+    out = dict(fired=fired, quarantines=st.replica_quarantines,
+               readmissions=st.replica_readmissions, canaries=st.canary_probes,
+               device_faults_by_replica=faults, demotions=dict(st.demotions),
+               failed_by_reason=dict(st.failed_by_reason),
+               dispatch_faults=list(group._dispatch_faults),
+               tokens_equal=got == clean)
+    say(f"[14b] failover: reduced {cfg.name} ({cfg.dtype}), group of {REPLICAS} on "
+        f"{REPLICA_DEVICES}, plan {list(FAILOVER_SPECS)}, budget {FAILOVER_BUDGET}: "
+        f"{st.summary()}; {out}")
+    if sorted(fired) != sorted(FAILOVER_SPECS) or faults != [2, 0]:
+        raise AssertionError(f"phase 14b: the plan did not land as planned: {out}")
+    if st.replica_quarantines < 1 or st.replica_readmissions < 1 or group.quarantined:
+        raise AssertionError(f"phase 14b: no quarantine and re-admission: {out}")
+    if sorted(r.rid for r in done) != list(range(len(prompts))):
+        raise AssertionError(f"phase 14b: completed holds {[r.rid for r in done]}")
+    if st.failed_by_reason or got != clean:
+        raise AssertionError(f"phase 14b: failures or tokens off the clean run: "
+                             f"{out}\n clean {clean}\n got {got}")
+    group.check_kv()
+    if any(not e.pages.drained for e in group.engines):
+        raise AssertionError("phase 14b: a replica's pool is not drained")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -3559,6 +3803,11 @@ def main(argv=None) -> int:
     del main_logits, cold_4d
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
+    replicas = phase_replicas(cfg, params, dev,
+                              traffic(cfg.vocab_size, more=REQUESTS))
+    for name, n in replicas["launches"].items():
+        main_run["launches"][name] += n
+    replicas["failover"] = phase_failover(dev)
     del params                      # the later phases need the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -3598,7 +3847,7 @@ def main(argv=None) -> int:
                  kernel_times=times, check_errors=errors, main_path=main_run,
                  fused_horizons=fused, auto_horizon=auto, prefix_cache=prefix,
                  layouts=layouts, pressure=pressure, speculation=spec,
-                 faults=faults,
+                 faults=faults, replicas=replicas,
                  full_width_logits=logits, traces=traces, moe=moe,
                  families=families, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,

@@ -21,7 +21,7 @@ from .shape_class import (accept_rate_level, bucket_label,
                           kv_layout_bucket, kv_layout_buckets,
                           occupancy_bucket, pad_to_bucket,
                           prefill_chunk_bucket, prefix_len_bucket,
-                          queue_depth_bucket, shape_bucket,
+                          queue_depth_bucket, shape_bucket, shard_bucket,
                           slo_pressure_bucket, spec_accept_bucket)
 
 __all__ = [
@@ -31,4 +31,5 @@ __all__ = [
     "prefix_len_bucket", "prefill_chunk_bucket", "queue_depth_bucket",
     "decode_horizon_bucket", "kv_layout_bucket", "kv_layout_buckets",
     "slo_pressure_bucket", "accept_rate_level", "spec_accept_bucket",
+    "shard_bucket",
 ]

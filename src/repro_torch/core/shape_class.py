@@ -50,13 +50,26 @@ def _split_slo(bucket: Tuple) -> Tuple[Tuple, Optional[Tuple]]:
     return bucket, None
 
 
+def _split_shard(bucket: Tuple) -> Tuple[Tuple, Optional[Tuple]]:
+    """Split a trailing :func:`shard_bucket` segment off a composite
+    dispatch key.  The serve engine appends it LAST (after any SLO
+    segment) on non-trivial meshes, so it is stripped first here."""
+    if len(bucket) >= 4 and bucket[-3] == "shard":
+        return bucket[:-3], bucket[-3:]
+    return bucket, None
+
+
 def bucket_label(bucket: Tuple) -> str:
     """Human-readable label of the bucket kinds this package produces."""
+    bucket, shard = _split_shard(bucket)
     bucket, slo = _split_slo(bucket)
     suffix = ""
     if slo is not None:
         _, i, b = slo
         suffix = f"xslo:i{i}b{b}"
+    if shard is not None:
+        _, dp, mp = shard
+        suffix += f"xmesh:dp{dp}mp{mp}"
     if bucket == ("scalar",):
         return "scalar" + suffix
     if bucket and bucket[0] == "occ":
@@ -194,6 +207,18 @@ def slo_pressure_bucket(queued_interactive: int, queued_batch: int) -> Tuple:
     i = min(max(queued_interactive, 0), 2)
     b = 0 if queued_batch <= 0 else (1 if queued_batch <= 4 else 2)
     return ("slo", i, b)
+
+
+def shard_bucket(dp: int, mp: int) -> Tuple:
+    """Dispatch-key extension for mesh serving.
+
+    The best decode variant, fused horizon, prefill chunk and verify span
+    shift with the mesh shape, so the engine appends this segment LAST to
+    those keys on a non-trivial mesh and the controller learns each policy
+    per mesh configuration.  Every replica of a group carries the group's
+    full ``(dp, mp)``, so a shared VPE learns one policy from all of them.
+    ``(1, 1)`` appends nothing: single-device keys stay byte-identical."""
+    return ("shard", int(dp), int(mp))
 
 
 def pad_to_bucket(n: int, *, minimum: int = 16) -> int:

@@ -7,14 +7,19 @@
         [--decode-impl cuda --prefill-kernel cuda] [--spec-draft 4|auto] \\
         [--priority mix --page-budget 11 --swap --slo-weight 0.5] \\
         [--watchdog --fault-seed 5 --fault-storm 8 --deadline 30 \\
-         --max-queue-depth 16] [--device cpu]
+         --max-queue-depth 16] [--mesh 2,1 --device cuda:0,cuda:0] \\
+        [--device cpu]
 
 Without ``--continuous`` requests run in waves (``ServeLoop`` +
 ``WaveScheduler``, the baseline), the only path of the recurrent and
 hybrid archs (rwkv6-7b, zamba2-1.2b): ``--continuous`` refuses them, as
 the reference's engine does.  The flags are those of
-``repro.launch.serve``; ``--mesh``, whose replicas and shards are not
-ported, is rejected with the ROADMAP item that ports it.  An encdec arch
+``repro.launch.serve``.  ``--mesh DP,1`` (continuous only) serves DP
+engine replicas behind one shared admission queue on the devices that
+``--device`` lists, one a replica (``cuda:0,cuda:0``: two replicas on one
+card; ``cpu,cpu``: on the CPU; a bare ``cuda`` takes ``cuda:0`` …
+``cuda:{DP-1}``); ``MP > 1``, head sharding, is refused with the ROADMAP
+item that ports it.  An encdec arch
 (whisper-base) is refused: its prefill needs frames, and neither this
 launcher nor the reference's has a source of them (serve it through
 ``ServeLoop.generate`` with {"tokens", "frames"}).
@@ -32,12 +37,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import VPE
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.serve_faults import FaultPlan
-from repro_torch.runtime.serve_loop import (LATER, SERVE_AXES,
-                                            ContinuousBatchingEngine, Request,
-                                            ServeLoop, WaveScheduler)
+from repro_torch.runtime.serve_loop import (SERVE_AXES, Request, ServeLoop,
+                                            WaveScheduler, make_serve_engine,
+                                            not_ported)
 
-# flags of repro.launch.serve outside the port -> ROADMAP item
-_LATER_FLAGS = {"--mesh": "mesh"}
 NO_FRAMES = ("{arch} needs frame embeddings and this launcher has no source "
              "of them (nor has the reference's); call ServeLoop.generate "
              "with {{'tokens', 'frames'}} or model.loss_fn with a 'frames' "
@@ -132,16 +135,36 @@ def main(argv=None) -> None:
                          "faults that fired")
     ap.add_argument("--fault-storm", type=int, default=8, metavar="N",
                     help="number of faults in the --fault-seed storm")
+    ap.add_argument("--mesh", default="1,1", metavar="DP,MP",
+                    help="serve mesh 'dp,mp' (continuous only): dp runs "
+                         "independent engine replicas behind one shared "
+                         "admission queue, on the devices --device lists; "
+                         "'1,1' (default) is the single engine; mp > 1 (head "
+                         "sharding) is not ported yet")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu for the plain PyTorch path")
-    args, unknown = ap.parse_known_args(argv)
-    for tok in unknown:
-        flag = tok.split("=")[0]
-        if flag in _LATER_FLAGS:
-            ap.error(f"{flag} is not ported yet: ROADMAP queue 1, item "
-                     f"{LATER[_LATER_FLAGS[flag]]}")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+                    help="cuda (default) or cpu for the plain PyTorch path; "
+                         "with --mesh, a comma list of dp*mp devices (one "
+                         "may repeat: cuda:0,cuda:0), or a bare cuda for "
+                         "cuda:0 .. cuda:{dp*mp-1}")
+    args = ap.parse_args(argv)
+    try:
+        dp, mp = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh must be 'dp,mp' integers, got {args.mesh!r}")
+    if dp < 1 or mp < 1:
+        ap.error(f"--mesh axes must be >= 1, got {args.mesh!r}")
+    if mp > 1:
+        ap.error(str(not_ported(f"--mesh {dp},{mp}", "mp")))
+    if (dp, mp) != (1, 1) and not args.continuous:
+        ap.error("--mesh requires --continuous")
+    devices = args.device.split(",")
+    if dp * mp == 1 and len(devices) != 1:
+        ap.error(f"--device names {len(devices)} devices for one engine")
+    # a bare "cuda" leaves a group's placement to its default
+    mesh_devices = None if dp == 1 or devices == ["cuda"] else devices
+    if mesh_devices is not None and len(mesh_devices) != dp * mp:
+        ap.error(f"--mesh {dp},{mp} needs {dp * mp} devices in --device, "
+                 f"got {len(mesh_devices)}")
     try:
         horizon = (args.decode_horizon if args.decode_horizon == "auto"
                    else int(args.decode_horizon))
@@ -157,7 +180,9 @@ def main(argv=None) -> None:
         ap.error(f"--spec-draft must be 'off', a span or 'auto', got "
                  f"{args.spec_draft!r}")
 
-    device = resolve_device(args.device)
+    # the params are made on the first device of the mesh; a replica on
+    # another device gets a copy
+    device = resolve_device(devices[0])
     cfg = get_config(args.arch)
     if cfg.family == "encdec":
         ap.error(NO_FRAMES.format(arch=args.arch))
@@ -193,8 +218,9 @@ def main(argv=None) -> None:
     vpe = VPE()
     plan = (FaultPlan.seeded(args.fault_seed, args.fault_storm, slots=args.batch)
             if args.fault_seed is not None else None)
-    engine = ContinuousBatchingEngine(
-        cfg, params, slots=args.batch, max_len=args.max_len, vpe=vpe,
+    engine = make_serve_engine(
+        cfg, params, mesh_shape=(dp, mp),
+        slots=args.batch, max_len=args.max_len, vpe=vpe,
         prefix_blocks=args.prefix_blocks if args.prefix_cache else 0,
         block_size=args.block_size, kv_layout=args.kv_layout,
         prefill_chunk=chunk, chunks_per_step=args.chunks_per_step,
@@ -202,12 +228,14 @@ def main(argv=None) -> None:
         prefill_kernel=args.prefill_kernel, spec_draft=spec,
         page_budget=args.page_budget, swap=args.swap,
         slo_weight=args.slo_weight, fault_plan=plan, watchdog=args.watchdog,
-        max_queue_depth=args.max_queue_depth, device=device)
+        max_queue_depth=args.max_queue_depth,
+        **({"mesh_devices": mesh_devices} if dp > 1 else {"device": device}))
     for r in reqs:
         engine.submit(r)
     done = engine.run()
     stats = engine.stats
-    print(f"completed {len(done)} requests; {stats.summary()}")
+    mesh_note = f" [mesh {dp}x{mp}]" if (dp, mp) != (1, 1) else ""
+    print(f"completed {len(done)} requests{mesh_note}; {stats.summary()}")
     if plan is not None:
         fired = ", ".join(f"{f.site}/{f.kind}@{f.at}"
                           for f in plan.injected) or "none"

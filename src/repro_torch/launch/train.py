@@ -9,7 +9,7 @@ The flags are those of ``repro.launch.train``; an encdec arch
 (whisper-base) is refused, since ``SyntheticStream`` yields no frames.
 ``--smoke`` trains the reduced config; without it the full config is
 trained on one device (the port has no production mesh yet: ROADMAP
-queue 1, item 5).  The VPE trials the family's implementation axes
+queue 1, item 3c).  The VPE trials the family's implementation axes
 (``attn_impl``: ``reference``, ``flash_cuda``; ``ssd_impl`` or
 ``wkv_impl``: ``chunked``, ``sequential``) inside the loop unless
 ``--no-vpe``; its decision table is printed at the end.

@@ -11,7 +11,7 @@ recovery is restore-and-replay:
    :func:`run_with_recovery`.
 
 Rung 3 of the reference, the elastic restore onto a shrunk mesh, waits
-for the port's mesh (ROADMAP queue 1, item 5).
+for the port's training mesh (ROADMAP queue 1, item 3c).
 """
 
 from __future__ import annotations

@@ -51,8 +51,7 @@ from repro_torch.runtime.fault import SimulatedFault
 # speculative verify pass; "prefill" is one chunked-prefill call;
 # "page_alloc" is PagePool.alloc via the engine's escalation ladder;
 # "dispatch" is the replica group handing a request to a replica (the
-# engine never takes it; it stays so that a seeded plan draws the same
-# specs as the reference's).
+# group takes it, an engine never does).
 SITES: Tuple[str, ...] = (
     "decode", "fused", "spec", "prefill", "page_alloc", "dispatch")
 

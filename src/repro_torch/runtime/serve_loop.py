@@ -113,26 +113,36 @@ every verify call replays a CUDA graph captured at the first call of its
 reference's jit cache).  A call that captured is the counterpart of a call
 that compiled: it is counted in ``stats.tainted_steps`` and feeds no axis.
 
-The one feature of the reference engine outside this port, the mesh
-(``mesh_shape`` other than (1, 1)), raises ``ValueError`` naming the
-ROADMAP item that ports it.
+**Replicas.**  :func:`make_serve_engine` builds the engine for a ``(dp,
+mp)`` mesh: ``(1, 1)`` is the single engine, whose dispatch keys carry no
+mesh segment; ``dp > 1`` is an :class:`EngineReplicaGroup`, dp engines on
+the torch devices of ``mesh_devices`` behind one shared admission queue,
+with replica quarantine, migration and canary re-admission above the
+engine's own ladder.  One device may be named more than once (two replicas
+on one card).  Every replica keys its axes with the group's full mesh
+(:func:`~repro_torch.core.shard_bucket`), so a shared VPE learns one
+policy per mesh.  Head sharding (``mp > 1``) raises ``ValueError`` naming
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import DeviceLike, fence, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (VPE, decode_horizon_bucket, kv_layout_bucket,
                               occupancy_bucket, pad_to_bucket,
                               prefill_chunk_bucket, prefix_len_bucket,
-                              slo_pressure_bucket, spec_accept_bucket)
+                              shard_bucket, slo_pressure_bucket,
+                              spec_accept_bucket)
 from repro_torch.distributed.straggler import StepWatchdog, StragglerTimeout
 from repro_torch.models import kvcache
 from repro_torch.models import model as model_lib
@@ -160,15 +170,16 @@ PRIORITY_RANK: Dict[str, int] = {c: i for i, c in enumerate(PRIORITY_CLASSES)}
 SLO_CLASS_WEIGHT: Dict[str, float] = {"interactive": 1.0, "batch": 0.1}
 
 # terminal failure reason codes (``Request.error``; the message is in
-# ``Request.error_detail``); ``replica_lost`` belongs to the replicas,
-# which are not ported
+# ``Request.error_detail``); ``replica_lost`` is the replica group's: a
+# request whose fault budget ran out migrating off dying replicas or on
+# lost dispatches
 FAIL_REASONS = ("intake", "deadline", "capacity", "device_fault",
                 "numeric_fault", "replica_lost")
 
 # reference engine features outside this port -> the ROADMAP item (queue
-# 1, "Modules still to port", label 8) that ports each
+# 1, "Modules still to port") that ports each
 LATER = {
-    "mesh": "8(i) mesh and replicas",
+    "mp": "3b, mp head sharding",
 }
 
 
@@ -267,6 +278,10 @@ class ServeStats:
     swapped_pages: int = 0
     swap_out_s: List[float] = dataclasses.field(default_factory=list)
     swap_in_s: List[float] = dataclasses.field(default_factory=list)
+    # the replica group's quarantine and canary lifecycle
+    replica_quarantines: int = 0
+    replica_readmissions: int = 0
+    canary_probes: int = 0
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -343,6 +358,10 @@ class ServeStats:
                            for k, v in sorted(self.demotions.items()))
             s += (f", demotions {by} "
                   f"({self.repromotions} re-promoted)")
+        if self.replica_quarantines:
+            s += (f", {self.replica_quarantines} replica quarantines "
+                  f"({self.replica_readmissions} re-admitted, "
+                  f"{self.canary_probes} canaries)")
         return s
 
 
@@ -429,9 +448,13 @@ class Request:
     # request is shed (``deadline``) where the engine next looks at it —
     # the queue sweep, admission or a step boundary; None = no deadline
     deadline_s: Optional[float] = None
-    # device and numeric faults charged to this request; at the engine's
-    # ``max_request_faults`` it fails instead of retrying
+    # device and numeric faults charged to this request (a migration off
+    # a quarantined replica too); at the engine's ``max_request_faults`` it
+    # fails instead of retrying
     faults: int = 0
+    # a replica group's canary probe: engine-internal, excluded from the
+    # group's ``completed`` and never migrated off its replica
+    canary: bool = False
 
     def effective_prompt(self) -> np.ndarray:
         """The tokens a (re-)admission must have in KV before decode goes
@@ -571,6 +594,11 @@ class ContinuousBatchingEngine:
     the clean decode spans a demoted rung waits out, ``max_queue_depth``
     the admission bound.  ``device`` defaults to ``"cuda"`` and must hold
     ``params``; ``"cpu"`` runs the kernels' plain versions.
+    ``mesh_shape`` is ``(1, mp)``: one engine is one replica, and ``mp >
+    1`` (head sharding) is not ported yet.  ``mesh_devices``, when given,
+    names the replica's device row (its one device takes the place of
+    ``device``), and ``shard_dims`` the group's full ``(dp, mp)``, which the
+    measured axes' keys carry (:func:`make_serve_engine` passes both).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -594,14 +622,28 @@ class ContinuousBatchingEngine:
                  max_request_faults: int = 3, probation_steps: int = 16,
                  max_queue_depth: Optional[int] = None,
                  mesh_shape: Tuple[int, int] = (1, 1),
+                 mesh_devices: Optional[Sequence[DeviceLike]] = None,
+                 shard_dims: Optional[Tuple[int, int]] = None,
                  device: DeviceLike = "cuda") -> None:
         if not model_lib.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} has no slot-serving path")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"got {kv_layout!r}")
-        if tuple(mesh_shape) != (1, 1):
-            raise not_ported(f"mesh_shape={tuple(mesh_shape)}", "mesh")
+        dp, mp = (int(mesh_shape[0]), int(mesh_shape[1]))
+        if dp < 1 or mp < 1:
+            raise ValueError(f"mesh_shape axes must be >= 1, got {mesh_shape}")
+        if dp > 1:
+            raise ValueError(
+                "a single engine replica cannot span dp > 1 — use "
+                "make_serve_engine / EngineReplicaGroup for dp replicas")
+        if mp > 1:
+            raise not_ported(f"mesh_shape={tuple(mesh_shape)}", "mp")
+        if mesh_devices is not None:
+            if len(mesh_devices) != mp:
+                raise ValueError(f"mesh_devices names {len(mesh_devices)} "
+                                 f"devices for a row of mp={mp}")
+            device = mesh_devices[0]
         if isinstance(prefill_chunk, str):
             if prefill_chunk not in ("whole", "auto"):
                 raise ValueError(
@@ -665,6 +707,17 @@ class ContinuousBatchingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
+        # the mesh: this replica's (1, mp) row, and the group's (dp, mp),
+        # whose segment goes LAST on every measured axis's key — none on
+        # a (1, 1) mesh, so single-engine keys stay byte-identical.  The
+        # reference also gates its kernel variants on kernel_shard_ok
+        # (Hkv % mp == 0); at mp = 1, the only row accepted here, that
+        # holds for every model, so the kernels run as on one device.
+        self.mesh_shape = (dp, mp)
+        self._shard_dims = (tuple(int(d) for d in shard_dims)
+                            if shard_dims is not None else self.mesh_shape)
+        self._shard_tail: Tuple = (shard_bucket(*self._shard_dims)
+                                   if self._shard_dims != (1, 1) else ())
         self.cfg = cfg
         self.params = params
         self.num_slots = slots
@@ -1266,7 +1319,8 @@ class ContinuousBatchingEngine:
                     f"expired in queue after {now - r.submit_t:.3f}s "
                     f"(deadline {r.deadline_s:.3f}s)")
         for i, s in enumerate(self.slots):
-            if s.req is not None and self._deadline_expired(s.req, now):
+            if s.req is not None and not s.req.canary \
+                    and self._deadline_expired(s.req, now):
                 self._fail_request(
                     s.req, "deadline",
                     f"expired after {now - s.req.submit_t:.3f}s resident "
@@ -1627,6 +1681,7 @@ class ContinuousBatchingEngine:
                                           levels=self.occupancy_levels)
             if self.slo_weight > 0:
                 bucket = bucket + self._slo_bucket()
+            bucket = bucket + self._shard_tail
             name = self.vpe.controller.select("prefill_chunk", bucket)
             return (0 if name == "whole" else int(name)), bucket, name
         if self.prefill_chunk == "auto":
@@ -1654,6 +1709,7 @@ class ContinuousBatchingEngine:
                                       levels=self.occupancy_levels)
         if self.slo_weight > 0:
             bucket = bucket + self._slo_bucket()
+        bucket = bucket + self._shard_tail
         name = self.vpe.controller.select("prefill_kernel", bucket)
         return self._resolve_kernel(name), bucket, name
 
@@ -2009,6 +2065,7 @@ class ContinuousBatchingEngine:
             # who waits matters too: an interactive waiter makes a long
             # fused call expensive under the two-term objective
             bucket = bucket + self._slo_bucket()
+        bucket = bucket + self._shard_tail
         name = self.vpe.controller.select("decode_horizon", bucket)
         return int(name), bucket, name
 
@@ -2042,7 +2099,8 @@ class ContinuousBatchingEngine:
                 "injected device fault in fused horizon call")
             return
         bucket = occupancy_bucket(len(remaining), self.num_slots,
-                                  levels=self.occupancy_levels)
+                                  levels=self.occupancy_levels) \
+            + self._shard_tail
         name = self._select_decode_impl(bucket)
         impl = self._resolve_impl(name)
         if not fused and fault is not None and fault.kind == "device":
@@ -2176,6 +2234,7 @@ class ContinuousBatchingEngine:
                                     levels=self.occupancy_levels)
         if self.slo_weight > 0:
             bucket = bucket + self._slo_bucket()
+        bucket = bucket + self._shard_tail
         name = self.vpe.controller.select("spec_draft", bucket)
         return (0 if name == "off" else int(name)), bucket, name
 
@@ -2365,3 +2424,431 @@ class ContinuousBatchingEngine:
             if max_steps is not None and steps >= max_steps:
                 break
         return self.completed
+
+
+def _merge_stats(parts: Sequence[ServeStats]) -> ServeStats:
+    """Aggregate per-replica stats into one :class:`ServeStats` view:
+    scalars sum, series concatenate, histograms merge by key."""
+    out = ServeStats()
+    for p in parts:
+        for f in dataclasses.fields(ServeStats):
+            mine, theirs = getattr(out, f.name), getattr(p, f.name)
+            if isinstance(mine, list):
+                mine.extend(theirs)
+            elif isinstance(mine, dict):
+                for k, v in theirs.items():
+                    mine[k] = mine.get(k, 0) + v
+            else:
+                setattr(out, f.name, mine + theirs)
+    return out
+
+
+def _mesh_device_list(dp: int, mp: int,
+                      mesh_devices: Optional[Sequence[DeviceLike]]
+                      ) -> List[torch.device]:
+    """The dp·mp torch devices of a mesh, row-major: ``mesh_devices``
+    resolved, or ``cuda:0 … cuda:{dp·mp−1}`` by default.  Raises when the
+    default needs more cards than are visible, or when a named card does
+    not exist — never a silent move to another device."""
+    need = dp * mp
+    if mesh_devices is None:
+        visible = torch.cuda.device_count()
+        if visible < need:
+            raise ValueError(
+                f"mesh ({dp},{mp}) needs {need} devices, only {visible} "
+                f"visible (name them with mesh_devices; one device may be "
+                f"named more than once, e.g. ['cuda:0', 'cuda:0'] or "
+                f"['cpu', 'cpu'])")
+        mesh_devices = [f"cuda:{i}" for i in range(need)]
+    if len(mesh_devices) != need:
+        raise ValueError(f"mesh ({dp},{mp}) needs {need} devices, "
+                         f"mesh_devices names {len(mesh_devices)}")
+    devs = []
+    for d in mesh_devices:
+        dev = resolve_device(d)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0 if dev.index is None else dev.index)
+            if dev.index >= torch.cuda.device_count():
+                raise ValueError(f"mesh device {dev} is not visible "
+                                 f"({torch.cuda.device_count()} cards)")
+        devs.append(dev)
+    return devs
+
+
+def _on_device(dev: torch.device):
+    """Make ``dev`` the current card while a replica builds or steps (its
+    kernels, graphs and streams then land there); nothing on the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class EngineReplicaGroup:
+    """``dp`` independent engine replicas sharing one admission queue.
+
+    The mesh's ``dp`` axis is *replica* parallelism: each replica is a
+    full :class:`ContinuousBatchingEngine` with its own slot pool, KV
+    storage, page pool and decode graphs on its own device row — replicas
+    never exchange activations, so the whole group is plain in-process
+    objects (no RPC, no collective across ``dp``).  What they DO share is
+    admission: one group-level queue feeds whichever replica has free
+    capacity, so a burst lands on idle replicas instead of queueing
+    behind a busy one.
+
+    Placement: ``mesh_devices`` lists the dp·mp torch devices, row-major
+    (default ``cuda:0 … cuda:{dp·mp−1}``; the constructor raises when
+    fewer cards are visible).  One device may be named more than once:
+    that is how two replicas share one card, or the CPU.  Replicas on the
+    device that holds ``params`` share its tensors (serving never writes
+    them); a replica elsewhere gets a copy, one per device.  Each replica
+    builds and launches its kernels in its constructor and captures its
+    own decode and verify graphs, as a single engine does.
+
+    Dispatch semantics (:meth:`step`): while the shared queue is
+    non-empty and some replica has a free slot, the best-priority (then
+    oldest) queued request moves to the least-loaded replica.  Requests
+    are committed to a replica only when it can actually admit them —
+    early binding would recreate per-replica head-of-line blocking, which
+    is the thing a shared queue exists to avoid.  Prefix affinity and
+    starvation bounds then apply *within* the replica exactly as on a
+    single engine.
+
+    Every replica is constructed with the full ``(dp, mp)``
+    ``shard_dims``, so all replicas' dispatch keys carry the same shard
+    segment and a shared ``vpe`` learns ONE policy per mesh configuration
+    from every replica's samples.
+
+    **Failover.**  The group is the recovery rung ABOVE the engine's
+    degradation ladder: a replica that keeps producing fault evidence
+    (terminal device/numeric step faults, watchdog fence trips, dispatch
+    losses) past ``replica_fault_budget`` since its last clean window is
+    quarantined — its resident requests are preempted (exact greedy
+    resume via ``effective_prompt``) and its queue drained back to the
+    shared queue at class head, so survivors rerun identically on healthy
+    replicas.  A quarantined replica is probed with canary requests
+    (synthetic, excluded from :attr:`completed`); one clean canary run
+    re-admits it and resets its evidence base.  A single shared
+    :class:`FaultPlan` drives the whole group — replicas consume sites in
+    deterministic step order, so group chaos runs replay exactly."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, dp: int, mp: int,
+                 mesh_devices: Optional[Sequence[DeviceLike]] = None,
+                 replica_fault_budget: int = 3,
+                 **engine_kwargs: Any) -> None:
+        if dp < 2:
+            raise ValueError("EngineReplicaGroup needs dp >= 2 "
+                             "(a single replica is just the engine)")
+        if mp > 1:
+            raise not_ported(f"mesh_shape=({dp}, {mp})", "mp")
+        if replica_fault_budget < 1:
+            raise ValueError("replica_fault_budget must be >= 1")
+        if "device" in engine_kwargs:
+            raise ValueError("a replica group places its replicas by "
+                             "mesh_devices, not device")
+        devs = _mesh_device_list(dp, mp, mesh_devices)
+        self.mesh_shape = (dp, mp)
+        self.queue: List[Request] = []
+        self._failed: List[Request] = []
+        self._stats = ServeStats()   # group-level failures + failover events
+        # the plan is SHARED with every replica (not copied): sites are
+        # consumed in group-step order, one deterministic schedule.  The
+        # admission bound guards the SHARED queue; replica-local queues
+        # are dispatch buffers bounded by free slots, so the engines get
+        # no depth bound of their own.
+        self.faults: Optional[FaultPlan] = engine_kwargs.get("fault_plan")
+        self.max_queue_depth: Optional[int] = \
+            engine_kwargs.pop("max_queue_depth", None)
+        if self.max_queue_depth is not None and self.max_queue_depth < 1:
+            raise ValueError("max_queue_depth must be >= 1")
+        self.max_request_faults: int = \
+            engine_kwargs.get("max_request_faults", 3)
+        self.replica_fault_budget = replica_fault_budget
+        home = params["embed"].device
+        copies: Dict[torch.device, Any] = {}
+        self.engines: List[ContinuousBatchingEngine] = []
+        for r in range(dp):
+            row = devs[r * mp:(r + 1) * mp]
+            dev = row[0]
+            if dev not in copies:
+                copies[dev] = (params if home == dev else
+                               pytree.tree_map(lambda t: t.to(dev), params))
+            with _on_device(dev):
+                self.engines.append(ContinuousBatchingEngine(
+                    cfg, copies[dev], mesh_shape=(1, mp), mesh_devices=row,
+                    shard_dims=(dp, mp), **engine_kwargs))
+        self.max_len = self.engines[0].max_len
+        self.quarantined: set = set()
+        # per-replica evidence floor: fault evidence BELOW the floor was
+        # already acted on (a quarantine or a clean canary resets it)
+        self._ev_base = [0] * dp
+        self._dispatch_faults = [0] * dp
+        # replica -> (in-flight canary, evidence snapshot at launch)
+        self._canary: Dict[int, Tuple[Request, int]] = {}
+        self._canary_seq = 0
+        self._deadlines_live = False
+
+    # -- request intake ----------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Enqueue on the SHARED queue — or terminally fail, with the
+        same taxonomy as the single engine (reason code + detail)."""
+        req.submit_t = time.perf_counter()
+        err = _intake_error(req, self.max_len)
+        if err is not None:
+            self._fail(req, "intake", err)
+            return
+        if self.max_queue_depth is not None \
+                and len(self.queue) >= self.max_queue_depth:
+            self._fail(
+                req, "capacity",
+                f"queue depth {len(self.queue)} at admission bound "
+                f"{self.max_queue_depth}")
+            return
+        if req.deadline_s is not None:
+            self._deadlines_live = True
+        req.status = "queued"
+        self.queue.append(req)
+
+    def _fail(self, req: Request, reason: str, detail: str) -> None:
+        """Group-side terminal failure — same accounting contract as the
+        engine's ``_fail_request`` for a request not resident anywhere:
+        reason code, detail, ``done_t``, and a terminal queue wait when
+        it was never admitted by any replica."""
+        assert reason in FAIL_REASONS, reason
+        req.swap = None
+        req.error = reason
+        req.error_detail = detail
+        req.status = "failed"
+        req.done = True
+        req.done_t = time.perf_counter()
+        if req.admit_step < 0:
+            req.queue_wait_s = req.done_t - req.submit_t
+            self._stats.rejected += 1
+        self._stats.failed_by_reason[reason] = \
+            self._stats.failed_by_reason.get(reason, 0) + 1
+        self._failed.append(req)
+
+    # -- replica failover ---------------------------------------------------
+    def _evidence(self, r: int) -> int:
+        """Cumulative fault evidence against replica *r*: step-level
+        faults its own ladder absorbed or failed on, watchdog fence
+        trips, and dispatch losses."""
+        s = self.engines[r].stats
+        return (s.device_faults + s.numeric_faults + s.watchdog_trips
+                + self._dispatch_faults[r])
+
+    def _quarantine_replica(self, r: int) -> None:
+        """Pull replica *r* out of dispatch and migrate its work.
+
+        Resident requests are preempted with swap DISABLED — a host swap
+        image from a faulting replica is exactly as untrusted as its KV —
+        and, with everything the replica had queued, drained back to the
+        shared queue at class head (``_requeue`` ordering: ahead of their
+        own class, behind better classes).  Greedy parity makes the rerun
+        on a survivor token-exact.  Each migrated request is charged one
+        fault so a request that keeps landing on dying replicas
+        terminates as ``replica_lost`` instead of migrating forever."""
+        eng = self.engines[r]
+        self.quarantined.add(r)
+        self._stats.replica_quarantines += 1
+        swap_save, eng.swap = eng.swap, False
+        try:
+            for i, s in enumerate(eng.slots):
+                if s.req is not None:
+                    eng._preempt_slot(i)
+        finally:
+            eng.swap = swap_save
+        migrated = [q for q in eng.queue if not q.canary]
+        eng.queue = [q for q in eng.queue if q.canary]
+        for req in migrated:
+            req.faults += 1
+            if req.faults >= self.max_request_faults:
+                self._fail(
+                    req, "replica_lost",
+                    f"fault budget spent migrating off replica {r}")
+            else:
+                req.status = "queued"
+                self._requeue_shared(req)
+
+    def _requeue_shared(self, req: Request) -> None:
+        """Class-head insert into the SHARED queue (the group analogue of
+        the engine's ``_requeue``)."""
+        rank = PRIORITY_RANK[req.priority]
+        pos = next((j for j, r in enumerate(self.queue)
+                    if PRIORITY_RANK[r.priority] >= rank), len(self.queue))
+        self.queue.insert(pos, req)
+
+    def _check_replicas(self) -> None:
+        for r in range(len(self.engines)):
+            if r not in self.quarantined \
+                    and self._evidence(r) - self._ev_base[r] \
+                    >= self.replica_fault_budget:
+                self._quarantine_replica(r)
+
+    def _probe_quarantined(self) -> None:
+        """Canary lifecycle: every quarantined replica always has one
+        probe in flight.  A canary that completes ``ok`` with NO new fault
+        evidence since launch re-admits the replica (evidence base reset —
+        it starts its next budget window clean); a canary that fails or
+        trips anything leaves the replica quarantined and a fresh probe
+        launches next group step."""
+        for r in sorted(self.quarantined):
+            eng = self.engines[r]
+            probe = self._canary.get(r)
+            if probe is None:
+                self._canary_seq -= 1
+                can = Request(
+                    rid=self._canary_seq,
+                    prompt=np.arange(1, 9, dtype=np.int32),
+                    max_new_tokens=4,
+                    priority="interactive",
+                    canary=True)
+                self._canary[r] = (can, self._evidence(r))
+                self._stats.canary_probes += 1
+                eng.submit(can)
+                continue
+            can, ev0 = probe
+            if not can.done:
+                continue
+            del self._canary[r]
+            if can.status == "done" and self._evidence(r) == ev0:
+                self.quarantined.discard(r)
+                self._ev_base[r] = self._evidence(r)
+                self._stats.replica_readmissions += 1
+
+    def _shed_expired(self) -> None:
+        """Deadline sweep over the SHARED queue (replicas sweep their own
+        queues and slots in their step)."""
+        if not self._deadlines_live:
+            return
+        now = time.perf_counter()
+
+        def _expired(q: Request) -> bool:
+            return (q.deadline_s is not None
+                    and now - q.submit_t > q.deadline_s)
+
+        expired = [q for q in self.queue if _expired(q)]
+        if expired:
+            self.queue = [q for q in self.queue if not _expired(q)]
+            for q in expired:
+                self._fail(
+                    q, "deadline",
+                    f"expired in shared queue after {now - q.submit_t:.3f}s "
+                    f"(deadline {q.deadline_s:.3f}s)")
+
+    def _dispatch(self) -> None:
+        """Move queued requests onto replicas with free capacity: best
+        priority class first (FIFO within a class), least-loaded replica
+        first.  Appends to the replica's queue directly — validation and
+        ``submit_t`` already happened at group intake, and the replica's
+        own scheduler handles it from here.
+
+        Capacity is free slots MINUS requests already parked on the
+        replica's local queue: dispatched-but-not-yet-admitted requests
+        hold their claim, otherwise every tie-break in one dispatch pass
+        would land on the same replica and a burst would serialize behind
+        it — exactly the head-of-line blocking the shared queue exists to
+        avoid.  Quarantined replicas take no dispatch; a ``dispatch``-site
+        fault loses the handoff (the request stays in the shared queue,
+        charged one fault) and counts as evidence against the target
+        replica."""
+        while self.queue:
+            cap = [(sum(1 for s in e.slots if s.free) - len(e.queue), -r)
+                   for r, e in enumerate(self.engines)
+                   if r not in self.quarantined]
+            if not cap:
+                return              # every replica quarantined
+            n_free, neg_r = max(cap)
+            if n_free <= 0:
+                return
+            j = min(range(len(self.queue)),
+                    key=lambda i: (PRIORITY_RANK[self.queue[i].priority], i))
+            fault = (self.faults.take("dispatch")
+                     if self.faults is not None else None)
+            if fault is not None:
+                req = self.queue[j]
+                self._dispatch_faults[-neg_r] += 1
+                req.faults += 1
+                if req.faults >= self.max_request_faults:
+                    self.queue.pop(j)
+                    self._fail(req, "replica_lost",
+                               "fault budget spent on lost dispatches")
+                return              # retry the handoff next group step
+            self.engines[-neg_r].queue.append(self.queue.pop(j))
+
+    # -- engine surface ----------------------------------------------------
+    def step(self) -> bool:
+        """One group iteration: shed expired, dispatch, step every replica
+        that has work (one after the other, each on its own device),
+        evaluate replica health, run the canary lifecycle.  Returns False
+        when the whole group is idle."""
+        self._shed_expired()
+        self._probe_quarantined()
+        self._dispatch()
+        progress = False
+        for eng in self.engines:
+            if eng.queue or eng.num_active > 0:
+                with _on_device(eng.device):
+                    progress = eng.step() or progress
+        self._check_replicas()
+        self._probe_quarantined()
+        return progress or bool(self.queue)
+
+    def run(self, max_steps: Optional[int] = None) -> List[Request]:
+        """Drain the shared queue and every replica; returns completed
+        requests (failures included), exactly like the engine's.  A
+        quarantined replica keeps the loop alive until its canary
+        re-admits it, so a drained group ends healthy."""
+        steps = 0
+        while self.queue or self.quarantined \
+                or any(e.queue or e.num_active > 0 for e in self.engines):
+            if not self.step():
+                break
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return self.completed
+
+    def check_kv(self) -> None:
+        """Page audit on every replica (replicas share no pages, so the
+        group audit is the conjunction of the per-replica audits)."""
+        for eng in self.engines:
+            eng.check_kv()
+
+    @property
+    def num_active(self) -> int:
+        return sum(e.num_active for e in self.engines)
+
+    @property
+    def completed(self) -> List[Request]:
+        out: List[Request] = list(self._failed)
+        for eng in self.engines:
+            out.extend(r for r in eng.completed if not r.canary)
+        return out
+
+    @property
+    def stats(self) -> ServeStats:
+        """Aggregated view: per-replica stats merged plus group-level
+        intake rejections and failover events.  Recomputed per access —
+        cheap at serving scale, always consistent."""
+        return _merge_stats([self._stats] + [e.stats for e in self.engines])
+
+
+def make_serve_engine(cfg: ModelConfig, params: Any, *,
+                      mesh_shape: Tuple[int, int] = (1, 1),
+                      mesh_devices: Optional[Sequence[DeviceLike]] = None,
+                      **engine_kwargs: Any):
+    """Build the serve engine for a ``(dp, mp)`` mesh shape.
+
+    ``dp == 1`` returns a plain :class:`ContinuousBatchingEngine` (the
+    single-device engine at ``(1, 1)``, its dispatch keys unchanged);
+    ``dp > 1`` returns an :class:`EngineReplicaGroup` of dp engines on
+    ``mesh_devices`` behind one shared admission queue.  ``mp > 1`` raises
+    ``ValueError`` naming the ROADMAP item that ports head sharding.  Both
+    expose the same serve surface (``submit`` / ``step`` / ``run`` /
+    ``check_kv`` / ``num_active`` / ``completed`` / ``stats``)."""
+    dp, mp = (int(mesh_shape[0]), int(mesh_shape[1]))
+    if dp <= 1:
+        return ContinuousBatchingEngine(cfg, params, mesh_shape=(1, mp),
+                                        mesh_devices=mesh_devices,
+                                        **engine_kwargs)
+    return EngineReplicaGroup(cfg, params, dp=dp, mp=mp,
+                              mesh_devices=mesh_devices, **engine_kwargs)

@@ -10,7 +10,8 @@ speculative verify graphs and a demoted decode-kernel rung, the MoE
 decode graph (reduced qwen2-moe-a2.7b) and the paged and flash kernels at
 its heads (a group of 1), and the flash kernel at the recurrent and
 encoder-decoder families' heads (D = 64; non-causal; S < T and S > T) with
-reduced zamba2-1.2b served in waves through it.
+reduced zamba2-1.2b served in waves through it, and a group of two
+engine replicas on one card against a single engine.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
 entry points default to the card.  This file imports no JAX, so it runs on
@@ -28,7 +29,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.bench_algos import build_vpe, make_inputs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import shape_bucket  # noqa: E402
+from repro_torch.core import VPE, shape_bucket  # noqa: E402
 from repro_torch.kernels import conv2d as tconv  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import matmul as tmm  # noqa: E402
@@ -325,6 +326,34 @@ def test_cuda_engine_kernels_equal_gather_path(cuda_device):
         assert tpa.paged_prefill_attention_cuda.launches == \
             (eng.stats.prefill_chunks * cfg.num_layers if kernels else 0)
     assert out[("cuda", "cuda")] == out[("grouped", "gather")]
+
+
+@pytest.mark.cuda
+def test_cuda_replica_group_equals_single_engine(cuda_device):
+    """Reduced qwen3-8b in f32: a group of two replicas on ``cuda:0`` named
+    twice, both paged kernels pinned, gives a single engine's tokens; both
+    replicas serve, share the parameter tensors and replay decode graphs of
+    their own, and the keys the shared VPE records under carry the mesh."""
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 40, 8)]
+    kw = dict(slots=2, max_len=64, block_size=8, kv_layout="paged",
+              prefill_chunk=8, decode_impl="cuda", prefill_kernel="cuda")
+    want = _serve(tserve.ContinuousBatchingEngine(cfg, params, device=cuda_device,
+                                                  **kw), prompts, 6)
+    vpe = VPE()
+    grp = tserve.make_serve_engine(cfg, params, mesh_shape=(2, 1),
+                                   mesh_devices=["cuda:0", "cuda:0"], vpe=vpe, **kw)
+    tpa.reset_launch_counts()
+    assert _serve(grp, prompts, 6) == want
+    assert all(e.params is params and len(e.completed) > 0 for e in grp.engines)
+    assert all(e.graphs.replays > 0 and e.pages.drained for e in grp.engines)
+    assert tpa.paged_prefill_attention_cuda.launches == \
+        grp.stats.prefill_chunks * cfg.num_layers
+    keys = vpe.profiler.buckets_seen("serve_decode_impl")
+    assert keys and all(b[-3:] == ("shard", 2, 1) for b in keys)
 
 
 def _decode_state(cfg, dev, seed):

@@ -136,19 +136,22 @@ def test_intake_failures_do_not_raise(setup):
     assert eng.stats.failed_requests == 3 and eng.stats.rejected == 3
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh_shape=(1, 2)), "8(i)"), (dict(mesh_shape=(2, 1)), "8(i)"),
-    (dict(mesh_shape=(2, 2), spec_draft=4), "8(i)"),
-    (dict(mesh_shape=(1, 4), max_queue_depth=3), "8(i)")])
-def test_unported_features_name_their_roadmap_item(setup, kw, item):
-    """The mesh is the one feature still refused: speculation, faults and
-    deadlines are ported (the engine builds with them, below)."""
+@pytest.mark.parametrize("kw,match", [
+    (dict(mesh_shape=(1, 2)), r"ROADMAP queue 1, item 3b"),
+    (dict(mesh_shape=(2, 1)), r"make_serve_engine / EngineReplicaGroup"),
+    (dict(mesh_shape=(2, 2), spec_draft=4), r"make_serve_engine"),
+    (dict(mesh_shape=(1, 4), max_queue_depth=3), r"ROADMAP queue 1, item 3b")])
+def test_unported_features_name_their_roadmap_item(setup, kw, match):
+    """Head sharding (mp > 1) is the one feature still refused, naming its
+    ROADMAP item; dp replicas are the group's (``make_serve_engine``), so
+    one engine refuses dp > 1 as the reference's does.  Speculation,
+    faults and deadlines are ported (the engine builds with them, below)."""
     _, tcfg, _, tp = setup
-    with pytest.raises(ValueError, match=rf"ROADMAP queue 1, item {re.escape(item)}"):
+    with pytest.raises(ValueError, match=match):
         tserve.ContinuousBatchingEngine(tcfg, tp, device="cpu", **{**ENGINE, **kw})
     rest = {k: v for k, v in kw.items() if k != "mesh_shape"}
     tserve.ContinuousBatchingEngine(tcfg, tp, device="cpu", **{**ENGINE, **rest})
-    assert tserve.LATER == {"mesh": "8(i) mesh and replicas"}
+    assert tserve.LATER == {"mp": "3b, mp head sharding"}
 
 
 def test_bad_arguments_raise(setup):
@@ -176,11 +179,12 @@ def test_launcher(capsys):
     out = capsys.readouterr().out
     assert "completed 3 requests" in out
     assert "op/bucket decision table" in out
-    for argv, item in ((["--mesh", "1,2"], "8(i)"), (["--mesh=2,1"], "8(i)")):
+    for argv, msg in ((["--mesh", "1,2"], "item 3b"),
+                      (["--mesh=2,1"], "--mesh 2,1 needs 2 devices in --device")):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
                           "--continuous", *argv])
-        assert f"item {item}" in capsys.readouterr().err
+        assert msg in capsys.readouterr().err
 
 
 # the summary segments and extra lines of repro.launch.serve, word for word
