@@ -101,7 +101,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    "cuda:0"])``, one copy of the weights), 16 requests (phase 4's 8 and 8
    more from the same generator), each replica warmed by a request of its
    own, launch counts zeroed just before the timed run and read just after
-   (they join phase 4's in the kernels line); printed per replica: admits,
+   (the kernels line gives them under ``launches_by_path``, beside phase
+   4's, 15a's and the others); printed per replica: admits,
    captures, replays, pool bytes; for the group: TTFT, decode tok/s, the
    group step's host wall, peak memory; gates: every request done, each
    replica admitting at least 4, the pools drained, no capture in the run,
@@ -112,6 +113,20 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    replica 0's decode calls and one lost dispatch, a replica budget of 2:
    a quarantine and a re-admission, no canary in ``completed``, every
    request done with a clean single engine's tokens, no failure;
+15. head sharding, after phase 14 once the parent has freed its model:
+   (a) full-width qwen3-8b in bf16 at mesh (1, 2), two rank processes
+   (``spawn_ranks``) on ``cuda:0`` over gloo, each with 16/4 heads and half
+   the FFN, on phase 4's engine settings and requests (eager: a sharded
+   rank replays no graph), launch counts zeroed just before the run and
+   read just after on each rank; gates: every request done, both paged
+   kernels launched one a layer a step or chunk on each rank, no rank's
+   own tokens differing from rank 0's, the pools drained, phase 4's
+   tokens or a parting at a near-tie (top-2 margin <= ``SHARD_TIE``);
+   printed per rank: decode-only step wall, decode tok/s, TTFT, peak
+   memory; (b) both paged kernels at the shards' heads (16/4 and 8/2)
+   against their plain versions; (c) reduced qwen3-8b in f32 at (1, 2)
+   and (1, 4), token for token one engine's, both kernels launched on
+   every rank (at (1, 4) one query and one KV head a rank);
 12. the MoE path: full-width qwen2-moe-a2.7b, all 24 layers in bf16
    (random weights from a seeded generator on the card; weights, pool and
    peak memory printed), on phase 4's engine and traffic: (a) H = 1 with
@@ -528,15 +543,26 @@ def phase_kernel_checks(dev):
     qwen3-8b's heads (a group of 4) and qwen2-moe-a2.7b's (a group of 1:
     three of the decode block's four query rows are padding)."""
     import torch
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import ref
     say("[3] kernels against their plain versions (D=128, bs=16, nb=64; "
         f"qwen3-8b heads Hq={HQ}, Hkv={HKV}, and {MOE_ARCH} heads "
         f"Hq={MOE_HEADS[0]}, Hkv={MOE_HEADS[1]})")
     gen = torch.Generator(dev).manual_seed(3)
     errors = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0}
+    check_paged_kernels(gen, ((HQ, HKV), MOE_HEADS[:2]), errors)
+    return errors
+
+
+def check_paged_kernels(gen, heads, errors):
+    """Both paged kernels against their plain versions at each (Hq, Hkv) of
+    ``heads``, bf16 and f32 pools, with and without a window (decode: and
+    ``read_dtype``); the largest error of each kernel goes into
+    ``errors``."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    dev = gen.device
     n_pages = 4 * NB
-    for hq, hkv in ((HQ, HKV), MOE_HEADS[:2]):
+    for hq, hkv in heads:
         for dtype in (torch.bfloat16, torch.float32):
             for window in (None, 100):
                 for read_dtype in (None, torch.bfloat16):
@@ -573,7 +599,6 @@ def phase_kernel_checks(dev):
                 err = check_close(name, got, want, *tolerance(dtype, None))
                 errors["paged_prefill_attention"] = max(
                     errors["paged_prefill_attention"], err)
-    return errors
 
 
 def decode_timing_case(gen, prompt_lens, hq=HQ, hkv=HKV):
@@ -3756,6 +3781,261 @@ def phase_failover(dev):
     return out
 
 
+# phase 15: head sharding, mp ranks (one process each) time-sharing one
+# card over gloo (NCCL refuses two ranks on one card)
+SHARD_MP = 2
+SHARD_DEVICES = ["cuda:0"] * SHARD_MP
+# 15b: qwen3-8b's heads on a rank at mp = 2 and 4
+SHARD_HEADS = ((HQ // 2, HKV // 2), (HQ // 4, HKV // 4))
+# 15a's token gate: a parting from phase 4's tokens only at a top-2 margin
+# this close (a sharded rank sums each down-projection's f32 partials in
+# another order than the single engine's GEMM, and rounds once as it does)
+SHARD_TIE = 0.0625
+# 15c: reduced qwen3-8b in f32 (weights seed 2), 8 prompts of 5-59 tokens,
+# 12 new tokens, both kernels pinned (they run at mp = 2, one KV head a
+# rank, and at mp = 4, where Hkv = 2 does not split: each rank holds the
+# KV head its one query head reads)
+SHARD_REDUCED_KW = dict(slots=2, max_len=96, block_size=BS, prefill_chunk=16,
+                        kv_layout="paged")
+SHARD_REDUCED_MESHES = ((1, 2), (1, 4))
+
+
+def shard_reduced_case(dev):
+    """15c's reduced config, weights and prompts (the same on every rank:
+    one seed, one card)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    cfg = get_config("qwen3-8b").reduced()
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(2))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 60, 8)]
+    return cfg, params, prompts
+
+
+def shard_reduced_rank(group, mesh):
+    """15c on one rank: reduced qwen3-8b sharded over ``mesh``; its tokens,
+    the kernel launches and the shard's heads."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.runtime.serve_loop import Request, make_serve_engine
+    dev = torch.device("cuda", 0)
+    cfg, params, prompts = shard_reduced_case(dev)
+    eng = make_serve_engine(cfg, params, mesh_shape=mesh,
+                            mesh_devices=["cuda:0"] * mesh[1], shard_group=group,
+                            decode_impl="cuda", prefill_kernel="cuda",
+                            **SHARD_REDUCED_KW)
+    pa.reset_launch_counts()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+    done = eng.run()
+    torch.cuda.synchronize()
+    eng.check_kv()
+    return dict(tokens={r.rid: r.out for r in done if r.status == "done"},
+                launches=(pa.paged_attention_cuda.launches,
+                          pa.paged_prefill_attention_cuda.launches),
+                heads=(eng.cfg.num_heads, eng.cfg.num_kv_heads),
+                resolved=(eng._resolve_impl("cuda"), eng._resolve_kernel("cuda")),
+                mismatch=eng.stats.shard_token_mismatch, drained=eng.pages.drained)
+
+
+def shard_main_rank(group, prompts, warm):
+    """15a on one rank, then 15c's (1, 2) case: full-width qwen3-8b drawn
+    from phase 4's seed, sharded at (1, 2) by ``make_serve_engine`` (the
+    whole weights dropped once the shard is copied), the main path's
+    engine settings (paged, both kernels pinned, H = 1; eager: a sharded
+    rank replays no graph), warmed by one request; phase 4's requests
+    served with the launch counts zeroed just before and read just after,
+    each decode-only step's host wall kept."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import VPE
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_loop import Request, ServeStats, make_serve_engine
+    dev = torch.device("cuda", 0)
+    cfg = get_config("qwen3-8b")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    eng = make_serve_engine(
+        cfg, params, mesh_shape=(1, SHARD_MP), mesh_devices=SHARD_DEVICES,
+        shard_group=group, slots=SLOTS, max_len=MAX_LEN, block_size=BS,
+        kv_layout="paged", prefill_chunk=CHUNK, decode_horizon=1,
+        decode_impl="cuda", prefill_kernel="cuda", vpe=VPE())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    warm_up(eng, warm)
+    eng.stats = ServeStats()
+    eng.completed.clear()
+    eng.first_logits = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    walls, decode_only = [], []
+    step = eng.step
+
+    def timed_step():
+        st = eng.stats
+        before = (len(st.queue_wait_s), st.prefill_chunks, st.decode_steps)
+        t = time.perf_counter()
+        out = step()
+        walls.append(time.perf_counter() - t)
+        if (len(st.queue_wait_s), st.prefill_chunks) == before[:2] \
+                and st.decode_steps == before[2] + 1:
+            decode_only.append(walls[-1])
+        return out
+
+    eng.step = timed_step
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        done = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        del eng.step
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    eng.check_kv()
+    out = dict(
+        rank=group.rank, backend=group.backend, build_s=build_s,
+        weight_bytes=tree_bytes(eng.params), pool_bytes=tree_bytes(eng.page_pool),
+        heads=(eng.cfg.num_heads, eng.cfg.num_kv_heads), d_ff=eng.cfg.d_ff,
+        peak_bytes=torch.cuda.max_memory_allocated(), wall_s=wall,
+        decode_steps=st.decode_steps, prefill_chunks=st.prefill_chunks,
+        decode_tok_per_s=st.decode_tok_per_s, mean_ttft_s=st.mean_ttft_s,
+        tok_per_s_end_to_end=st.tokens_out / wall,
+        steps=len(walls), step_ms=sum(walls) / len(walls) * 1e3,
+        decode_only_steps=len(decode_only),
+        decode_step_ms=(sum(decode_only) / len(decode_only) * 1e3
+                        if decode_only else None),
+        decode_step_ms_median=(float(np.median(decode_only)) * 1e3
+                               if decode_only else None),
+        launches={"paged_decode_attention": pa.paged_attention_cuda.launches,
+                  "paged_prefill_attention": pa.paged_prefill_attention_cuda.launches},
+        mismatch=st.shard_token_mismatch, drained=eng.pages.drained,
+        status={r.rid: (r.status, len(r.out)) for r in done},
+        tokens={r.rid: r.out for r in done if r.status == "done"},
+        first_logits=({rid: x.float().cpu().numpy() for rid, x in eng.first_logits.items()}
+                      if group.rank == 0 else {}),
+        summary=st.summary())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced"] = shard_reduced_rank(group, (1, SHARD_MP))
+    return out
+
+
+def phase_head_sharding(dev, main, main_logits, errors):
+    """Phase 15: head sharding (``mp > 1``) on the card.
+
+    (a) full-width qwen3-8b in bf16 at mesh (1, 2): two ranks, each a
+    process of its own (``spawn_ranks``) on ``cuda:0`` over gloo, each
+    holding 16 of the 32 query heads, 4 of the 8 KV heads and half the
+    FFN, serving phase 4's requests on the main path's engine (eager).
+    Gates: every request done with 32 tokens, both paged kernels launched
+    on each rank, one a layer a decode step and one a layer a chunk, no
+    rank's own tokens differing from rank 0's, the pools drained, and the
+    tokens phase 4's or parting only at a top-2 margin <= ``SHARD_TIE``.
+    (b) both paged kernels against their plain versions at the shards'
+    head counts (16/4 and 8/2).  (c) reduced qwen3-8b in f32 at (1, 2)
+    and (1, 4) on the card: token for token a single engine's, both
+    kernels launched on every rank.  The parent holds no model while the
+    ranks run."""
+    import torch
+    from repro_torch.distributed.group import spawn_ranks
+    prompts = traffic(VOCAB)
+    say(f"[15a] head sharding: qwen3-8b at full width, mesh (1, {SHARD_MP}), ranks "
+        f"on {SHARD_DEVICES} (gloo), the main path's engine a rank, "
+        f"{len(prompts)} requests")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(shard_main_rank, SHARD_DEVICES,
+                        (prompts, np.arange(1, 200, dtype=np.int32)))
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        say(f"  rank {r['rank']} ({r['backend']}): heads {r['heads']}, d_ff {r['d_ff']}, "
+            f"weights {r['weight_bytes']} B, pool {r['pool_bytes']} B, peak "
+            f"{r['peak_bytes']} B, built in {r['build_s']} s; {r['decode_steps']} decode "
+            f"steps, {r['prefill_chunks']} chunks, {r['steps']} engine steps of "
+            f"{r['step_ms']} ms, decode-only steps {r['decode_only_steps']} of "
+            f"{r['decode_step_ms']} ms (median {r['decode_step_ms_median']}), decode "
+            f"{r['decode_tok_per_s']} tok/s, TTFT mean {r['mean_ttft_s']} s, wall "
+            f"{r['wall_s']} s, {r['tok_per_s_end_to_end']} tok/s end to end, launches "
+            f"{r['launches']}, token mismatches {r['mismatch']}")
+    say(f"  rank 0: {r0['summary']}; the spawn took {spawn_s} s; phase 4 (one engine, "
+        f"graph replays): decode {main['decode_tok_per_s']} tok/s, "
+        f"{main['decode_us_per_step']} us a decode step, TTFT mean "
+        f"{main['mean_ttft_s']} s")
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-8b")
+    layers = cfg.num_layers
+    for r in ranks:
+        if any(st != ("done", NEW_TOKENS) for st in r["status"].values()) or \
+                len(r["status"]) != len(prompts):
+            raise AssertionError(f"phase 15a: rank {r['rank']}: requests not done: "
+                                 f"{r['status']}")
+        if r["launches"]["paged_decode_attention"] != r["decode_steps"] * layers or \
+                r["launches"]["paged_prefill_attention"] != r["prefill_chunks"] * layers \
+                or not r["decode_steps"] or not r["prefill_chunks"]:
+            raise AssertionError(f"phase 15a: rank {r['rank']}: launches {r['launches']} "
+                                 f"do not match {r['decode_steps']} steps and "
+                                 f"{r['prefill_chunks']} chunks x {layers} layers")
+        if r["mismatch"] or not r["drained"] or r["tokens"] != r0["tokens"]:
+            raise AssertionError(f"phase 15a: rank {r['rank']}: token mismatches "
+                                 f"{r['mismatch']}, drained {r['drained']}")
+    run = dict(tokens=r0["tokens"],
+               first_logits={rid: torch.from_numpy(x) for rid, x in r0["first_logits"].items()})
+    ref = dict(tokens=main["tokens"], first_logits=main_logits)
+    params = None
+    if run["tokens"] != ref["tokens"]:
+        # the margins at a parting come from a full forward in this process
+        from repro_torch.models import model as model_lib
+        params = model_lib.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    vs4 = compare_runs("phase 15a", "phase 4", ref, run, cfg, params, prompts,
+                       tie=SHARD_TIE)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say(f"[15b] paged kernels at the shards' heads (Hq/Hkv {SHARD_HEADS})")
+    check_paged_kernels(torch.Generator(dev).manual_seed(15), SHARD_HEADS, errors)
+
+    cfg, params, rprompts = shard_reduced_case(dev)
+    want = run_engine(cfg, params, dev, ("cuda", "cuda"), rprompts, 12, **SHARD_REDUCED_KW)
+    del params
+    reduced = {(1, SHARD_MP): [r["reduced"] for r in ranks]}
+    for mesh in SHARD_REDUCED_MESHES:
+        if mesh not in reduced:
+            reduced[mesh] = spawn_ranks(shard_reduced_rank, ["cuda:0"] * mesh[1], (mesh,))
+    out_c = {}
+    for mesh, res in reduced.items():
+        say(f"[15c] reduced {cfg.name} (f32) at mesh {mesh}: per rank heads "
+            f"{[r['heads'] for r in res]}, resolved {res[0]['resolved']}, launches "
+            f"{[r['launches'] for r in res]}, tokens equal to one engine's "
+            f"{[r['tokens'] == want for r in res]}, mismatches "
+            f"{[r['mismatch'] for r in res]}")
+        for r in res:
+            if r["tokens"] != want or r["mismatch"] or not r["drained"]:
+                raise AssertionError(f"phase 15c: mesh {mesh}: tokens {r['tokens']} "
+                                     f"against {want}")
+            if min(r["launches"]) <= 0 or r["resolved"] != ("cuda", "cuda"):
+                raise AssertionError(f"phase 15c: mesh {mesh}: launches {r['launches']}, "
+                                     f"resolved {r['resolved']}")
+        out_c[f"{mesh[0]}x{mesh[1]}"] = dict(heads=[r["heads"] for r in res],
+                                              launches=[r["launches"] for r in res],
+                                              resolved=res[0]["resolved"])
+    return dict(ranks=[{k: v for k, v in r.items()
+                        if k not in ("tokens", "first_logits", "reduced", "status")}
+                       for r in ranks],
+                spawn_s=spawn_s, vs_phase4=vs4,
+                launches={f"15a rank {r['rank']}": r["launches"] for r in ranks},
+                reduced=out_c)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -3800,17 +4080,27 @@ def main(argv=None) -> int:
     pressure = phase_pressure(cfg, params, dev, prompts, main_run, main_logits)
     spec = phase_speculation(cfg, params, dev, prompts, main_run, main_logits)
     faults = phase_faults(cfg, params, dev, prompts, main_run, main_logits)
+    # phase 15 compares with phase 4's first-token logits after the model
+    # is freed
+    main_logits_host = {rid: x.float().cpu() for rid, x in main_logits.items()}
     del main_logits, cold_4d
     phase_reduced_parity(dev)
     logits = phase_full_width_parity(cfg, params, dev, prompts[:SLOTS], atol=0.25)
+    # each path's launches, zeroed just before its run and read just after;
+    # a kernel's "launches" is its main path's (phase 4's for the paged
+    # kernels, training's for flash, the paper path's for matmul, conv2d)
+    by_path = {name: {"4 main path": n} for name, n in main_run["launches"].items()}
     replicas = phase_replicas(cfg, params, dev,
                               traffic(cfg.vocab_size, more=REQUESTS))
-    for name, n in replicas["launches"].items():
-        main_run["launches"][name] += n
     replicas["failover"] = phase_failover(dev)
     del params                      # the later phases need the card
     gc.collect()
     torch.cuda.empty_cache()
+    shard = phase_head_sharding(dev, main_run, main_logits_host, errors)
+    for path, counts in [("14a replicas", replicas["launches"]),
+                         *shard["launches"].items()]:
+        for name, n in counts.items():
+            by_path[name][path] = n
     traces = None
     if args.trace:
         say("[6] traces (torch.profiler, in a child process)")
@@ -3820,10 +4110,12 @@ def main(argv=None) -> int:
     train = phase_train(dev, args.trace)
     train_parity = phase_train_parity(dev)
     main_run["launches"]["flash_attention"] = train["launches"]
+    by_path["flash_attention"] = {"7 training": train["launches"]}
     paper_errors = phase_paper_kernel_checks(dev)
     paper_times = phase_paper_kernel_times(dev)
     paper = phase_paper_path(dev)
     main_run["launches"].update(paper["launches"])
+    by_path.update({name: {"11 paper path": n} for name, n in paper["launches"].items()})
     times.update(paper_times)
     # the paper path runs f32: its kernels' line holds their f32 errors
     # (bf16 errors are printed in phase 9 and kept in the report)
@@ -3837,6 +4129,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": main_run["launches"][name],
+            "launches_by_path": by_path[name],
             "max_abs_err": max(errors[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -3847,7 +4140,7 @@ def main(argv=None) -> int:
                  kernel_times=times, check_errors=errors, main_path=main_run,
                  fused_horizons=fused, auto_horizon=auto, prefix_cache=prefix,
                  layouts=layouts, pressure=pressure, speculation=spec,
-                 faults=faults, replicas=replicas,
+                 faults=faults, replicas=replicas, head_sharding=shard,
                  full_width_logits=logits, traces=traces, moe=moe,
                  families=families, train=train,
                  train_parity=train_parity, paper_check_errors=paper_errors,

@@ -8,7 +8,7 @@
         [--priority mix --page-budget 11 --swap --slo-weight 0.5] \\
         [--watchdog --fault-seed 5 --fault-storm 8 --deadline 30 \\
          --max-queue-depth 16] [--mesh 2,1 --device cuda:0,cuda:0] \\
-        [--device cpu]
+        [--mesh 1,2 --device cpu,cpu] [--device cpu]
 
 Without ``--continuous`` requests run in waves (``ServeLoop`` +
 ``WaveScheduler``, the baseline), the only path of the recurrent and
@@ -18,8 +18,12 @@ the reference's engine does.  The flags are those of
 engine replicas behind one shared admission queue on the devices that
 ``--device`` lists, one a replica (``cuda:0,cuda:0``: two replicas on one
 card; ``cpu,cpu``: on the CPU; a bare ``cuda`` takes ``cuda:0`` …
-``cuda:{DP-1}``); ``MP > 1``, head sharding, is refused with the ROADMAP
-item that ports it.  An encdec arch
+``cuda:{DP*MP-1}``).  ``--mesh DP,MP`` with ``MP > 1`` shards each
+engine's heads over MP processes (``spawn_ranks``) on the DP*MP devices
+of ``--device``, row-major (``cpu,cpu`` or ``cuda:0,cuda:0`` for ``1,2``:
+two ranks on the CPU or on one card, over ``gloo``): every rank draws the
+same weights and requests from ``--seed``, and rank 0's lines are
+printed.  An encdec arch
 (whisper-base) is refused: its prefill needs frames, and neither this
 launcher nor the reference's has a source of them (serve it through
 ``ServeLoop.generate`` with {"tokens", "frames"}).
@@ -35,11 +39,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import VPE
+from repro_torch.distributed.group import shard_backend, spawn_ranks
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.serve_faults import FaultPlan
 from repro_torch.runtime.serve_loop import (SERVE_AXES, Request, ServeLoop,
-                                            WaveScheduler, make_serve_engine,
-                                            not_ported)
+                                            WaveScheduler, make_serve_engine)
 
 NO_FRAMES = ("{arch} needs frame embeddings and this launcher has no source "
              "of them (nor has the reference's); call ServeLoop.generate "
@@ -139,8 +143,8 @@ def main(argv=None) -> None:
                     help="serve mesh 'dp,mp' (continuous only): dp runs "
                          "independent engine replicas behind one shared "
                          "admission queue, on the devices --device lists; "
-                         "'1,1' (default) is the single engine; mp > 1 (head "
-                         "sharding) is not ported yet")
+                         "'1,1' (default) is the single engine; mp > 1 "
+                         "shards each engine's heads over mp processes")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path; "
                          "with --mesh, a comma list of dp*mp devices (one "
@@ -153,15 +157,14 @@ def main(argv=None) -> None:
         ap.error(f"--mesh must be 'dp,mp' integers, got {args.mesh!r}")
     if dp < 1 or mp < 1:
         ap.error(f"--mesh axes must be >= 1, got {args.mesh!r}")
-    if mp > 1:
-        ap.error(str(not_ported(f"--mesh {dp},{mp}", "mp")))
     if (dp, mp) != (1, 1) and not args.continuous:
         ap.error("--mesh requires --continuous")
     devices = args.device.split(",")
     if dp * mp == 1 and len(devices) != 1:
         ap.error(f"--device names {len(devices)} devices for one engine")
     # a bare "cuda" leaves a group's placement to its default
-    mesh_devices = None if dp == 1 or devices == ["cuda"] else devices
+    mesh_devices = (None if (dp, mp) == (1, 1) or devices == ["cuda"]
+                    else devices)
     if mesh_devices is not None and len(mesh_devices) != dp * mp:
         ap.error(f"--mesh {dp},{mp} needs {dp * mp} devices in --device, "
                  f"got {len(mesh_devices)}")
@@ -180,14 +183,35 @@ def main(argv=None) -> None:
         ap.error(f"--spec-draft must be 'off', a span or 'auto', got "
                  f"{args.spec_draft!r}")
 
-    # the params are made on the first device of the mesh; a replica on
-    # another device gets a copy
-    device = resolve_device(devices[0])
     cfg = get_config(args.arch)
     if cfg.family == "encdec":
         ap.error(NO_FRAMES.format(arch=args.arch))
     if args.smoke:
         cfg = cfg.reduced()
+    run = (args, cfg, (dp, mp), mesh_devices, horizon, chunk, spec)
+    if mp == 1:
+        lines = _serve(None, *run)
+    else:
+        # one process a shard: rank r's current device is column r of the
+        # mesh; the replicas of a rank (dp > 1) share one communicator,
+        # which is gloo's
+        devs = mesh_devices or [f"cuda:{i}" for i in range(dp * mp)]
+        lines = spawn_ranks(_serve, devs[:mp], run,
+                            backend=shard_backend(devs[:mp]) if dp == 1 else "gloo")[0]
+    print("\n".join(lines))
+
+
+def _serve(group, args, cfg, mesh, mesh_devices, horizon, chunk, spec):
+    """Serve the seeded requests (on rank ``group.rank`` of a head-sharded
+    mesh, or alone when ``group`` is None) and return the report's lines
+    (rank 0's; another rank returns none).  The params are made on the
+    rank's first device, from the seed: every rank draws the same; a
+    replica on another device gets a copy."""
+    dp, mp = mesh
+    rank = group.rank if group is not None else 0
+    devices = args.device.split(",")
+    device = resolve_device(mesh_devices[rank] if mesh_devices else
+                            f"cuda:{rank}" if mp > 1 else devices[0])
     params = model_lib.init_params(
         cfg, torch.Generator(device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
@@ -211,15 +235,16 @@ def main(argv=None) -> None:
             sched.submit(r)
         done = sched.run()
         st = serve.stats
-        print(f"completed {len(done)} requests; decode throughput "
-              f"{st.decode_tok_per_s:.1f} tok/s (prefill {st.prefill_s:.2f}s, "
-              f"decode {st.decode_s:.2f}s)")
-        return
+        return [f"completed {len(done)} requests; decode throughput "
+                f"{st.decode_tok_per_s:.1f} tok/s (prefill {st.prefill_s:.2f}s, "
+                f"decode {st.decode_s:.2f}s)"]
     vpe = VPE()
     plan = (FaultPlan.seeded(args.fault_seed, args.fault_storm, slots=args.batch)
             if args.fault_seed is not None else None)
+    place = ({"mesh_devices": mesh_devices, "shard_group": group}
+             if mesh != (1, 1) else {"device": device})
     engine = make_serve_engine(
-        cfg, params, mesh_shape=(dp, mp),
+        cfg, params, mesh_shape=mesh,
         slots=args.batch, max_len=args.max_len, vpe=vpe,
         prefix_blocks=args.prefix_blocks if args.prefix_cache else 0,
         block_size=args.block_size, kv_layout=args.kv_layout,
@@ -228,24 +253,27 @@ def main(argv=None) -> None:
         prefill_kernel=args.prefill_kernel, spec_draft=spec,
         page_budget=args.page_budget, swap=args.swap,
         slo_weight=args.slo_weight, fault_plan=plan, watchdog=args.watchdog,
-        max_queue_depth=args.max_queue_depth,
-        **({"mesh_devices": mesh_devices} if dp > 1 else {"device": device}))
+        max_queue_depth=args.max_queue_depth, **place)
+    del params                  # a rank keeps its shard only
     for r in reqs:
         engine.submit(r)
     done = engine.run()
+    if rank != 0:
+        return []
     stats = engine.stats
-    mesh_note = f" [mesh {dp}x{mp}]" if (dp, mp) != (1, 1) else ""
-    print(f"completed {len(done)} requests{mesh_note}; {stats.summary()}")
+    mesh_note = f" [mesh {dp}x{mp}]" if mesh != (1, 1) else ""
+    lines = [f"completed {len(done)} requests{mesh_note}; {stats.summary()}"]
     if plan is not None:
         fired = ", ".join(f"{f.site}/{f.kind}@{f.at}"
                           for f in plan.injected) or "none"
-        print(f"fault storm (seed {args.fault_seed}): "
-              f"{len(plan.injected)}/{len(plan)} fired [{fired}]")
+        lines.append(f"fault storm (seed {args.fault_seed}): "
+                     f"{len(plan.injected)}/{len(plan)} fired [{fired}]")
     if stats.spec_calls:
         hist = ", ".join(f"{k}:{v}" for k, v in sorted(stats.accept_hist.items()))
-        print(f"spec accept histogram (drafts accepted -> slot-calls): {hist}")
+        lines.append(f"spec accept histogram (drafts accepted -> slot-calls): {hist}")
     # which variant each measured axis settled on, and the trials behind it
-    print(vpe.report())
+    lines.append(vpe.report())
+    return lines
 
 
 if __name__ == "__main__":

@@ -17,7 +17,13 @@ Every step keeps its shapes fixed and reads no value on the host (the
 one-hot is a comparison against ``arange``, the positions a cumsum and a
 gather, the scatter an ``index_add``), so a decode step through this
 block can be captured in a CUDA graph.  The reference pins the buffer's
-sharding for expert parallelism; the port has no mesh.
+sharding for expert parallelism and GSPMD splits the products.  On a rank
+of a head-sharded engine (:mod:`repro_torch.distributed.sharding`) the
+router, top-k and capacity dispatch run over all experts on the same
+rows, so every rank drops the same assignments; the rank's expert
+products run over its slice of the experts (or of each expert's hidden
+columns), the other experts contribute zero, and the combined partial sum
+(routed and shared) is completed over the ranks before the cast.
 
 This matches qwen2-moe (4 shared + 60 routed top-4, norm_topk_prob) and
 moonlight (2 shared + 64 routed top-6).
@@ -32,7 +38,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, dense_init, init_swiglu, swiglu, swiglu_param_shapes
+from repro_torch.distributed.group import (active_scope, f32_product,
+                                           reduce_partial, splits)
+
+from .layers import Params, dense_init, init_swiglu, swiglu_param_shapes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,11 +132,18 @@ def dispatch(s: MoESpec, experts: torch.Tensor, C: int
     return keep, experts * C + torch.where(keep, pos, 0)
 
 
-def _routed_experts(p: Params, s: MoESpec, xg: torch.Tensor) -> torch.Tensor:
+def _routed_experts(p: Params, s: MoESpec, xg: torch.Tensor,
+                    expert0: int = 0, f32_down: bool = False) -> torch.Tensor:
     """Group-wise routed branch.  xg: (G, n, d) -> (G, n, d) in f32.
 
     Capacity is per (group, expert) and the scatter and gather stay inside
-    the group; G = 1 is global routing."""
+    the group; G = 1 is global routing.  When ``p`` holds a slice of the
+    experts (fewer than ``s.padded_experts``, from expert ``expert0`` on),
+    the assignments are dispatched over all experts as without the slice
+    and only those to the slice are computed: the others add zero.  With
+    ``f32_down`` (``p`` holds a slice of each expert's hidden columns) the
+    down-projection's partial is computed in f32, to be summed over the
+    ranks before any rounding."""
     G, n, d = xg.shape
     E, k = s.padded_experts, s.top_k
     C = capacity(s, n)
@@ -135,6 +151,12 @@ def _routed_experts(p: Params, s: MoESpec, xg: torch.Tensor) -> torch.Tensor:
     weights, experts = route(s, p["router"], xg.reshape(G * n, d))
     weights = weights.reshape(G, n * k)
     keep, slot = dispatch(s, experts.reshape(G, n * k), C)
+    El = p["experts_gate"].shape[0]
+    if El != E:
+        mine = (slot >= expert0 * C) & (slot < (expert0 + El) * C)
+        keep = keep & mine
+        slot = torch.where(mine, slot - expert0 * C, 0)
+        E = El
     # one buffer for all groups: group g's rows start at g * E * C
     rows = (slot + torch.arange(G, device=dev)[:, None] * (E * C)).reshape(-1)
 
@@ -145,7 +167,10 @@ def _routed_experts(p: Params, s: MoESpec, xg: torch.Tensor) -> torch.Tensor:
 
     g_ = torch.einsum("gecd,edf->gecf", buf, p["experts_gate"])
     u_ = torch.einsum("gecd,edf->gecf", buf, p["experts_up"])
-    eo = torch.einsum("gecf,efd->gecd", F.silu(g_) * u_, p["experts_down"])
+    act, w_down = F.silu(g_) * u_, p["experts_down"]
+    if f32_down:
+        act, w_down = act.float(), w_down.float()
+    eo = torch.einsum("gecf,efd->gecd", act, w_down)
 
     out_k = eo.reshape(G * E * C, d)[rows].reshape(G, n * k, d)
     out_k = out_k * torch.where(keep, weights, 0.0)[..., None]   # f32
@@ -161,11 +186,21 @@ def moe_block(p: Params, s: MoESpec, x: torch.Tensor, *, groups: int = 1
     if N % max(groups, 1):
         groups = 1
     xf = x.reshape(N, d)
-    out = _routed_experts(p, s, xf.reshape(max(groups, 1), -1, d)).reshape(N, d)
+    # on a rank whose plan splits the block: its slice of the experts or
+    # of each expert's columns, and of the shared expert's columns, each
+    # partial in f32 and all summed over the ranks at once
+    split = splits("ffn")
+    mode = active_scope().plan.moe if split else None
+    expert0 = (active_scope().group.rank * p["experts_gate"].shape[0]
+               if mode == "experts" else 0)
+    out = _routed_experts(p, s, xf.reshape(max(groups, 1), -1, d), expert0,
+                          f32_down=mode == "columns").reshape(N, d)
     if s.num_shared_experts:
         shared_p = {k[len("shared_"):]: v for k, v in p.items() if k.startswith("shared_")}
-        out = out + swiglu(shared_p, xf)
-    return out.to(x.dtype).reshape(B, S, d)
+        hid = F.silu(xf @ shared_p["w_gate"]) * (xf @ shared_p["w_up"])
+        out = out + (f32_product(hid, shared_p["w_down"]) if split
+                     else hid @ shared_p["w_down"])
+    return reduce_partial(out, "ffn").to(x.dtype).reshape(B, S, d)
 
 
 def aux_load_balance_loss(s: MoESpec, router_w: torch.Tensor, x: torch.Tensor

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.group import project_out
 
 from . import kvcache, layers, moe
 from .layers import AttnSpec, Params
@@ -213,11 +214,22 @@ def _sub(p: Params, prefix: str) -> Params:
 
 def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     """The FFN half of a layer on h (B, S, d): the MoE block for the moe
-    family (its B*S rows routed together), SwiGLU otherwise."""
+    family (its B*S rows routed together), SwiGLU otherwise.  On a rank of
+    a head-sharded engine the hidden dim (or the experts) is the rank's
+    slice, and the down-projection's partial sum is completed over the
+    ranks (the MoE block does so before its cast)."""
     if cfg.family == "moe":
         return moe.moe_block(_sub(lp, "moe_"), moe_spec(cfg), h,
                              groups=cfg.moe_groups)
-    return layers.swiglu(_sub(lp, "ffn_"), h)
+    p = _sub(lp, "ffn_")
+    return project_out(F.silu(h @ p["w_gate"]) * (h @ p["w_up"]), p["w_down"],
+                       "ffn")
+
+
+def _attn_out(lp: Params, o: torch.Tensor) -> torch.Tensor:
+    """The attention output projection of o (B, H, S, D); on a rank of a
+    head-sharded engine, over the rank's heads, summed over the ranks."""
+    return project_out(layers._merge_heads(o), lp["attn_wo"], "attn")
 
 
 def _layer_kv_fwd(cfg: ModelConfig, s: AttnSpec, lp: Params, x: torch.Tensor,
@@ -228,7 +240,7 @@ def _layer_kv_fwd(cfg: ModelConfig, s: AttnSpec, lp: Params, x: torch.Tensor,
     h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
     q, k, v = layers.attn_qkv(_sub(lp, "attn_"), s, h, positions)
     o = attn_call(q, k, v)
-    x = x + layers._merge_heads(o) @ lp["attn_wo"]
+    x = x + _attn_out(lp, o)
     h = layers.rmsnorm(x, lp["ln2"], cfg.rms_eps)
     return x + _ffn(cfg, lp, h), k, v
 
@@ -436,7 +448,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Dict,
 def _post_attn(cfg: ModelConfig, lp: Params, x: torch.Tensor, o: torch.Tensor
                ) -> torch.Tensor:
     """Output projection + FFN (or MoE) half of a decode or verify layer."""
-    x = x + layers._merge_heads(o) @ lp["attn_wo"]
+    x = x + _attn_out(lp, o)
     h = layers.rmsnorm(x, lp["ln2"], cfg.rms_eps)
     return x + _ffn(cfg, lp, h)
 

@@ -4,7 +4,8 @@ The counterpart of the optimizer-side half of ``repro.optim.compression``:
 :func:`quantize`/:func:`dequantize` and :class:`ErrorFeedback`, the
 numerics of compressed gradient sync applied before the optimizer.  The
 wire form, ``compressed_psum`` (an int8 all-reduce across a mesh axis),
-waits for the port's training mesh (ROADMAP queue 1, item 3c).
+waits for the port's training mesh (ROADMAP queue 1, item 3c), which can
+build it on :class:`repro_torch.distributed.group.ShardGroup`.
 """
 
 from __future__ import annotations

@@ -51,6 +51,11 @@ write goes to the trash page, the contiguous writes of ``auto`` rewrite
 what is there and no length moves.  The verify read is the gather path
 and launches no kernel of the port.
 
+A rank of a head-sharded engine (``eager=True``) captures nothing: its
+decode and verify calls run eagerly, as on the CPU, since the all-reduces
+they hold go through ``gloo`` where the ranks share a card, and ``gloo``'s
+collectives cannot be captured.
+
 All graphs of one engine share one memory pool.  That is safe because
 they replay one at a time on one stream and each replay's outputs are
 copied to the host before the next replay, which may reuse their memory.
@@ -89,10 +94,12 @@ class DecodeGraphs:
     ``auto``: the slot cache with the block table); ``pool`` its page pool
     (None for the contiguous layout); ``inputs`` its (5, B) int32 block of
     decode inputs, rows in :data:`INPUT_ROWS` order.  None of them may be
-    rebound while this object lives."""
+    rebound while this object lives.  ``eager`` runs every call eagerly on
+    the card too (a sharded engine's rank)."""
 
     def __init__(self, cfg: ModelConfig, params, layout: str, cache: Dict,
-                 inputs: torch.Tensor, pool: Optional[Dict] = None) -> None:
+                 inputs: torch.Tensor, pool: Optional[Dict] = None,
+                 eager: bool = False) -> None:
         self.cfg = cfg
         self.params = params
         self.layout = layout
@@ -100,6 +107,7 @@ class DecodeGraphs:
         self.cache = cache
         self.tok, self.live, self.eos, self.paged, self.budget = inputs.unbind(0)
         self.device = inputs.device
+        self.eager = eager or self.device.type != "cuda"
         self.graphs: Dict[Tuple[str, int], _Graph] = {}
         self.captures = 0
         self.replays = 0
@@ -113,7 +121,7 @@ class DecodeGraphs:
         self.verify_replays = 0
         self._mem_pool = None
         self._stream: Optional[torch.cuda.Stream] = None
-        if self.device.type == "cuda":
+        if not self.eager:
             self._mem_pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
 
@@ -140,7 +148,7 @@ class DecodeGraphs:
         """One decode call of ``horizon`` steps with decode attention
         ``impl``, not fenced: the (2, B, H) token block and valid mask on
         the device, and whether this call captured its graph."""
-        if self.device.type != "cuda":
+        if self.eager:
             return self._call(impl, horizon), False
         entry = self.graphs.get((impl, horizon))
         captured = entry is None
@@ -199,10 +207,10 @@ class DecodeGraphs:
         if buf is None:
             buf = torch.zeros(tokens.shape, dtype=torch.int32, device=self.device)
             self.verify_tokens[span] = buf
-            if self.device.type == "cuda":
+            if not self.eager:
                 self._verify_host[span] = torch.empty(
                     tokens.shape, dtype=torch.int32, pin_memory=True)
-        if self.device.type != "cuda":
+        if self.eager:
             buf.copy_(torch.from_numpy(np.ascontiguousarray(tokens, np.int32)))
             return self._verify_call(span), False
         host = self._verify_host[span]

@@ -121,14 +121,35 @@ with replica quarantine, migration and canary re-admission above the
 engine's own ladder.  One device may be named more than once (two replicas
 on one card).  Every replica keys its axes with the group's full mesh
 (:func:`~repro_torch.core.shard_bucket`), so a shared VPE learns one
-policy per mesh.  Head sharding (``mp > 1``) raises ``ValueError`` naming
-the ROADMAP item that ports it.
+policy per mesh.
+
+**Head sharding.**  ``mp > 1`` runs one process a shard
+(:mod:`repro_torch.distributed.group`): every rank builds the same engine
+with a :class:`~repro_torch.distributed.group.ShardGroup`, is handed the
+same submissions, and serves them over its slice of the heads, the FFN
+hidden dim and the experts (:func:`~repro_torch.distributed.sharding.
+shard_params`), one all-reduce after each down-projection completing the
+sum.  The same code runs on every rank, so every rank must take the same
+decisions: rank 0 takes each one that reads a clock or a measured time —
+the VPE's selections, the deadline reads, the watchdog's verdicts — and
+the others take its value (:meth:`ShardGroup.agree`), and after every
+prefill and decode call rank 0's tokens are the ones committed
+(``stats.shard_token_mismatch`` counts the calls where a rank's own
+differed; the all-reduce makes the logits equal, so it stays 0).  A
+sharded rank replays no CUDA graph: its collectives go through ``gloo``
+where ranks share a card, and those cannot be captured.  Every rank's
+pool holds the KV heads its query heads read, so the paged kernels run
+on a shard at its own head counts, whatever ``Hkv % mp`` is (the
+reference, one GSPMD program, replicates the pool and runs the gather
+path when the KV heads do not split evenly).  Only rank 0's ``stats``
+and VPE are the engine's report.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -143,6 +164,8 @@ from repro_torch.core import (VPE, decode_horizon_bucket, kv_layout_bucket,
                               prefill_chunk_bucket, prefix_len_bucket,
                               shard_bucket, slo_pressure_bucket,
                               spec_accept_bucket)
+from repro_torch.distributed.group import ShardGroup, ShardScope, shard_scope
+from repro_torch.distributed.sharding import shard_params, shard_plan
 from repro_torch.distributed.straggler import StepWatchdog, StragglerTimeout
 from repro_torch.models import kvcache
 from repro_torch.models import model as model_lib
@@ -176,18 +199,6 @@ SLO_CLASS_WEIGHT: Dict[str, float] = {"interactive": 1.0, "batch": 0.1}
 FAIL_REASONS = ("intake", "deadline", "capacity", "device_fault",
                 "numeric_fault", "replica_lost")
 
-# reference engine features outside this port -> the ROADMAP item (queue
-# 1, "Modules still to port") that ports each
-LATER = {
-    "mp": "3b, mp head sharding",
-}
-
-
-def not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: ROADMAP queue 1, item "
-                      f"{LATER[item]}")
-
-
 def _intake_error(req: "Request", max_len: int) -> Optional[str]:
     """Why a submission can never be served, or None if it can."""
     need = len(req.prompt) + req.max_new_tokens
@@ -200,6 +211,26 @@ def _intake_error(req: "Request", max_len: int) -> Optional[str]:
         return (f"unknown priority class {req.priority!r} "
                 f"(choose from {PRIORITY_CLASSES})")
     return None
+
+
+def _request_digest(req: "Request") -> str:
+    """What every rank of a sharded engine must agree on about a request."""
+    h = hashlib.sha256(repr((req.rid, int(req.max_new_tokens), req.priority,
+                             req.deadline_s, req.eos_id)).encode())
+    h.update(np.asarray(req.prompt).astype(np.int64).tobytes())
+    return h.hexdigest()
+
+
+def _agree_request(group: ShardGroup, req: "Request", now: float) -> float:
+    """Check that every rank was handed the same ``req`` (``ValueError`` on
+    every rank when one was not) and return rank 0's ``now``, its submit
+    time on every rank: the deadlines are read against rank 0's clock."""
+    seen = group.gather((_request_digest(req), now))
+    if any(digest != seen[0][0] for digest, _ in seen):
+        raise ValueError(
+            f"request {req.rid} differs across the {group.world} shard ranks: "
+            f"every rank must be handed the same submissions")
+    return seen[0][1]
 
 
 class _PagePressure(RuntimeError):
@@ -282,6 +313,9 @@ class ServeStats:
     replica_quarantines: int = 0
     replica_readmissions: int = 0
     canary_probes: int = 0
+    # head sharding: calls after which this rank's own tokens differed
+    # from rank 0's (rank 0's were committed)
+    shard_token_mismatch: int = 0
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -362,6 +396,8 @@ class ServeStats:
             s += (f", {self.replica_quarantines} replica quarantines "
                   f"({self.replica_readmissions} re-admitted, "
                   f"{self.canary_probes} canaries)")
+        if self.shard_token_mismatch:
+            s += f", {self.shard_token_mismatch} shard token mismatches"
         return s
 
 
@@ -594,11 +630,15 @@ class ContinuousBatchingEngine:
     the clean decode spans a demoted rung waits out, ``max_queue_depth``
     the admission bound.  ``device`` defaults to ``"cuda"`` and must hold
     ``params``; ``"cpu"`` runs the kernels' plain versions.
-    ``mesh_shape`` is ``(1, mp)``: one engine is one replica, and ``mp >
-    1`` (head sharding) is not ported yet.  ``mesh_devices``, when given,
-    names the replica's device row (its one device takes the place of
-    ``device``), and ``shard_dims`` the group's full ``(dp, mp)``, which the
-    measured axes' keys carry (:func:`make_serve_engine` passes both).
+    ``mesh_shape`` is ``(1, mp)``: one engine is one replica.  ``mp > 1``
+    shards its heads over ``mp`` processes (module docstring): each builds
+    this engine with the whole ``params`` and its ``shard_group`` (``mp``
+    ranks), keeps only its shard of them, and must be handed the same
+    submissions (``submit`` raises ``ValueError`` on every rank when a
+    request differs).  ``mesh_devices``, when given, names the replica's
+    device row, one a rank (this rank's takes the place of ``device``),
+    and ``shard_dims`` the group's full ``(dp, mp)``, which the measured
+    axes' keys carry (:func:`make_serve_engine` passes both).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -624,6 +664,7 @@ class ContinuousBatchingEngine:
                  mesh_shape: Tuple[int, int] = (1, 1),
                  mesh_devices: Optional[Sequence[DeviceLike]] = None,
                  shard_dims: Optional[Tuple[int, int]] = None,
+                 shard_group: Optional[ShardGroup] = None,
                  device: DeviceLike = "cuda") -> None:
         if not model_lib.supports_slot_serving(cfg):
             raise ValueError(f"family {cfg.family!r} has no slot-serving path")
@@ -637,13 +678,17 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "a single engine replica cannot span dp > 1 — use "
                 "make_serve_engine / EngineReplicaGroup for dp replicas")
-        if mp > 1:
-            raise not_ported(f"mesh_shape={tuple(mesh_shape)}", "mp")
+        if mp > 1 and (shard_group is None or shard_group.world != mp):
+            raise ValueError(
+                f"mesh_shape={tuple(mesh_shape)} shards over {mp} processes: "
+                f"build the engine on each rank with its shard_group of {mp} "
+                f"ranks (repro_torch.distributed.group.spawn_ranks)")
+        rank = shard_group.rank if mp > 1 else 0
         if mesh_devices is not None:
             if len(mesh_devices) != mp:
                 raise ValueError(f"mesh_devices names {len(mesh_devices)} "
                                  f"devices for a row of mp={mp}")
-            device = mesh_devices[0]
+            device = mesh_devices[rank]
         if isinstance(prefill_chunk, str):
             if prefill_chunk not in ("whole", "auto"):
                 raise ValueError(
@@ -709,10 +754,13 @@ class ContinuousBatchingEngine:
                              f"engine on {self.device}")
         # the mesh: this replica's (1, mp) row, and the group's (dp, mp),
         # whose segment goes LAST on every measured axis's key — none on
-        # a (1, 1) mesh, so single-engine keys stay byte-identical.  The
-        # reference also gates its kernel variants on kernel_shard_ok
-        # (Hkv % mp == 0); at mp = 1, the only row accepted here, that
-        # holds for every model, so the kernels run as on one device.
+        # a (1, 1) mesh, so single-engine keys stay byte-identical.  A
+        # rank of a sharded engine keeps its shard of the params and runs
+        # the model, its pool and its kernels under the shard-local config
+        self.shards: Optional[ShardScope] = None
+        if mp > 1:
+            self.shards = ShardScope(shard_group, shard_plan(cfg, mp))
+            params, cfg = shard_params(cfg, params, mp, rank)
         self.mesh_shape = (dp, mp)
         self._shard_dims = (tuple(int(d) for d in shard_dims)
                             if shard_dims is not None else self.mesh_shape)
@@ -904,7 +952,8 @@ class ContinuousBatchingEngine:
         self._inputs = torch.zeros((len(INPUT_ROWS), slots), dtype=torch.int32,
                                    device=self.device)
         self.graphs = DecodeGraphs(cfg, params, kv_layout, self.cache,
-                                   self._inputs, pool=self.page_pool)
+                                   self._inputs, pool=self.page_pool,
+                                   eager=self.shards is not None)
         if self.device.type == "cuda":
             # build and load the kernels the layout runs now, and launch
             # each once: the port's capability check, which raises
@@ -925,8 +974,10 @@ class ContinuousBatchingEngine:
         serve (``status="failed"``, ``error="intake"``) or that finds the
         queue at ``max_queue_depth`` (``error="capacity"``: load is shed
         while it is a host-side entry, before it competes for pages) — a
-        bad request must not throw at a caller batching thousands."""
-        req.submit_t = time.perf_counter()
+        bad request must not throw at a caller batching thousands.  On a
+        sharded engine every rank must submit the same request: a
+        ``ValueError`` on every rank when one differs."""
+        req.submit_t = self._agreed_submit(req)
         err = _intake_error(req, self.max_len)
         if err is not None:
             self._fail_request(req, "intake", err)
@@ -942,6 +993,41 @@ class ContinuousBatchingEngine:
             self._deadlines_live = True
         req.status = "queued"
         self.queue.append(req)
+
+    # -- head sharding: rank 0 decides -------------------------------------
+    def _decide(self, fn):
+        """``fn()`` — a decision that reads a clock or a measured time — on
+        an unsharded engine; on a sharded one, rank 0's ``fn()`` on every
+        rank (the others do not call it)."""
+        if self.shards is None:
+            return fn()
+        group = self.shards.group
+        return group.agree(fn() if group.rank == 0 else None)
+
+    def _now(self) -> float:
+        """The clock the deadlines are read against (rank 0's)."""
+        return self._decide(time.perf_counter)
+
+    def _agreed_submit(self, req: Request) -> float:
+        """The submit time of ``req`` (rank 0's clock), after checking that
+        every rank was handed the same request."""
+        now = time.perf_counter()
+        if self.shards is None:
+            return now
+        return _agree_request(self.shards.group, req, now)
+
+    def _agree_call(self, host: np.ndarray, tripped: bool
+                    ) -> Tuple[np.ndarray, bool]:
+        """Rank 0's fenced tokens (and watchdog verdict) of a decode or
+        verify call, on every rank; a rank whose own tokens differed counts
+        it and re-uploads its token row from the host mirrors."""
+        if self.shards is None:
+            return host, tripped
+        host0, tripped0 = self.shards.group.agree((host, tripped))
+        if not np.array_equal(host0, host):
+            self.stats.shard_token_mismatch += 1
+            self._masks_dirty = True
+        return host0, tripped0
 
     def _fail_request(self, req: Request, reason: str, detail: str,
                       slot: Optional[int] = None) -> None:
@@ -1283,20 +1369,26 @@ class ContinuousBatchingEngine:
         planned ``stall`` or a real fence past the watchdog's budget —
         keeps the span (its value arrived, late): the caller commits it and
         demotes the variant that stalled.  The watchdog raises after its
-        fence has drained, so the copy after it does not wait again."""
+        fence has drained, so the copy after it does not wait again.  On a
+        sharded engine the value and the verdict are rank 0's
+        (:meth:`_agree_call`)."""
+        tripped = False
         if fault is not None and fault.kind == "stall":
             # planned stall: a trip without sleeping through one
             if self.watchdog is not None:
                 self.watchdog.trips += 1
-            self.stats.watchdog_trips += 1
-            return value.cpu().numpy(), True
-        if self.watchdog is not None:
+            host, tripped = value.cpu().numpy(), True
+        elif self.watchdog is not None:
             try:
-                return self.watchdog.guard(value).cpu().numpy(), False
+                host = self.watchdog.guard(value).cpu().numpy()
             except StragglerTimeout:
-                self.stats.watchdog_trips += 1
-                return value.cpu().numpy(), True
-        return value.cpu().numpy(), False
+                host, tripped = value.cpu().numpy(), True
+        else:
+            host = value.cpu().numpy()
+        host, tripped = self._agree_call(host, tripped)
+        if tripped:
+            self.stats.watchdog_trips += 1
+        return host, tripped
 
     def _deadline_expired(self, req: Request, now: float) -> bool:
         return (req.deadline_s is not None
@@ -1308,7 +1400,7 @@ class ContinuousBatchingEngine:
         are shed on the host, expired resident ones stop decoding."""
         if not self._deadlines_live:
             return
-        now = time.perf_counter()
+        now = self._now()
         expired = [r for r in self.queue if self._deadline_expired(r, now)]
         if expired:
             self.queue = [r for r in self.queue
@@ -1372,7 +1464,7 @@ class ContinuousBatchingEngine:
                 return
             slot = self.slots[i]
             req = self._pop_next()
-            now = time.perf_counter()
+            now = self._now()
             if self._deadline_expired(req, now):
                 # expired while queued: shed at the admission edge, before
                 # placement and prefill are spent on it
@@ -1422,7 +1514,8 @@ class ContinuousBatchingEngine:
                 self.stats.prefix_hits += 1
                 if self.vpe is not None:
                     rbucket = prefix_len_bucket(use_matched)
-                    variant = self.vpe.controller.select("prefix_reuse", rbucket)
+                    variant = self._decide(lambda: self.vpe.controller.select(
+                        "prefix_reuse", rbucket))
             slot.req = req
             slot.layout = layout
             slot.admit_bucket = lbucket
@@ -1498,7 +1591,8 @@ class ContinuousBatchingEngine:
                                   levels=self.occupancy_levels)
         if self.vpe is None:
             return "contiguous", bucket
-        return self.vpe.controller.select("kv_layout", bucket), bucket
+        return self._decide(
+            lambda: self.vpe.controller.select("kv_layout", bucket)), bucket
 
     def _first_token(self, i: int, logits: torch.Tensor) -> int:
         """Slot ``i``'s next token after a prefill: the greedy argmax of the
@@ -1508,7 +1602,13 @@ class ContinuousBatchingEngine:
         req = self.slots[i].req
         if self.first_logits is not None and not req.ttft_recorded:
             self.first_logits[req.rid] = logits[0].detach().clone()
-        return int(torch.argmax(logits[0]))
+        tok = int(torch.argmax(logits[0]))
+        if self.shards is None:
+            return tok
+        # rank 0's token, as after a decode call
+        tok0 = self.shards.group.agree(tok)
+        self.stats.shard_token_mismatch += tok0 != tok
+        return tok0
 
     # -- contiguous admission ------------------------------------------------
     def _prefill_full(self, i: int, prompt: np.ndarray):
@@ -1682,7 +1782,8 @@ class ContinuousBatchingEngine:
             if self.slo_weight > 0:
                 bucket = bucket + self._slo_bucket()
             bucket = bucket + self._shard_tail
-            name = self.vpe.controller.select("prefill_chunk", bucket)
+            name = self._decide(
+                lambda: self.vpe.controller.select("prefill_chunk", bucket))
             return (0 if name == "whole" else int(name)), bucket, name
         if self.prefill_chunk == "auto":
             return 0, None, None
@@ -1710,7 +1811,8 @@ class ContinuousBatchingEngine:
         if self.slo_weight > 0:
             bucket = bucket + self._slo_bucket()
         bucket = bucket + self._shard_tail
-        name = self.vpe.controller.select("prefill_kernel", bucket)
+        name = self._decide(
+            lambda: self.vpe.controller.select("prefill_kernel", bucket))
         return self._resolve_kernel(name), bucket, name
 
     # -- chunked prefill ---------------------------------------------------
@@ -2042,7 +2144,8 @@ class ContinuousBatchingEngine:
         if self.decode_impl != "auto":
             return self._resolve_impl(self.decode_impl)
         if self.vpe is not None:
-            return self.vpe.controller.select(self._axis, bucket)
+            return self._decide(
+                lambda: self.vpe.controller.select(self._axis, bucket))
         return SERVE_AXES[self._axis][0]
 
     def _select_horizon(self, n_active: int
@@ -2066,7 +2169,8 @@ class ContinuousBatchingEngine:
             # fused call expensive under the two-term objective
             bucket = bucket + self._slo_bucket()
         bucket = bucket + self._shard_tail
-        name = self.vpe.controller.select("decode_horizon", bucket)
+        name = self._decide(
+            lambda: self.vpe.controller.select("decode_horizon", bucket))
         return int(name), bucket, name
 
     def _decode(self, H: int, hbucket, hname,
@@ -2235,7 +2339,8 @@ class ContinuousBatchingEngine:
         if self.slo_weight > 0:
             bucket = bucket + self._slo_bucket()
         bucket = bucket + self._shard_tail
-        name = self.vpe.controller.select("spec_draft", bucket)
+        name = self._decide(
+            lambda: self.vpe.controller.select("spec_draft", bucket))
         return (0 if name == "off" else int(name)), bucket, name
 
     def _update_accept_ema(self, offered: int, accepted: int) -> None:
@@ -2368,7 +2473,13 @@ class ContinuousBatchingEngine:
         the spec axis or pin says so, else a decode call of H steps —
         advances the decoding slots: the wall between two decode calls is
         bounded by the chunk budget (``stats.decode_stall_s``) and the
-        horizon."""
+        horizon.  A sharded rank runs the model under its shard scope."""
+        if self.shards is None:
+            return self._step()
+        with shard_scope(self.shards):
+            return self._step()
+
+    def _step(self) -> bool:
         self._shed_expired()
         had_decoders = self.num_decoding > 0
         admits_before = len(self.stats.queue_wait_s)
@@ -2517,6 +2628,17 @@ class EngineReplicaGroup:
     segment and a shared ``vpe`` learns ONE policy per mesh configuration
     from every replica's samples.
 
+    **Head sharding** (``mp > 1``): the process of rank r holds shard r of
+    every replica, on column r of ``mesh_devices``, and one
+    ``shard_group`` serves all replicas, since they step in the same order
+    on every rank.  Every rank builds the same group and is handed the
+    same submissions; the group's deadline reads go through rank 0, as the
+    engine's decisions do, so its quarantine and canary verdicts (which
+    read only the replicas' agreed counters) are the same on every rank.
+    Each replica keeps its own copy of its shard.  A real CUDA error on
+    one rank is fatal to the whole group: the other ranks would block in
+    their next collective.
+
     **Failover.**  The group is the recovery rung ABOVE the engine's
     degradation ladder: a replica that keeps producing fault evidence
     (terminal device/numeric step faults, watchdog fence trips, dispatch
@@ -2537,8 +2659,6 @@ class EngineReplicaGroup:
         if dp < 2:
             raise ValueError("EngineReplicaGroup needs dp >= 2 "
                              "(a single replica is just the engine)")
-        if mp > 1:
-            raise not_ported(f"mesh_shape=({dp}, {mp})", "mp")
         if replica_fault_budget < 1:
             raise ValueError("replica_fault_budget must be >= 1")
         if "device" in engine_kwargs:
@@ -2546,6 +2666,8 @@ class EngineReplicaGroup:
                              "mesh_devices, not device")
         devs = _mesh_device_list(dp, mp, mesh_devices)
         self.mesh_shape = (dp, mp)
+        self.shard_group: Optional[ShardGroup] = engine_kwargs.get("shard_group")
+        rank = self.shard_group.rank if mp > 1 and self.shard_group else 0
         self.queue: List[Request] = []
         self._failed: List[Request] = []
         self._stats = ServeStats()   # group-level failures + failover events
@@ -2567,7 +2689,7 @@ class EngineReplicaGroup:
         self.engines: List[ContinuousBatchingEngine] = []
         for r in range(dp):
             row = devs[r * mp:(r + 1) * mp]
-            dev = row[0]
+            dev = row[rank]
             if dev not in copies:
                 copies[dev] = (params if home == dev else
                                pytree.tree_map(lambda t: t.to(dev), params))
@@ -2591,6 +2713,8 @@ class EngineReplicaGroup:
         """Enqueue on the SHARED queue — or terminally fail, with the
         same taxonomy as the single engine (reason code + detail)."""
         req.submit_t = time.perf_counter()
+        if self.mesh_shape[1] > 1:
+            req.submit_t = _agree_request(self.shard_group, req, req.submit_t)
         err = _intake_error(req, self.max_len)
         if err is not None:
             self._fail(req, "intake", err)
@@ -2719,7 +2843,7 @@ class EngineReplicaGroup:
         queues and slots in their step)."""
         if not self._deadlines_live:
             return
-        now = time.perf_counter()
+        now = self.engines[0]._now()
 
         def _expired(q: Request) -> bool:
             return (q.deadline_s is not None
@@ -2841,11 +2965,16 @@ def make_serve_engine(cfg: ModelConfig, params: Any, *,
     ``dp == 1`` returns a plain :class:`ContinuousBatchingEngine` (the
     single-device engine at ``(1, 1)``, its dispatch keys unchanged);
     ``dp > 1`` returns an :class:`EngineReplicaGroup` of dp engines on
-    ``mesh_devices`` behind one shared admission queue.  ``mp > 1`` raises
-    ``ValueError`` naming the ROADMAP item that ports head sharding.  Both
-    expose the same serve surface (``submit`` / ``step`` / ``run`` /
-    ``check_kv`` / ``num_active`` / ``completed`` / ``stats``)."""
+    ``mesh_devices`` behind one shared admission queue.  ``mp > 1`` shards
+    each engine's heads over mp processes: call this on every rank with
+    the rank's ``shard_group`` (``spawn_ranks`` runs a function on each;
+    ``mesh_devices`` defaults to ``cuda:0 … cuda:{dp·mp−1}``, and one
+    device may repeat: ``["cpu"] * 2``, ``["cuda:0"] * 2``).  Both expose
+    the same serve surface (``submit`` / ``step`` / ``run`` / ``check_kv`` /
+    ``num_active`` / ``completed`` / ``stats``)."""
     dp, mp = (int(mesh_shape[0]), int(mesh_shape[1]))
+    if dp <= 1 and mp > 1:
+        mesh_devices = _mesh_device_list(1, mp, mesh_devices)
     if dp <= 1:
         return ContinuousBatchingEngine(cfg, params, mesh_shape=(1, mp),
                                         mesh_devices=mesh_devices,

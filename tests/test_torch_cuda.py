@@ -10,8 +10,10 @@ speculative verify graphs and a demoted decode-kernel rung, the MoE
 decode graph (reduced qwen2-moe-a2.7b) and the paged and flash kernels at
 its heads (a group of 1), and the flash kernel at the recurrent and
 encoder-decoder families' heads (D = 64; non-causal; S < T and S > T) with
-reduced zamba2-1.2b served in waves through it, and a group of two
-engine replicas on one card against a single engine.
+reduced zamba2-1.2b served in waves through it, a group of two
+engine replicas on one card against a single engine, and the paged kernels
+at a head-sharded rank's heads with a (1, 2) sharded engine of two ranks
+on one card against a single engine.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
 entry points default to the card.  This file imports no JAX, so it runs on
@@ -66,6 +68,10 @@ DECODE_CASES = [
     # rows padding
     dict(B=4, Hq=16, Hkv=16, bs=16, nb=64, D=128, window=None),
     dict(B=4, Hq=16, Hkv=16, bs=16, nb=64, D=128, window=100),
+    # qwen3-8b's heads on one rank of a head-sharded engine: mp = 2 and 4
+    dict(B=4, Hq=16, Hkv=4, bs=16, nb=64, D=128, window=None),
+    dict(B=4, Hq=8, Hkv=2, bs=16, nb=64, D=128, window=None),
+    dict(B=4, Hq=8, Hkv=2, bs=16, nb=64, D=128, window=100),
 ]
 PREFILL_CASES = [
     dict(B=2, Hq=4, Hkv=2, bs=8, nb=6, C=16, D=32, window=None),
@@ -81,6 +87,9 @@ PREFILL_CASES = [
     dict(B=1, Hq=4, Hkv=2, bs=8, nb=6, C=16, D=20, window=None),
     # qwen2-moe-a2.7b's heads (a group of 1) on the main path's chunk
     dict(B=2, Hq=16, Hkv=16, bs=16, nb=40, C=128, D=128, window=None, chunk_len=100),
+    # qwen3-8b's heads on one rank of a head-sharded engine: mp = 2 and 4
+    dict(B=2, Hq=16, Hkv=4, bs=16, nb=40, C=128, D=128, window=None, chunk_len=100),
+    dict(B=2, Hq=8, Hkv=2, bs=16, nb=40, C=128, D=128, window=100, chunk_len=100),
 ]
 # (B, Hq, Hkv, S, T, D): danube heads (D=120), qwen3 heads (D=128), MHA,
 # S < T (rows aligned at the end), T not a multiple of the 64-key tile;
@@ -354,6 +363,69 @@ def test_cuda_replica_group_equals_single_engine(cuda_device):
         grp.stats.prefill_chunks * cfg.num_layers
     keys = vpe.profiler.buckets_seen("serve_decode_impl")
     assert keys and all(b[-3:] == ("shard", 2, 1) for b in keys)
+
+
+def _sharded_rank(group, prompts):
+    """One rank of the head-sharded engine below (run by ``spawn_ranks``)."""
+    dev = torch.device("cuda", 0)
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    eng = tserve.make_serve_engine(
+        cfg, params, mesh_shape=(1, group.world),
+        mesh_devices=["cuda:0"] * group.world,
+        shard_group=group, slots=2, max_len=64, block_size=8, kv_layout="paged",
+        prefill_chunk=8, decode_impl="cuda", prefill_kernel="cuda")
+    tpa.reset_launch_counts()
+    out = _serve(eng, prompts, 6)
+    return dict(tokens=out, mismatch=eng.stats.shard_token_mismatch,
+                launches=(tpa.paged_attention_cuda.launches,
+                          tpa.paged_prefill_attention_cuda.launches),
+                steps=(eng.stats.decode_steps, eng.stats.prefill_chunks),
+                replays=eng.graphs.replays, drained=eng.pages.drained,
+                heads=(eng.cfg.num_heads, eng.cfg.num_kv_heads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [128, 2048])
+def test_cuda_f32_product_keeps_the_partial_in_f32(cuda_device, k):
+    """A sharded rank's down-projection partial: the bf16 GEMM with an f32
+    output equals the f32 product of the upcast operands within f32
+    rounding, and is not rounded to bf16."""
+    from repro_torch.distributed.group import f32_product
+    gen = torch.Generator(cuda_device).manual_seed(k)
+    h = torch.randn((2, 3, k), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((k, 64), generator=gen, device=cuda_device).bfloat16()
+    got = f32_product(h, w)
+    want = h.float() @ w.float()
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 64)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert not torch.equal(got, got.bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp", [2, 4])
+def test_cuda_head_sharded_engine_equals_single_engine(cuda_device, mp):
+    """Reduced qwen3-8b in f32 at mesh (1, mp): mp ranks on ``cuda:0`` over
+    gloo, both paged kernels pinned, give a single engine's tokens; each
+    rank launches both kernels once a layer a step or chunk, eagerly (no
+    graph replay), at its own heads: one of the two KV heads at mp = 2,
+    and at mp = 4 the one its single query head reads (G = 1)."""
+    from repro_torch.distributed.group import spawn_ranks
+    cfg = get_config("qwen3-8b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 40, 8)]
+    want = _serve(tserve.ContinuousBatchingEngine(
+        cfg, params, device=cuda_device, slots=2, max_len=64, block_size=8,
+        kv_layout="paged", prefill_chunk=8, decode_impl="cuda",
+        prefill_kernel="cuda"), prompts, 6)
+    for res in spawn_ranks(_sharded_rank, ["cuda:0"] * mp, (prompts,)):
+        assert res["tokens"] == want and res["mismatch"] == 0 and res["drained"]
+        assert res["heads"] == (cfg.num_heads // mp, 1)
+        steps, chunks = res["steps"]
+        assert res["launches"] == (steps * cfg.num_layers, chunks * cfg.num_layers)
+        assert res["replays"] == 0
 
 
 def _decode_state(cfg, dev, seed):

@@ -2,7 +2,8 @@
 tests/test_mesh_parity.py and tests/test_serve_faults.py): ``shard_bucket``
 and its label; ``make_serve_engine`` mapping each mesh to the reference's
 engine (``(1, 1)`` the single engine with unchanged keys, ``(2, 1)`` an
-``EngineReplicaGroup``, ``mp > 1`` and too few cards refused); the group of
+``EngineReplicaGroup``, too few cards refused; head sharding is
+tests/test_torch_shard.py's); the group of
 two replicas on ``mesh_devices=["cpu", "cpu"]`` sharing one queue, its
 dispatch keys carrying the mesh, and its tokens equal to the JAX single
 engine's on the contiguous and paged layouts (the reference's contract,
@@ -10,7 +11,8 @@ engine's on the contiguous and paged layouts (the reference's contract,
 host devices); replica failover — quarantine, migration, canary
 re-admission, lost dispatches, ``replica_lost`` — and the group chaos gate,
 survivors token-exact against the fault-free single engine; the launcher's
-``--mesh`` and both examples on the CPU.
+``--mesh`` (``2,1``, and ``1,2``: head sharding over two CPU ranks) and
+both examples on the CPU.
 
 Reduced qwen3-8b in f32, weights carried across with ``params_from_jax``.
 """
@@ -161,14 +163,6 @@ class TestMakeServeEngine:
             assert callable(getattr(grp, name))
         assert grp.num_active == 0 and grp.completed == []
         assert isinstance(grp.stats, tserve.ServeStats)
-
-    @pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
-    def test_head_sharding_names_the_roadmap_item(self, setup, mesh_shape):
-        _, tcfg, _, tp = setup
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 3b"):
-            tserve.make_serve_engine(tcfg, tp, mesh_shape=mesh_shape,
-                                     mesh_devices=["cpu"] * mesh_shape[0] * 2,
-                                     slots=1, max_len=48)
 
     def test_too_few_devices_raise(self, setup):
         """The default placement needs dp cards; a CPU-only torch has none.
@@ -344,16 +338,21 @@ def test_group_deadline_sweep_and_queue_bound(setup):
 
 def test_launcher_mesh(capsys):
     """``--mesh 2,1 --device cpu,cpu --continuous`` serves through the
-    group; ``--mesh 1,2`` (head sharding) and ``--mesh 2,1`` without
-    ``--continuous`` are refused."""
+    group, and ``--mesh 1,2 --device cpu,cpu --continuous`` over two
+    head-sharded ranks (rank 0's lines printed); ``--mesh 1,2`` on one
+    device and ``--mesh 2,1`` without ``--continuous`` are refused."""
     base = ["--arch", "qwen3-8b", "--smoke", "--requests", "4",
             "--new-tokens", "3", "--max-len", "48"]
     tlaunch.main(base + ["--mesh", "2,1", "--device", "cpu,cpu", "--continuous"])
     out = capsys.readouterr().out
     assert "completed 4 requests [mesh 2x1]" in out
     assert "'shard', 2, 1):" in out         # the shared VPE's keys
+    tlaunch.main(base + ["--mesh", "1,2", "--device", "cpu,cpu", "--continuous"])
+    out = capsys.readouterr().out
+    assert "completed 4 requests [mesh 1x2]" in out
+    assert "'shard', 1, 2):" in out
     for bad, msg in ((["--mesh", "1,2", "--device", "cpu", "--continuous"],
-                      "item 3b"),
+                      "2 devices"),
                      (["--mesh", "2,1", "--device", "cpu,cpu"],
                       "requires --continuous"),
                      (["--mesh", "2,1", "--device", "cpu", "--continuous"],

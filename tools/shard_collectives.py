@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""What a head-sharded engine's collectives cost between ranks that share
+one card.
+
+    python3 tools/shard_collectives.py [--ranks 2] [--rows 4] [--iters 100]
+
+Starts ``--ranks`` rank processes on ``cuda:0`` with ``spawn_ranks`` (the
+backend ``shard_backend`` picks for them: ``gloo``, since NCCL refuses two
+ranks on one card), and in each: whether ``all_reduce`` takes CUDA tensors
+in f32 and bf16 and ``broadcast`` a CUDA tensor (the sums and the
+broadcast value, or the error), then the mean host wall of one in-place
+all-reduce of a ``--rows`` x 4096 f32 CUDA tensor (a decode step's
+activation at qwen3-8b's width, 4 slots) and of one
+``ShardGroup.agree`` of a small tuple (a rank-0 decision), each over
+``--iters`` calls ending in a synchronise; then, with every rank doing the
+same at once, the fenced wall of one down-projection of a rank's shard at
+qwen3-8b's mp = 2 shapes (``--rows`` and 128 rows of 2048 or 6144 bf16
+columns onto 4096): the bf16 product, the f32 product of the upcast
+operands, ``torch.mm(..., out_dtype=torch.float32)`` where this build has
+it, and ``project_out`` under a scope that splits the block (the f32
+partial, its all-reduce and the rounding).  Prints the card's name and
+power limit, one line a rank, and as its last line a JSON object of every
+rank's results.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def measure(group, rows, iters):
+    import torch
+    import torch.distributed as dist
+    out = {"rank": group.rank, "backend": group.backend}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.full((rows, 4096), float(group.rank + 1), device="cuda", dtype=dt)
+        try:
+            group.all_reduce_(x)
+            torch.cuda.synchronize()
+            out[f"all_reduce_{str(dt)[6:]}"] = float(x[0, 0])
+        except RuntimeError as e:
+            out[f"all_reduce_{str(dt)[6:]}"] = f"{type(e).__name__}: {e}"[:300]
+    y = torch.full((8,), float(group.rank), device="cuda")
+    try:
+        dist.broadcast(y, src=0)
+        torch.cuda.synchronize()
+        out["broadcast"] = float(y[0])
+    except RuntimeError as e:
+        out["broadcast"] = f"{type(e).__name__}: {e}"[:300]
+    x = torch.ones((rows, 4096), device="cuda")
+    group.all_reduce_(x)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        group.all_reduce_(x)
+    torch.cuda.synchronize()
+    out["all_reduce_us"] = (time.perf_counter() - t) / iters * 1e6
+    t = time.perf_counter()
+    for _ in range(iters):
+        group.agree(("decide", 1))
+    out["agree_us"] = (time.perf_counter() - t) / iters * 1e6
+    out["down_projection_us"] = down_projections(group, rows, iters)
+    return out
+
+
+def down_projections(group, rows, iters):
+    """{"rows x K": {variant: mean fenced µs}} of one down-projection."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import ShardScope, project_out, shard_scope
+    from repro_torch.distributed.sharding import shard_plan
+    plan = shard_plan(get_config("qwen3-8b"), group.world)
+    gen = torch.Generator("cuda").manual_seed(group.rank)
+    out = {}
+    for m in (rows, 128):
+        for k in (2048, 6144):
+            h = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            w = torch.randn((k, 4096), generator=gen, device="cuda").bfloat16()
+            variants = {"bf16": lambda: h @ w,
+                        "f32_upcast": lambda: h.float() @ w.float()}
+            try:
+                torch.mm(h, w, out_dtype=torch.float32)
+                variants["f32_out_dtype"] = lambda: torch.mm(h, w, out_dtype=torch.float32)
+            except (RuntimeError, TypeError) as e:
+                out[f"{m}x{k} out_dtype"] = f"{type(e).__name__}: {e}"[:120]
+
+            def split():
+                with shard_scope(ShardScope(group, plan)):
+                    return project_out(h, w, "ffn")
+            variants["project_out"] = split
+            res = {}
+            for name, fn in variants.items():
+                fn()
+                torch.cuda.synchronize()
+                group.agree(None)
+                t = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                    torch.cuda.synchronize()
+                res[name] = (time.perf_counter() - t) / iters * 1e6
+            out[f"{m}x{k}"] = res
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--rows", type=int, default=4)
+    ap.add_argument("--iters", type=int, default=100)
+    args = ap.parse_args(argv)
+    import torch
+    from repro_torch.distributed.group import spawn_ranks
+    if not torch.cuda.is_available():
+        print("shard_collectives: needs a CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    res = spawn_ranks(measure, ["cuda:0"] * args.ranks, (args.rows, args.iters))
+    for r in res:
+        print(r)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
