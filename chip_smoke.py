@@ -176,6 +176,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    script may write to disk);
 8. training parity: reduced h2o-danube-3-4b in f32, loss and gradients
    and three loop steps of ``flash_cuda`` against ``reference``;
+16. training on the (data, model) mesh, after phase 8 with no model held:
+   full-width h2o-danube-3-4b cut to 4 layers (so that four ranks'
+   training state fits the card), ``flash_cuda`` pinned, at (1, 1) in
+   this process and at (2, 1), (1, 2) and (2, 2) as rank processes
+   (``spawn_ranks``) on ``cuda:0`` over gloo, each rank's bytes reckoned
+   and printed first; (a) f32, global batch 2 x 1024, 3 steps, the flash
+   launch counts zeroed just before them and read just after on every
+   rank; gates: losses and grad norms within ``MESH_LOSS_REL`` /
+   ``MESH_GNORM_REL`` of (1, 1)'s, a leaf no rank splits bit-equal on
+   every rank and every leaf on every data rank, 2 flash launches a layer
+   a step on every rank (the kernels line's ``launches_by_path``); (b)
+   bf16, 2 x 4096, 1 warm-up and 3 timed steps; gate: every rank's
+   losses within ``MESH_BF16_LOSS_REL`` of (1, 1)'s; printed per rank:
+   step seconds (the slowest rank's), tokens/s of the mesh, peak memory
+   (and the peak while the loop is built, each rank drawing only its
+   slice), the µs of the gradient all-reduce (the rank's whole sync) and
+   of one activation all-reduce (2 x 4096 x 3840 f32 over the model
+   group); (c)
+   ``compressed_psum`` over the 4 ranks of (2, 2), a CUDA tensor against
+   its CPU copy, within 4 int8 steps of the agreed scale;
 9. paper-path kernels: matmul and conv2d against their plain versions on
    the card, f32 and bf16 (matmul at tests/test_kernels.py's shapes, 512^3,
    1000^3 off every tile and 4096^3; conv2d at the JAX tests' shapes,
@@ -3224,6 +3244,254 @@ def phase_train_parity(dev):
     return dict(loss_rel_err=lerr, grad_err=gerr)
 
 
+# phase 16: training on the (data, model) mesh.  Full-width h2o-danube-3-4b
+# cut to MESH_LAYERS layers, so that four ranks' training state fits the
+# card together; every rank a process of its own on cuda:0 over gloo,
+# flash_cuda pinned.  (a) f32, gated against the (1, 1) run in the parent;
+# (b) bf16, timed; (c) compressed_psum at 4 ranks, CUDA against CPU.
+MESH_LAYERS = 4
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+MESH_SEED = 16
+MESH_F32 = (2, 1024, 3)            # global batch, sequence, steps
+MESH_BF16 = (2, 4096, 1, 3)        # global batch, sequence, warm-up, timed steps
+# (a)'s limits against (1, 1), set before the first run: f32 sums in another
+# order and over other ranks, through 3 AdamW steps
+MESH_LOSS_REL = MESH_GNORM_REL = 1e-4
+# (b)'s bf16 losses against (1, 1)'s: every rank's partial sums in f32, the
+# roundings to bf16 at other points.  Set from the recorded readings
+# (PERF.md): at most 6.5e-5 relative over the meshes in two runs
+MESH_BF16_LOSS_REL = 5e-4
+MESH_PSUM = (4096, 3840)           # (c): one rank's tensor
+
+
+def mesh_cfg(dtype: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MESH_LAYERS,
+                               dtype=dtype, attn_impl="flash_cuda")
+
+
+def mesh_state_bytes(cfg, shape, grads: bool = True) -> int:
+    """The training state one rank of ``shape`` holds, reckoned from the
+    shard's shapes: params, m, v, the f32 master of low-precision params,
+    and the gradients."""
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as model_lib
+    shapes = model_lib.param_shapes(cfg)
+    mp = shape[1]
+    plan = sharding.shard_plan(cfg, mp) if mp > 1 else None
+    elem = getattr(torch, cfg.dtype).itemsize
+    per_param = elem + 8 + (4 if elem != 4 else 0) + (elem if grads else 0)
+    n = 0
+    for path, leaf in sharding._walk(shapes):
+        cut = sharding.leaf_slice(cfg, plan, 0, path, tuple(leaf)) if plan else None
+        size = int(np.prod(leaf))
+        n += size if cut is None else size // leaf[cut[0]] * cut[2]
+    return n * per_param
+
+
+def mesh_loop(cfg, shape, group, batch, seq, steps):
+    import torch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.distributed.group import MeshGroups
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+    lc = TrainLoopConfig(total_steps=steps, warmup_steps=1, log_every=0,
+                         enable_vpe=False, watchdog=False)
+    data = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=batch, seed=MESH_SEED))
+    mesh = MeshGroups(group, *shape) if group is not None else None
+    return TrainLoop(cfg, lc, data, seed=MESH_SEED, device=torch.device("cuda", 0),
+                     mesh=mesh)
+
+
+def fenced_us(fn, iters=3) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e6
+
+
+def mesh_run(group, shape):
+    """Phase 16 (a) and (b) on one rank of ``shape`` (or, with ``group``
+    None, at (1, 1) in the parent); (c) on the ranks of (2, 2)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = group.rank if group is not None else 0
+    out = {"rank": rank, "shape": shape}
+
+    # (a) f32: the gated run
+    cfg = mesh_cfg("float32")
+    batch, seq, steps = MESH_F32
+    loop = mesh_loop(cfg, shape, group, batch, seq, steps)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    metrics = loop.run(steps)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    sums = bit_sums(loop.params)
+    out["a"] = dict(
+        losses=[m["loss"] for m in metrics], gnorms=[m["grad_norm"] for m in metrics],
+        launches=launches, sums=sums,
+        split=[k for k in sums if shape[1] > 1 and sharding.splits_leaf(cfg, shape[1], k)],
+        heads=(loop.local_cfg.num_heads, loop.local_cfg.num_kv_heads),
+        d_ff=loop.local_cfg.d_ff, d=rank // shape[1], m=rank % shape[1])
+    del loop, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) bf16: the timed run
+    cfg = mesh_cfg("bfloat16")
+    batch, seq, warm, steps = MESH_BF16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = mesh_loop(cfg, shape, group, batch, seq, warm + steps)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    loop.run(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = loop.run(warm + steps)[-steps:]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [m["step_time_s"] for m in metrics]
+    b = dict(losses=[m["loss"] for m in metrics], step_s=step_s,
+             tokens_per_s=batch * seq / float(np.median(step_s)), peak_bytes=peak,
+             init_peak_bytes=init_peak,
+             init_reckoned_bytes=mesh_state_bytes(cfg, shape, grads=False),
+             state_bytes=tree_bytes((loop.params, loop.opt_state)),
+             reckoned_bytes=mesh_state_bytes(cfg, shape))
+    if loop.mesh is not None:
+        leaves = torch.utils._pytree.tree_leaves(loop.params)
+        grads = [torch.zeros_like(p) for p in leaves]
+        b["grad_bytes"] = tree_bytes(grads)
+        b["grad_all_reduce_us"] = fenced_us(lambda: loop.mesh.sync(grads))
+        del grads
+        if shape[1] > 1:
+            x = torch.ones((batch, seq, cfg.d_model), device="cuda")
+            b["act_bytes"] = x.numel() * 4
+            b["act_all_reduce_us"] = fenced_us(
+                lambda: dist.all_reduce(x, group=loop.mesh.groups.model))
+            del x
+    out["b"] = b
+    del loop, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) compressed_psum over the 4 ranks, a CUDA tensor against its copy
+    # on the CPU
+    if shape == (2, 2):
+        from repro_torch.optim.compression import compressed_psum, quantize
+        gen = torch.Generator("cuda").manual_seed(MESH_SEED + rank)
+        x = torch.randn(MESH_PSUM, generator=gen, device="cuda") * (rank + 1)
+        y = compressed_psum(x)
+        torch.cuda.synchronize()
+        y_cpu = compressed_psum(x.cpu())
+        scale = quantize(x.cpu())[1].max().reshape(1)
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX)
+        out["c"] = dict(max_abs_err=float((y.cpu() - y_cpu).abs().max()),
+                        step=float(scale), us=fenced_us(lambda: compressed_psum(x)),
+                        us_cpu=fenced_us(lambda: compressed_psum(x.cpu())))
+    return out
+
+
+def phase_train_mesh(dev):
+    """Phase 16: training on the (data, model) mesh (see the constants)."""
+    import torch
+    from repro_torch.distributed.group import spawn_ranks
+    cfg = mesh_cfg("float32")
+    say(f"[16] training on the (data, model) mesh: {TRAIN_ARCH} at full width, "
+        f"{MESH_LAYERS} layers ({cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), flash_cuda pinned, "
+        f"meshes (1, 1) in this process and {MESH_SHAPES} as rank processes on "
+        f"cuda:0 over gloo; reckoned state a rank (params, m, v, master, grads): "
+        + ", ".join(f"{s}: f32 {mesh_state_bytes(cfg, s)} B, bf16 "
+                    f"{mesh_state_bytes(mesh_cfg('bfloat16'), s)} B"
+                    for s in ((1, 1),) + MESH_SHAPES))
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {(1, 1): [mesh_run(None, (1, 1))]}
+    for shape in MESH_SHAPES:
+        t0 = time.perf_counter()
+        runs[shape] = spawn_ranks(mesh_run, ["cuda:0"] * (shape[0] * shape[1]), (shape,))
+        say(f"  mesh {shape}: {shape[0] * shape[1]} ranks in {time.perf_counter() - t0} s")
+    ref = runs[(1, 1)][0]["a"]
+    expected = 2 * MESH_LAYERS * MESH_F32[2]
+    ref_b = runs[(1, 1)][0]["b"]["losses"]
+    worst = {"loss": 0.0, "grad_norm": 0.0, "bf16_loss": 0.0}
+    launches = {}
+    for shape, res in runs.items():
+        for r in res:
+            a, b = r["a"], r["b"]
+            rl = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref["losses"]))
+            rg = max(abs(x - y) / abs(y) for x, y in zip(a["gnorms"], ref["gnorms"]))
+            rb = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], ref_b))
+            worst["loss"], worst["grad_norm"] = max(worst["loss"], rl), max(worst["grad_norm"], rg)
+            worst["bf16_loss"] = max(worst["bf16_loss"], rb)
+            launches[f"16a {shape[0]}x{shape[1]} rank {r['rank']}"] = a["launches"]
+            say(f"  [16a] {shape} rank {r['rank']} (d, m) = ({a['d']}, {a['m']}): heads "
+                f"{a['heads']}, d_ff {a['d_ff']}; f32 losses {a['losses']}, grad norms "
+                f"{a['gnorms']} (worst relative against (1, 1): loss {rl}, grad norm "
+                f"{rg}); flash launches {a['launches']} (expected {expected})")
+            say(f"  [16b] {shape} rank {r['rank']}: bf16 {MESH_BF16[0]} x {MESH_BF16[1]} "
+                f"tokens, step seconds {b['step_s']} (the slowest rank's), "
+                f"{b['tokens_per_s']} tokens/s of the mesh, peak memory "
+                f"{b['peak_bytes']} B, state {b['state_bytes']} B (reckoned with the "
+                f"gradients {b['reckoned_bytes']} B), gradient all-reduce "
+                f"{b.get('grad_all_reduce_us')} us for {b.get('grad_bytes')} B of "
+                f"gradients, activation all-reduce {b.get('act_all_reduce_us')} us "
+                f"for {b.get('act_bytes')} B; losses {b['losses']} (worst relative "
+                f"against (1, 1): {rb}); peak while the loop is built "
+                f"{b['init_peak_bytes']} B (reckoned state without the gradients "
+                f"{b['init_reckoned_bytes']} B)")
+            if rl > MESH_LOSS_REL or rg > MESH_GNORM_REL:
+                raise AssertionError(f"phase 16a: mesh {shape} rank {r['rank']}: losses "
+                                     f"{a['losses']} / grad norms {a['gnorms']} against "
+                                     f"{ref['losses']} / {ref['gnorms']}")
+            if a["launches"] != expected:
+                raise AssertionError(f"phase 16a: mesh {shape} rank {r['rank']}: flash "
+                                     f"launches {a['launches']} != {expected}")
+            if not all(np.isfinite(b["losses"])) or rb > MESH_BF16_LOSS_REL:
+                raise AssertionError(f"phase 16b: mesh {shape} rank {r['rank']}: bf16 "
+                                     f"losses {b['losses']} against (1, 1)'s {ref_b} "
+                                     f"(limit {MESH_BF16_LOSS_REL} relative)")
+        # a leaf no rank splits is the same bits on every rank; every leaf on
+        # every data rank of one model index
+        r0 = res[0]["a"]
+        for key, n in r0["sums"].items():
+            holders = [r for r in res if key not in r0["split"] or r["a"]["m"] == 0]
+            if any(r["a"]["sums"][key] != n for r in holders):
+                raise AssertionError(f"phase 16a: mesh {shape}: leaf {key} differs "
+                                     f"across the ranks that hold it whole")
+        for r in res:
+            twin = res[r["a"]["m"]]["a"]["sums"]
+            if r["a"]["sums"] != twin:
+                raise AssertionError(f"phase 16a: mesh {shape}: rank {r['rank']}'s "
+                                     f"leaves differ from data rank 0's")
+    c = [r["c"] for r in runs[(2, 2)]]
+    say(f"[16c] compressed_psum of {MESH_PSUM} f32 a rank over 4 ranks (gloo): CUDA "
+        f"against CPU max abs err {[x['max_abs_err'] for x in c]} (one int8 step of "
+        f"the agreed scale {c[0]['step']}), {[x['us'] for x in c]} us on CUDA tensors, "
+        f"{[x['us_cpu'] for x in c]} us on CPU copies")
+    if max(x["max_abs_err"] for x in c) > 4 * c[0]["step"]:
+        raise AssertionError(f"phase 16c: compressed_psum CUDA vs CPU: {c}")
+    say(f"  phase 16a gates: worst relative loss {worst['loss']} (limit "
+        f"{MESH_LOSS_REL}), grad norm {worst['grad_norm']} (limit {MESH_GNORM_REL}); "
+        f"16b: worst relative bf16 loss {worst['bf16_loss']} (limit {MESH_BF16_LOSS_REL})")
+    return dict(runs={f"{s[0]}x{s[1]}": [{k: v for k, v in r.items() if k != "a"} |
+                                           {"a": {k: v for k, v in r["a"].items()
+                                                  if k != "sums"}} for r in res]
+                      for s, res in runs.items()},
+                worst=worst, launches=launches)
+
+
 # -- the paper path -----------------------------------------------------------------
 
 def phase_paper_kernel_checks(dev):
@@ -4111,6 +4379,8 @@ def main(argv=None) -> int:
     train_parity = phase_train_parity(dev)
     main_run["launches"]["flash_attention"] = train["launches"]
     by_path["flash_attention"] = {"7 training": train["launches"]}
+    train_mesh = phase_train_mesh(dev)
+    by_path["flash_attention"].update(train_mesh["launches"])
     paper_errors = phase_paper_kernel_checks(dev)
     paper_times = phase_paper_kernel_times(dev)
     paper = phase_paper_path(dev)
@@ -4143,7 +4413,8 @@ def main(argv=None) -> int:
                  faults=faults, replicas=replicas, head_sharding=shard,
                  full_width_logits=logits, traces=traces, moe=moe,
                  families=families, train=train,
-                 train_parity=train_parity, paper_check_errors=paper_errors,
+                 train_parity=train_parity, train_mesh=train_mesh,
+                 paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1, default=str))
     say(f"total {time.perf_counter() - t_start} s")

@@ -19,7 +19,8 @@ fsync — a job killed mid-save leaves the previous checkpoint intact.
 :func:`restore` writes into the tensors of the tree it is given, in place
 and on their device, after checking every key, shape and dtype against
 the manifest: a restore on a full card needs no second copy of the
-training state.
+training state.  A checkpoint is the whole tree whatever mesh wrote it: a
+rank of a model-parallel mesh restores its slice of each leaf (``cut``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,11 +122,16 @@ def restore(
     like: Any,
     *,
     step: Optional[int] = None,
+    cut: Optional[Callable[[str, Tuple[int, ...]],
+                           Optional[Tuple[int, int, int]]]] = None,
 ) -> Tuple[Any, Dict, int]:
     """Restore into the tensors of ``like`` (a tree of tensors), in place.
 
     Every leaf of ``like`` must be in the checkpoint with its shape and
-    dtype; all of them are checked before any is written.  Returns
+    dtype; all of them are checked before any is written.  ``cut(key,
+    stored shape)``, where given, is the (dim, start, size) slice of a
+    stored leaf that ``like`` holds, or None for all of it (a rank of a
+    model-parallel mesh restores its shard of the whole tree).  Returns
     (like, extra, step).
     """
     if step is None:
@@ -140,17 +146,24 @@ def restore(
 
     by_key = {item["key"]: item for item in manifest["leaves"]}
     flat = _flatten(like)
+    cuts = {}
     for key, leaf in flat:
         item = by_key.get(key)
         if item is None:
             raise KeyError(f"checkpoint missing leaf {key}")
-        if tuple(item["shape"]) != tuple(leaf.shape):
-            raise ValueError(f"shape mismatch for {key}: ckpt {tuple(item['shape'])} "
+        shape = tuple(item["shape"])
+        cuts[key] = cut(key, shape) if cut is not None else None
+        if cuts[key] is not None:
+            dim, _, size = cuts[key]
+            shape = shape[:dim] + (size,) + shape[dim + 1:]
+        if shape != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt {shape} "
                              f"vs model {tuple(leaf.shape)}")
         if item["jax_dtype"] != str(leaf.dtype).removeprefix("torch."):
             raise TypeError(f"dtype mismatch for {key}: ckpt {item['jax_dtype']} "
                             f"vs model {leaf.dtype}")
     with torch.no_grad():
         for key, leaf in flat:
-            leaf.copy_(_load(os.path.join(d, by_key[key]["file"]), by_key[key]))
+            t = _load(os.path.join(d, by_key[key]["file"]), by_key[key])
+            leaf.copy_(t if cuts[key] is None else t.narrow(*cuts[key]))
     return like, extra, step

@@ -1,4 +1,5 @@
-"""One process a shard: the process group of a head-sharded serve engine.
+"""One process a shard: the process group of a head-sharded serve engine
+and of a training mesh.
 
 The reference shards a serve replica over its ``mp`` devices inside one
 JAX process, and XLA inserts the collectives GSPMD derives.  The port runs
@@ -21,7 +22,21 @@ once, as the whole product is on one device.
 * :func:`spawn_ranks` — runs a function on every rank, each in a process
   started with the ``spawn`` method, over a ``file://`` store in a
   temporary directory (no port to pick, so parallel callers never meet),
-  and returns each rank's result.
+  and returns each rank's result;
+* :class:`MeshGroups` — a rank's place on a
+  ``(dp, mp)`` training grid: rank ``r`` is at ``(d, m) = divmod(r, mp)``,
+  the reference's ``reshape(dp, mp)`` order, with a data subgroup (the
+  ranks of its ``m``) and a model subgroup (the ranks of its ``d``).
+
+Training differentiates through the sums.  Megatron's pair of
+collectives does it: :func:`enter_split` at each column-parallel input
+is the identity forward and sums the gradient over the model group
+backward (each rank's slice of heads or columns gives a partial of the
+input's gradient); the row-parallel output (:func:`reduce_partial`) sums
+forward and is the identity backward (every rank's upstream gradient is
+already the whole one).  ``torch.distributed.nn.functional.all_reduce``
+is not the latter: it sums the gradient too, multiplying it by ``mp``.
+Serving runs the same two under ``no_grad``, where each is its forward.
 
 A rank that fails takes the group down: the others would block in their
 next collective, so :func:`spawn_ranks` terminates them and raises with
@@ -58,9 +73,10 @@ class ShardGroup:
         self.world = world
         self.backend = backend
 
-    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the ranks, in place; returns ``x``."""
-        dist.all_reduce(x)
+    def all_reduce_(self, x: torch.Tensor, group: Any = None) -> torch.Tensor:
+        """Sum ``x`` over the ranks of ``group`` (a subgroup; None: every
+        rank), in place; returns ``x``."""
+        dist.all_reduce(x, group=group)
         return x
 
     def agree(self, obj: Any) -> Any:
@@ -104,12 +120,57 @@ def shard_backend(devices: Sequence[Any]) -> str:
     return "gloo"
 
 
+class MeshGroups:
+    """A rank's place on a ``(dp, mp)`` training grid of ``dp * mp`` ranks.
+
+    ``group`` is every rank's; rank ``r`` sits at ``(d, m) = divmod(r,
+    mp)``.  ``data`` is the subgroup of the ranks at this ``m`` (over which
+    gradients are averaged), ``model`` the one at this ``d`` (over which a
+    split layer's partial sums are completed); both are None where the
+    axis has one rank, so no collective runs over it.  Every rank builds
+    every subgroup, in the same order (``dist.new_group`` is collective)."""
+
+    def __init__(self, group: ShardGroup, dp: int, mp: int) -> None:
+        if group.world != dp * mp:
+            raise ValueError(f"a ({dp}, {mp}) mesh needs {dp * mp} ranks, "
+                             f"the group has {group.world}")
+        self.group, self.dp, self.mp = group, dp, mp
+        self.d, self.m = divmod(group.rank, mp)
+        data = [dist.new_group([d * mp + m for d in range(dp)]) if dp > 1 else None
+                for m in range(mp)]
+        model = [dist.new_group([d * mp + m for m in range(mp)]) if mp > 1 else None
+                 for d in range(dp)]
+        self.data, self.model = data[self.m], model[self.d]
+
+    def data_mean_(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` (f32) over the data group, in place."""
+        if self.dp > 1:
+            self.group.all_reduce_(x, group=self.data).div_(self.dp)
+        return x
+
+    def model_sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the model group, in place."""
+        if self.mp > 1:
+            self.group.all_reduce_(x, group=self.model)
+        return x
+
+
 # -- the model's view: the scope a sharded engine sets around its steps -----------
 
 @dataclasses.dataclass(frozen=True)
 class ShardScope:
+    """What the model needs of a rank's split: its process group, the plan,
+    the model subgroup its partial sums run over (None: every rank of
+    ``group``, as on a serve engine) and its index ``m`` in that subgroup
+    (None: ``group.rank``)."""
     group: ShardGroup
     plan: ShardPlan
+    model: Any = None
+    m: Optional[int] = None
+
+    @property
+    def index(self) -> int:
+        return self.group.rank if self.m is None else self.m
 
 
 _SCOPE: contextvars.ContextVar[Optional[ShardScope]] = contextvars.ContextVar(
@@ -131,6 +192,22 @@ def active_scope() -> Optional[ShardScope]:
     return _SCOPE.get()
 
 
+def keep_scope(fn: Callable) -> Callable:
+    """``fn``, run under the scope active now wherever it is called later.
+    A recomputation under remat runs in the backward pass, which for CUDA
+    tensors runs in the autograd engine's thread, where this thread's
+    scope is not set: without it the recomputed layer would run unsplit
+    and its saved tensors would not match the forward's."""
+    scope = _SCOPE.get()
+    if scope is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with shard_scope(scope):
+            return fn(*args, **kwargs)
+    return run
+
+
 def splits(block: str) -> bool:
     """Whether the active plan splits ``block``: the ``"attn"`` output
     projection or the ``"ffn"`` (dense or MoE) down projection."""
@@ -138,17 +215,73 @@ def splits(block: str) -> bool:
     return scope is not None and bool(getattr(scope.plan, block))
 
 
-def reduce_partial(x: torch.Tensor, block: str) -> torch.Tensor:
-    """Complete a down-projection's partial sum over the ranks when the
-    active plan splits ``block``.  A partial in a narrower type is summed
-    in f32 and cast back once.  Without a scope, or for a replicated
-    block, ``x`` as it is."""
+class _SumForward(torch.autograd.Function):
+    """The row-parallel output: the sum over the model group forward, the
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, scope):
+        out = x.clone(memory_format=torch.contiguous_format)
+        return scope.group.all_reduce_(out, group=scope.model)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """A column-parallel input: the identity forward, the gradient summed
+    over the model group backward (in f32, rounded once)."""
+
+    @staticmethod
+    def forward(ctx, x, scope):
+        ctx.scope = scope
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g32 = g.to(torch.float32, memory_format=torch.contiguous_format,
+                   copy=True)
+        ctx.scope.group.all_reduce_(g32, group=ctx.scope.model)
+        return g32.to(g.dtype), None
+
+
+def enter_split(x: torch.Tensor, block: str) -> torch.Tensor:
+    """``x`` where it enters the split part of ``block`` (the input of the
+    q/k/v projections, of the FFN's gate and up, of the MoE block): the
+    identity, whose gradient is summed over the model group when the
+    active plan splits ``block``."""
     if not splits(block):
         return x
-    group = _SCOPE.get().group
-    if x.dtype == torch.float32:
-        return group.all_reduce_(x)
-    return group.all_reduce_(x.float()).to(x.dtype)
+    return _SumBackward.apply(x, _SCOPE.get())
+
+
+def reduce_partial(x: torch.Tensor, block: str) -> torch.Tensor:
+    """Complete a down-projection's partial sum over the model group (every
+    rank of a serve engine) when the active plan splits ``block``
+    (:class:`_SumForward`: the identity backward).  A partial in a
+    narrower type is summed in f32 and cast back once.  Without a scope,
+    or for a replicated block, ``x`` as it is."""
+    if not splits(block):
+        return x
+    return _SumForward.apply(x.float(), _SCOPE.get()).to(x.dtype)
+
+
+class _F32Product(torch.autograd.Function):
+    """``torch.mm(h, w, out_dtype=torch.float32)`` with its gradients in
+    the operands' type (the upstream gradient of an f32 partial that is
+    rounded once after its sum holds values of that type exactly)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        return g @ w.T, h.T @ g
 
 
 def f32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -159,8 +292,8 @@ def f32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if h.dtype == torch.float32:
         return h @ w
     if h.is_cuda:
-        return torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32
-                        ).reshape(*h.shape[:-1], w.shape[-1])
+        out = _F32Product.apply(h.reshape(-1, h.shape[-1]), w)
+        return out.reshape(*h.shape[:-1], w.shape[-1])
     return h.float() @ w.float()
 
 

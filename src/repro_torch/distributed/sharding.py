@@ -33,6 +33,20 @@ the pool and runs the gather path), the layout departs from the
 reference's and the numbers do not: :func:`shard_specs` gives the specs
 the port applies, in the reference's form, for the tests to hold against
 its ``param_specs`` and ``serve_kv_spec``.
+
+Training on a ``(data, model)`` mesh uses the same split over the model
+axis and replicates over the data axis (the rules also split weights and
+optimizer state over ``data``: same numbers, ``dp`` times the memory).
+:func:`grad_layout` says how each leaf's gradient is completed on a rank:
+a split leaf's slice is whole, except a KV slice several ranks hold
+(:data:`KV_GROUP`), whose partials are summed over those ranks; a
+replicated leaf is whole, except ``q_norm``/``k_norm`` over split heads
+and the MoE ``router`` over split experts or columns, whose partials are
+summed over the model group.  :func:`unshard_leaf` puts a leaf back
+together for a checkpoint, which is the whole tree whatever the mesh.
+Families other than dense, moe and vlm keep :func:`shard_plan`'s
+``ValueError`` at ``mp > 1`` (the recurrent families' heads are not
+split) and train at any ``dp``.
 """
 
 from __future__ import annotations
@@ -189,9 +203,38 @@ def shard_config(cfg: ModelConfig, mp: int) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
+def _layer_leaf(path: str) -> Optional[str]:
+    """The layer leaf's name of ``path`` (``…['layers']['attn_wq']`` in
+    params, ``m``, ``v``, the master copy or the error feedback)."""
+    m = re.search(r"\['layers'\]\['(\w+)'\]$", path)
+    return m.group(1) if m else None
+
+
+def leaf_slice(cfg: ModelConfig, plan: ShardPlan, rank: int, path: str,
+               shape: Tuple[int, ...]) -> Optional[Tuple[int, int, int]]:
+    """(dim, start, size) of rank ``rank``'s slice of the whole leaf of
+    ``shape`` at ``path``, or None when the rank holds it whole."""
+    name = _layer_leaf(path)
+    split = _leaf_split(name, plan) if name else None
+    if split is None:
+        return None
+    axis, how = split
+    dim = len(shape) + axis
+    hd = cfg.head_dim
+    if how == "q":
+        return dim, rank * plan.q_heads * hd, plan.q_heads * hd
+    if how == "kv":
+        kv0 = plan.kv_head0(rank, cfg.num_heads, cfg.num_kv_heads)
+        return dim, kv0 * hd, plan.kv_heads * hd
+    size = shape[dim] // plan.mp
+    return dim, rank * size, size
+
+
 def shard_params(cfg: ModelConfig, params: Any, mp: int, rank: int
                  ) -> Tuple[Any, ModelConfig]:
     """Rank ``rank``'s shard of ``params`` and its shard-local config.
+    ``params`` may be any tree whose layer leaves sit under ``['layers']``
+    as the params' do (the optimizer's ``m``, ``v``, master copy).
 
     Split leaves are copied (contiguous, on the leaves' device), so the
     caller may drop the whole parameters; replicated leaves are the
@@ -203,25 +246,88 @@ def shard_params(cfg: ModelConfig, params: Any, mp: int, rank: int
     plan = shard_plan(cfg, mp)
     if not plan.splits:
         return params, cfg
-    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    kv0 = plan.kv_head0(rank, Hq, Hkv)
-    ranges = {
-        "q": (rank * plan.q_heads * hd, plan.q_heads * hd),
-        "kv": (kv0 * hd, plan.kv_heads * hd),
-    }
-    layers = {}
-    for name, t in params["layers"].items():
-        split = _leaf_split(name, plan)
-        if split is None:
-            layers[name] = t
-            continue
-        axis, how = split
-        if how in ranges:
-            start, size = ranges[how]
-        else:
-            size = t.shape[axis] // mp
-            start = rank * size
-        layers[name] = t.narrow(t.ndim + axis, start, size).contiguous()
-    local = {k: v for k, v in params.items() if k != "layers"}
-    local["layers"] = layers
-    return local, shard_config(cfg, mp)
+    values = {}
+    for path, t in _walk(params):
+        cut = leaf_slice(cfg, plan, rank, path, tuple(t.shape))
+        values[path] = t if cut is None else t.narrow(*cut).contiguous()
+    return _unflatten(params, values), shard_config(cfg, mp)
+
+
+def map_leaves(tree: Any, fn) -> Any:
+    """``tree`` with each leaf replaced by ``fn(key string, leaf)``."""
+    return _unflatten(tree, {path: fn(path, leaf) for path, leaf in _walk(tree)})
+
+
+def splits_leaf(cfg: ModelConfig, mp: int, path: str) -> bool:
+    """Whether the leaf at ``path`` is split over ``mp`` ranks."""
+    name = _layer_leaf(path)
+    return name is not None and _leaf_split(name, shard_plan(cfg, mp)) is not None
+
+
+def unshard_leaf(cfg: ModelConfig, mp: int, path: str,
+                 parts: List[torch.Tensor]) -> torch.Tensor:
+    """The whole leaf at ``path`` from every rank's part (by rank): the
+    parts concatenated along the split dim, a slice that several ranks
+    hold (:data:`KV_GROUP`) taken once; ``parts[0]`` for a whole leaf."""
+    plan = shard_plan(cfg, mp)
+    name = _layer_leaf(path)
+    split = _leaf_split(name, plan) if name is not None and plan.splits else None
+    if split is None:
+        return parts[0]
+    axis, how = split
+    shape = list(parts[0].shape)
+    dim = len(shape) + axis
+    shape[dim] = (cfg.num_kv_heads * cfg.head_dim if how == "kv" and not plan.kv_even
+                  else shape[dim] * mp)
+    taken, pieces = set(), []
+    for r, part in enumerate(parts):
+        start = leaf_slice(cfg, plan, r, path, tuple(shape))[1]
+        if start not in taken:
+            taken.add(start)
+            pieces.append(part)
+    return torch.cat(pieces, dim)
+
+
+# -- gradients on a training mesh ----------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GradLeaf:
+    """How a rank completes one leaf's gradient, counts it in the global
+    norm and quantizes it in the whole leaf's blocks.
+
+    ``whole`` is the whole leaf's shape and ``cut`` the rank's (dim, start,
+    size) of it (None: the rank holds it whole).  ``partial``: None when
+    the rank's gradient is already its slice's whole gradient; ``"model"``
+    when a replicated leaf gets a partial on each rank (``q_norm`` and
+    ``k_norm`` over split heads, the MoE ``router`` over split experts or
+    columns), summed over the model group; ``"holders"`` when several
+    ranks hold the slice (:data:`KV_GROUP`) and each has a partial, summed
+    over those ranks.  ``counted``: whether this rank adds the leaf's
+    squares to the model group's sum (a split leaf's slice, once per
+    holder group) rather than to its own (a replicated leaf, counted
+    once)."""
+    whole: Tuple[int, ...]
+    cut: Optional[Tuple[int, int, int]]
+    partial: Optional[str]
+    counted: bool
+
+
+def grad_layout(cfg: ModelConfig, mp: int, rank: int, tree: Any) -> Any:
+    """A :class:`GradLeaf` for each leaf of the whole ``tree`` (params or
+    their shapes), for rank ``rank`` of ``mp``, in ``tree``'s nesting."""
+    plan = shard_plan(cfg, mp)
+    values = {}
+    for path, leaf in _walk(tree):
+        shape = _shape(leaf)
+        name = _layer_leaf(path)
+        cut = leaf_slice(cfg, plan, rank, path, shape) if plan.splits else None
+        partial, counted = None, cut is not None
+        if cut is not None and _leaf_split(name, plan)[1] == "kv" and not plan.kv_even:
+            partial = "holders"
+            # the first of the ranks that hold this KV head counts it
+            counted = rank == 0 or leaf_slice(cfg, plan, rank - 1, path, shape) != cut
+        elif cut is None and ((plan.attn and name in ("attn_q_norm", "attn_k_norm"))
+                              or (plan.moe and name == "moe_router")):
+            partial = "model"
+        values[path] = GradLeaf(whole=shape, cut=cut, partial=partial, counted=counted)
+    return _unflatten(tree, values)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.group import enter_split, keep_scope, project_out
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref as kref
 
@@ -214,7 +215,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attn_qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
     """Project + rope; returns q (B,H,S,D), k/v (B,Hkv,S,D).  q and k come
-    out contiguous (RoPE builds them anew); v is a transposed view."""
+    out contiguous (RoPE builds them anew); v is a transposed view.  On a
+    rank whose plan splits the heads, ``x``'s gradient is summed over the
+    model group (:func:`~repro_torch.distributed.group.enter_split`)."""
+    x = enter_split(x, "attn")
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -235,10 +239,12 @@ def attn_block(
     p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
     *, causal: bool = True, attn_impl: str = "reference",
 ) -> torch.Tensor:
-    """Full attention sub-layer (projections + attention + output proj)."""
+    """Full attention sub-layer (projections + attention + output proj);
+    on a rank whose plan splits the heads, over its heads and summed over
+    the model group."""
     q, k, v = attn_qkv(p, s, x, positions)
     o = ATTENTION_VARIANTS[attn_impl](q, k, v, causal=causal, window=s.window)
-    return _merge_heads(o) @ p["wo"]
+    return project_out(_merge_heads(o), p["wo"], "attn")
 
 
 # -- FFN -----------------------------------------------------------------------
@@ -324,7 +330,7 @@ def remat(cfg, fn, *args):
     checkpoint``, keeping only the inputs) — the reference's
     ``jax.checkpoint`` around a scan body."""
     if cfg.remat == "full" and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(keep_scope(fn), *args, use_reentrant=False)
     return fn(*args)
 
 

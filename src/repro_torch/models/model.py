@@ -14,7 +14,7 @@ output).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -69,8 +69,16 @@ def count_params_from_shapes(cfg: ModelConfig, active_only: bool = False) -> int
     return total
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Any:
-    return family_module(cfg).init_params(cfg, gen)
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                ) -> Any:
+    """Random parameters drawn from ``gen``.  ``keep(path, leaf)``, where
+    given (the transformer families), replaces each layer's leaf as soon
+    as it is drawn: a rank of a model-parallel mesh keeps its slice, so it
+    never holds the whole parameters, and draws the same numbers."""
+    if keep is None:
+        return family_module(cfg).init_params(cfg, gen)
+    return family_module(cfg).init_params(cfg, gen, keep=keep)
 
 
 # -- training ------------------------------------------------------------------------

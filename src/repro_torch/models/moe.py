@@ -38,8 +38,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.group import (active_scope, f32_product,
-                                           reduce_partial, splits)
+from repro_torch.distributed.group import (active_scope, enter_split,
+                                           f32_product, reduce_partial, splits)
 
 from .layers import Params, dense_init, init_swiglu, swiglu_param_shapes
 
@@ -185,13 +185,15 @@ def moe_block(p: Params, s: MoESpec, x: torch.Tensor, *, groups: int = 1
     N = B * S
     if N % max(groups, 1):
         groups = 1
-    xf = x.reshape(N, d)
     # on a rank whose plan splits the block: its slice of the experts or
     # of each expert's columns, and of the shared expert's columns, each
-    # partial in f32 and all summed over the ranks at once
+    # partial in f32 and all summed over the ranks at once; the router,
+    # replicated, weighs only the rank's experts or columns, so the
+    # input's gradient is summed over the ranks too
+    xf = enter_split(x.reshape(N, d), "ffn")
     split = splits("ffn")
     mode = active_scope().plan.moe if split else None
-    expert0 = (active_scope().group.rank * p["experts_gate"].shape[0]
+    expert0 = (active_scope().index * p["experts_gate"].shape[0]
                if mode == "experts" else 0)
     out = _routed_experts(p, s, xf.reshape(max(groups, 1), -1, d), expert0,
                           f32_down=mode == "columns").reshape(N, d)

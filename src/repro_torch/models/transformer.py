@@ -21,14 +21,14 @@ there why).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.group import project_out
+from repro_torch.distributed.group import enter_split, keep_scope, project_out
 
 from . import kvcache, layers, moe
 from .layers import AttnSpec, Params
@@ -92,11 +92,15 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 # -- init -------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                ) -> Params:
     """Random parameters on ``gen``'s device, drawn from ``gen``: the same
     distributions and dtypes as the reference's ``init_params`` (an MoE
     router stays f32), not the same numbers — parity tests convert the
-    reference's parameters instead, :mod:`repro_torch.models.convert`."""
+    reference's parameters instead, :mod:`repro_torch.models.convert`.
+    ``keep(path, leaf)`` replaces each layer's leaf as it is drawn (path
+    ``['layers']['name']``), before the next layer is drawn."""
     dt = _dtype(cfg)
     dev = gen.device
     s = attn_spec(cfg)
@@ -111,7 +115,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         else:
             p.update({f"ffn_{k}": v for k, v in
                       layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt).items()})
-        return p
+        if keep is None:
+            return p
+        return {k: keep(f"['layers'][{k!r}]", v) for k, v in p.items()}
 
     stacked = layers.stack_layers((cfg.num_layers,), one)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
@@ -148,7 +154,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
     positions = torch.arange(S, device=tokens.device)
     for lp in layers.unstack_layers(params["layers"], cfg.num_layers):
         if cfg.remat == "full":
-            x = checkpoint(layer_fwd, cfg, lp, x, positions, use_reentrant=False)
+            x = checkpoint(keep_scope(layer_fwd), cfg, lp, x, positions,
+                           use_reentrant=False)
         else:
             x = layer_fwd(cfg, lp, x, positions)
     return _logits(cfg, params, x)
@@ -222,6 +229,7 @@ def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
         return moe.moe_block(_sub(lp, "moe_"), moe_spec(cfg), h,
                              groups=cfg.moe_groups)
     p = _sub(lp, "ffn_")
+    h = enter_split(h, "ffn")
     return project_out(F.silu(h @ p["w_gate"]) * (h @ p["w_up"]), p["w_down"],
                        "ffn")
 

@@ -12,7 +12,7 @@ of the grads or of the state: the training state of bf16 params stays at
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.utils import _pytree as pytree
@@ -53,21 +53,38 @@ def init(cfg: AdamWConfig, params: Any) -> Dict[str, Any]:
     return state
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, *, counted: Optional[Sequence[Optional[bool]]] = None,
+                model_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a 0-d tensor on
-    the leaves' device)."""
-    norms = [torch.linalg.vector_norm(x, dtype=torch.float32)
-             for x in pytree.tree_leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    the leaves' device).
+
+    On a rank of a model-parallel mesh the tree is the rank's shard and
+    the norm is still the whole model's: ``counted`` gives, leaf by leaf,
+    True for a split leaf whose squares this rank adds to the model
+    group's sum (``model_sum``, in place), False for a copy of a slice
+    another rank counts, None for a leaf whole on every rank (counted
+    here, once).  Every rank of the group then gets the same norm, so the
+    clip factor is the same on all of them."""
+    leaves = pytree.tree_leaves(tree)
+    norms = [torch.linalg.vector_norm(x, dtype=torch.float32) for x in leaves]
+    if counted is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    zero = torch.zeros((), dtype=torch.float32, device=norms[0].device)
+    whole = sum((n * n for n, c in zip(norms, counted) if c is None), zero)
+    split = sum((n * n for n, c in zip(norms, counted) if c), zero.clone())
+    return torch.sqrt(whole + model_sum(split))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        gnorm: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(factor, global norm): the clipped grads are ``g * factor`` in f32.
     The reference returns the scaled f32 tree; the port returns the factor
     and :func:`update` applies it slice by slice, so no f32 copy of the
-    grads is made."""
-    gn = global_norm(grads)
+    grads is made.  ``gnorm``: the norm to clip by where the caller has it
+    (a mesh rank's :func:`global_norm`)."""
+    gn = global_norm(grads) if gnorm is None else gnorm
     return torch.clamp(max_norm / (gn + 1e-9), max=1.0), gn
 
 
@@ -90,12 +107,16 @@ def update(
     state: Dict[str, Any],
     params: Any,
     lr: Optional[Union[float, torch.Tensor]] = None,
+    gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, Dict[str, Any]]:
     """Returns (params, state), both updated in place.  grads in any
-    dtype; math in f32."""
+    dtype; math in f32.  ``gnorm``: the global norm the clip uses, where
+    the caller has it (a mesh rank's is the whole model's, not its
+    shard's); by default that of ``grads``."""
     step = int(state["step"]) + 1
     lr = cfg.lr if lr is None else lr
-    scale = clip_by_global_norm(grads, cfg.grad_clip)[0] if cfg.grad_clip else None
+    scale = (clip_by_global_norm(grads, cfg.grad_clip, gnorm)[0]
+             if cfg.grad_clip else None)
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step
     has_master = "master" in state

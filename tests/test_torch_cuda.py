@@ -13,7 +13,9 @@ encoder-decoder families' heads (D = 64; non-causal; S < T and S > T) with
 reduced zamba2-1.2b served in waves through it, a group of two
 engine replicas on one card against a single engine, and the paged kernels
 at a head-sharded rank's heads with a (1, 2) sharded engine of two ranks
-on one card against a single engine.
+on one card against a single engine, the f32-output GEMM's bf16
+gradients, and training at (1, 2) and (1, 4) on one card against one
+device, through a checkpoint gathered on the card.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
 entry points default to the card.  This file imports no JAX, so it runs on
@@ -400,6 +402,70 @@ def test_cuda_f32_product_keeps_the_partial_in_f32(cuda_device, k):
     assert got.dtype == torch.float32 and got.shape == (2, 3, 64)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     assert not torch.equal(got, got.bfloat16().float())
+
+
+@pytest.mark.cuda
+def test_cuda_f32_product_gradients(cuda_device):
+    """The backward of the f32-output GEMM on a training rank: bf16
+    gradients of both operands, against autograd of the upcast product
+    rounded once to bf16 (the upstream gradient holds bf16 values, as the
+    gradient of a partial rounded after its sum does)."""
+    from repro_torch.distributed.group import f32_product
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    h = torch.randn((2, 3, 256), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((256, 64), generator=gen, device=cuda_device).bfloat16()
+    g = torch.randn((2, 3, 64), generator=gen, device=cuda_device).bfloat16().float()
+    h.requires_grad_()
+    w.requires_grad_()
+    got = torch.autograd.grad(f32_product(h, w), (h, w), g)
+    hf, wf = (t.detach().float().requires_grad_() for t in (h, w))
+    want = torch.autograd.grad(hf @ wf, (hf, wf), g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b, rtol=2 ** -7, atol=1e-3)
+
+
+def _mesh_train_rank(group, ckpt_dir):
+    """One rank of a (1, world) training mesh on ``cuda:0`` (run by
+    ``spawn_ranks``): parameters drawn from the seed, each rank keeping
+    its slice as each leaf is drawn; 2 steps, then a checkpoint gathered
+    on the card."""
+    from repro_torch.distributed.group import MeshGroups
+    cfg = get_config("qwen3-8b").reduced()
+    data = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                      global_batch=2))
+    loop = ttrain.TrainLoop(
+        cfg, ttrain.TrainLoopConfig(total_steps=2, log_every=0, enable_vpe=False,
+                                    watchdog=False, checkpoint_dir=ckpt_dir),
+        data, seed=0, device="cuda:0", mesh=MeshGroups(group, 1, group.world))
+    losses = [m["loss"] for m in loop.run()]
+    loop.save()
+    return losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp", [2, 4])
+def test_cuda_mesh_training_checkpoint_equals_single_device(cuda_device, mp, tmp_path):
+    """Reduced qwen3-8b in f32 at (1, mp), the ranks on ``cuda:0`` over
+    gloo: the losses of one device's loop from the same seed, and the
+    checkpoint (its shards gathered on the card) restored on one device
+    gives that loop's parameters."""
+    from repro_torch.distributed.group import spawn_ranks
+    cfg = get_config("qwen3-8b").reduced()
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2)
+    lc = dict(total_steps=2, log_every=0, enable_vpe=False, watchdog=False)
+    one = ttrain.TrainLoop(cfg, ttrain.TrainLoopConfig(**lc), SyntheticStream(data),
+                           seed=0, device=cuda_device)
+    want = [m["loss"] for m in one.run()]
+    res = spawn_ranks(_mesh_train_rank, ["cuda:0"] * mp, (str(tmp_path),))
+    for losses in res:
+        np.testing.assert_allclose(losses, want, rtol=1e-5)
+    back = ttrain.TrainLoop(cfg, ttrain.TrainLoopConfig(**lc, checkpoint_dir=str(tmp_path)),
+                            SyntheticStream(data), seed=1, device=cuda_device)
+    assert back.restore() and back.step == 2
+    flat = torch.utils._pytree.tree_flatten_with_path
+    for (path, a), (_, b) in zip(flat(back.params)[0], flat(one.params)[0]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-5, msg=str(path))
 
 
 @pytest.mark.cuda

@@ -3,6 +3,7 @@
 one card.
 
     python3 tools/shard_collectives.py [--ranks 2] [--rows 4] [--iters 100]
+        [--grad-bytes 1073741824]
 
 Starts ``--ranks`` rank processes on ``cuda:0`` with ``spawn_ranks`` (the
 backend ``shard_backend`` picks for them: ``gloo``, since NCCL refuses two
@@ -18,7 +19,10 @@ qwen3-8b's mp = 2 shapes (``--rows`` and 128 rows of 2048 or 6144 bf16
 columns onto 4096): the bf16 product, the f32 product of the upcast
 operands, ``torch.mm(..., out_dtype=torch.float32)`` where this build has
 it, and ``project_out`` under a scope that splits the block (the f32
-partial, its all-reduce and the rounding).  Prints the card's name and
+partial, its all-reduce and the rounding); then what training on a mesh
+asks: a MAX all-reduce of f32 and a SUM of int32 on CUDA tensors (what
+``compressed_psum`` sends), each checked and timed on 4 MiB, and one f32
+all-reduce of ``--grad-bytes`` (a data group's gradient sync).  Prints the card's name and
 power limit, one line a rank, and as its last line a JSON object of every
 rank's results.  Needs a CUDA device.
 """
@@ -36,7 +40,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def measure(group, rows, iters):
+def measure(group, rows, iters, grad_bytes):
     import torch
     import torch.distributed as dist
     out = {"rank": group.rank, "backend": group.backend}
@@ -68,6 +72,45 @@ def measure(group, rows, iters):
         group.agree(("decide", 1))
     out["agree_us"] = (time.perf_counter() - t) / iters * 1e6
     out["down_projection_us"] = down_projections(group, rows, iters)
+    out.update(training_collectives(group, grad_bytes))
+    return out
+
+
+def training_collectives(group, grad_bytes):
+    """What training on a mesh and ``compressed_psum`` ask of gloo on CUDA
+    tensors: a MAX all-reduce of f32 (the agreed block scales) and a SUM
+    of int32 (the requantized values), each checked and timed, and the
+    mean fenced wall of one f32 all-reduce of ``grad_bytes`` (a data
+    group's gradient sync) over 3 calls."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for name, dt, op, want in (("max_f32", torch.float32, dist.ReduceOp.MAX,
+                                float(group.world)),
+                               ("sum_int32", torch.int32, dist.ReduceOp.SUM,
+                                float(group.world * (group.world + 1) // 2))):
+        x = torch.full((1 << 20,), group.rank + 1, device="cuda", dtype=dt)
+        try:
+            dist.all_reduce(x, op=op)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(10):
+                dist.all_reduce(x.fill_(group.rank + 1), op=op)
+            torch.cuda.synchronize()
+            out[f"all_reduce_{name}"] = dict(value=float(x[0]), expected=want,
+                                             us=(time.perf_counter() - t) / 10 * 1e6,
+                                             bytes=x.numel() * x.element_size())
+        except RuntimeError as e:
+            out[f"all_reduce_{name}"] = f"{type(e).__name__}: {e}"[:300]
+    g = torch.ones((grad_bytes // 4,), device="cuda")
+    group.all_reduce_(g)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        group.all_reduce_(g)
+    torch.cuda.synchronize()
+    out["grad_all_reduce"] = dict(bytes=grad_bytes,
+                                  us=(time.perf_counter() - t) / 3 * 1e6)
     return out
 
 
@@ -115,6 +158,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--rows", type=int, default=4)
     ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--grad-bytes", type=int, default=1 << 30,
+                    help="bytes of the timed f32 gradient all-reduce")
     args = ap.parse_args(argv)
     import torch
     from repro_torch.distributed.group import spawn_ranks
@@ -125,7 +170,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    res = spawn_ranks(measure, ["cuda:0"] * args.ranks, (args.rows, args.iters))
+    res = spawn_ranks(measure, ["cuda:0"] * args.ranks, (args.rows, args.iters, args.grad_bytes))
     for r in res:
         print(r)
     print(json.dumps(res))
