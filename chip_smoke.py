@@ -187,15 +187,31 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``MESH_GNORM_REL`` of (1, 1)'s, a leaf no rank splits bit-equal on
    every rank and every leaf on every data rank, 2 flash launches a layer
    a step on every rank (the kernels line's ``launches_by_path``); (b)
-   bf16, 2 x 4096, 1 warm-up and 3 timed steps; gate: every rank's
+   bf16, 2 x 4096, 1 warm-up and 2 timed steps; gate: every rank's
    losses within ``MESH_BF16_LOSS_REL`` of (1, 1)'s; printed per rank:
    step seconds (the slowest rank's), tokens/s of the mesh, peak memory
    (and the peak while the loop is built, each rank drawing only its
-   slice), the µs of the gradient all-reduce (the rank's whole sync) and
-   of one activation all-reduce (2 x 4096 x 3840 f32 over the model
-   group); (c)
-   ``compressed_psum`` over the 4 ranks of (2, 2), a CUDA tensor against
-   its CPU copy, within 4 int8 steps of the agreed scale;
+   slice; both above what was allocated before), the µs of the gradient
+   all-reduce (the rank's whole sync) and of one activation all-reduce
+   (2 x 4096 x 3840 f32 over the model group); (c) ``compressed_psum``
+   over the 4 ranks of (2, 2), a CUDA tensor against its CPU copy: 0
+   apart, and within 4 int8 steps of the agreed scale; (d) (a) and (b)
+   with fsdp at (2, 1) and (2, 2) (``TrainLoop(..., fsdp=True)``: params
+   and optimizer state cut over ``data`` as well, a layer's slices
+   all-gathered where it is read, its gradient reduce-scattered), under
+   (a)'s and (b)'s gates against the same (1, 1) runs, and the µs a step
+   of the all-gathers and reduce-scatters (the host wall of each call);
+17. the dry run against the card (``repro_torch.launch.dryrun`` on the
+   meta device): (a) every rank's build peak of 16b and 16d within
+   [the dry run's state bytes a rank, + ``MESH_BUILD_SLACK``]; (b) the
+   (1, 1) bf16 step's measured peak beside the dry run's state,
+   gradients and saved-for-backward bytes, and its measured seconds
+   beside the roofline's ``step_s`` (the share printed); (c) the fsdp
+   meshes' counted collective bytes beside 16d's measured µs; (d) the
+   40-cell sweep ``--no-probes`` at (16, 16), in ``SWEEP_WORKERS`` processes
+   on the host, run after phase 11 so that no timed phase shares the host with
+   it: its count of ok, skipped and error cells; an error, or a sweep
+   not done in ``SWEEP_TIMEOUT_S``, fails the phase;
 9. paper-path kernels: matmul and conv2d against their plain versions on
    the card, f32 and bf16 (matmul at tests/test_kernels.py's shapes, 512^3,
    1000^3 off every tile and 4096^3; conv2d at the JAX tests' shapes,
@@ -241,6 +257,7 @@ import dataclasses
 import gc
 import gzip
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -955,8 +972,9 @@ def serve_traffic(engine, cfg, prompts, label, rid0=0,
 
 # fills ahead of a profiled window in this process (:func:`steady_window`):
 # more than the records a late session has lost at a window's start (8-10
-# in tools/trace_loss.py, between 33 and about 130 in one --trace run)
-PREFIX_FILLS = 1024
+# in tools/trace_loss.py, between 33 and about 130 in one --trace run, and
+# at least 1,081 once in phase 12b)
+PREFIX_FILLS = 4096
 
 
 def steady_window(engine, cfg, calls):
@@ -1015,15 +1033,18 @@ def steady_window(engine, cfg, calls):
     prof, _ = profile_window(lambda: ([fill.fill_(0) for _ in range(PREFIX_FILLS)],
                                       engine.step()))
     profiled_steps = st.decode_steps - steps0
-    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and kernel_group(e.name) == "paged decode kernels")
-    out.update(profiled_steps=profiled_steps, profiled_decode_launches=launches)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launches = sum(1 for e in device if kernel_group(e.name) == "paged decode kernels")
+    fills = sum(1 for e in device if "fill" in e.name.lower())
+    out.update(profiled_steps=profiled_steps, profiled_decode_launches=launches,
+               profiled_fills=fills)
     say(f"  steady window (4 slots decoding, unprofiled): {calls} calls, {steps} "
         f"steps, wall {out['wall_us_per_step']} us a step, device span of the "
         f"replays {out['span_us_per_step']} us a step (CUDA events), idle "
         f"{out['idle_us_per_step']} us a step, idle share {out['idle_share']}; one "
         f"profiled call: {profiled_steps} steps, device launches of the paged "
-        f"decode kernels {launches} (expected {3 * profiled_steps * cfg.num_layers})")
+        f"decode kernels {launches} (expected {3 * profiled_steps * cfg.num_layers}), "
+        f"fill records {fills} ({PREFIX_FILLS} fills ahead, and the step's own)")
     if graphs.captures != before[2] or launches != 3 * profiled_steps * cfg.num_layers:
         raise AssertionError(f"profiled replay: {launches} paged decode launches for "
                              f"{profiled_steps} steps x {cfg.num_layers} layers, or "
@@ -3248,12 +3269,14 @@ def phase_train_parity(dev):
 # cut to MESH_LAYERS layers, so that four ranks' training state fits the
 # card together; every rank a process of its own on cuda:0 over gloo,
 # flash_cuda pinned.  (a) f32, gated against the (1, 1) run in the parent;
-# (b) bf16, timed; (c) compressed_psum at 4 ranks, CUDA against CPU.
+# (b) bf16, timed; (c) compressed_psum at 4 ranks, CUDA against CPU; (d)
+# (a) and (b) with fsdp (params and optimizer state cut over data too).
 MESH_LAYERS = 4
 MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+FSDP_SHAPES = ((2, 1), (2, 2))
 MESH_SEED = 16
 MESH_F32 = (2, 1024, 3)            # global batch, sequence, steps
-MESH_BF16 = (2, 4096, 1, 3)        # global batch, sequence, warm-up, timed steps
+MESH_BF16 = (2, 4096, 1, 2)        # global batch, sequence, warm-up, timed steps
 # (a)'s limits against (1, 1), set before the first run: f32 sums in another
 # order and over other ranks, through 3 AdamW steps
 MESH_LOSS_REL = MESH_GNORM_REL = 1e-4
@@ -3262,6 +3285,10 @@ MESH_LOSS_REL = MESH_GNORM_REL = 1e-4
 # (PERF.md): at most 6.5e-5 relative over the meshes in two runs
 MESH_BF16_LOSS_REL = 5e-4
 MESH_PSUM = (4096, 3840)           # (c): one rank's tensor
+# a rank's peak while its loop is built: at least the state the dry run
+# reckons (less AdamW's step, which lives on the host), at most this more
+# (the draw's transients, the allocator's rounding)
+MESH_BUILD_SLACK = 0.3e9
 
 
 def mesh_cfg(dtype: str):
@@ -3270,27 +3297,50 @@ def mesh_cfg(dtype: str):
                                dtype=dtype, attn_impl="flash_cuda")
 
 
-def mesh_state_bytes(cfg, shape, grads: bool = True) -> int:
-    """The training state one rank of ``shape`` holds, reckoned from the
-    shard's shapes: params, m, v, the f32 master of low-precision params,
-    and the gradients."""
+def mesh_build(cfg, shape, fsdp: bool):
+    """The dry run's build of one rank of ``shape``'s bf16 2 x 4096 step
+    (``launch.specs.build_train`` on the meta device: nothing allocated)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs
+    return specs.build_train(cfg, ShapeConfig("mesh", "train", MESH_BF16[1], MESH_BF16[0]),
+                             specs.dry_mesh(*shape), fsdp=fsdp, tp=True)
+
+
+def mesh_state_bytes(cfg, shape, grads: bool = True, fsdp: bool = False) -> int:
+    """The training state one rank of ``shape`` holds, the dry run's
+    reckoning: params, m, v, the f32 master of low-precision params and
+    AdamW's step, and with ``grads`` the gradients (the params' bytes)."""
+    from repro_torch.launch import specs
+    built = mesh_build(cfg, shape, fsdp)
+    return specs.tree_bytes(built.state) + (specs.tree_bytes(built.args[0]) if grads else 0)
+
+
+def timed_group(group):
+    """``group`` (a rank's ShardGroup) with the host wall of its fsdp
+    collectives summed in ``.seconds`` by kind (each ends when gloo has
+    moved the data: the call blocks)."""
     import torch
-    from repro_torch.distributed import sharding
-    from repro_torch.models import model as model_lib
-    shapes = model_lib.param_shapes(cfg)
-    mp = shape[1]
-    plan = sharding.shard_plan(cfg, mp) if mp > 1 else None
-    elem = getattr(torch, cfg.dtype).itemsize
-    per_param = elem + 8 + (4 if elem != 4 else 0) + (elem if grads else 0)
-    n = 0
-    for path, leaf in sharding._walk(shapes):
-        cut = sharding.leaf_slice(cfg, plan, 0, path, tuple(leaf)) if plan else None
-        size = int(np.prod(leaf))
-        n += size if cut is None else size // leaf[cut[0]] * cut[2]
-    return n * per_param
+    from repro_torch.distributed.group import ShardGroup
+
+    class Timed(ShardGroup):
+        def _timed(self, kind, fn, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            self.seconds[kind] += time.perf_counter() - t
+            return out
+
+        def all_gather_(self, parts, x, group=None):
+            return self._timed("all-gather", super().all_gather_, parts, x, group)
+
+        def reduce_scatter_(self, out, parts, group=None):
+            return self._timed("reduce-scatter", super().reduce_scatter_, out, parts, group)
+    timed = Timed(group.rank, group.world, group.backend)
+    timed.seconds = {"all-gather": 0.0, "reduce-scatter": 0.0}
+    return timed
 
 
-def mesh_loop(cfg, shape, group, batch, seq, steps):
+def mesh_loop(cfg, shape, group, batch, seq, steps, fsdp=False):
     import torch
     from repro_torch.data import DataConfig, SyntheticStream
     from repro_torch.distributed.group import MeshGroups
@@ -3301,7 +3351,7 @@ def mesh_loop(cfg, shape, group, batch, seq, steps):
                                       global_batch=batch, seed=MESH_SEED))
     mesh = MeshGroups(group, *shape) if group is not None else None
     return TrainLoop(cfg, lc, data, seed=MESH_SEED, device=torch.device("cuda", 0),
-                     mesh=mesh)
+                     mesh=mesh, fsdp=fsdp)
 
 
 def fenced_us(fn, iters=3) -> float:
@@ -3315,9 +3365,10 @@ def fenced_us(fn, iters=3) -> float:
     return (time.perf_counter() - t) / iters * 1e6
 
 
-def mesh_run(group, shape):
+def mesh_run(group, shape, fsdp=False):
     """Phase 16 (a) and (b) on one rank of ``shape`` (or, with ``group``
-    None, at (1, 1) in the parent); (c) on the ranks of (2, 2)."""
+    None, at (1, 1) in the parent), with ``fsdp`` phase 16d's; (c) on the
+    ranks of (2, 2) without fsdp."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed import sharding
@@ -3325,12 +3376,14 @@ def mesh_run(group, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = group.rank if group is not None else 0
-    out = {"rank": rank, "shape": shape}
+    out = {"rank": rank, "shape": shape, "fsdp": fsdp}
+    if group is not None:
+        group = timed_group(group)
 
     # (a) f32: the gated run
     cfg = mesh_cfg("float32")
     batch, seq, steps = MESH_F32
-    loop = mesh_loop(cfg, shape, group, batch, seq, steps)
+    loop = mesh_loop(cfg, shape, group, batch, seq, steps, fsdp)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
     metrics = loop.run(steps)
@@ -3347,27 +3400,32 @@ def mesh_run(group, shape):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) bf16: the timed run
+    # (b) bf16: the timed run; peaks above what was allocated before
     cfg = mesh_cfg("bfloat16")
     batch, seq, warm, steps = MESH_BF16
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    loop = mesh_loop(cfg, shape, group, batch, seq, warm + steps)
+    loop = mesh_loop(cfg, shape, group, batch, seq, warm + steps, fsdp)
     torch.cuda.synchronize()
-    init_peak = torch.cuda.max_memory_allocated()
+    init_peak = torch.cuda.max_memory_allocated() - base
     loop.run(warm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if group is not None:
+        group.seconds.update({k: 0.0 for k in group.seconds})
     metrics = loop.run(warm + steps)[-steps:]
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     step_s = [m["step_time_s"] for m in metrics]
     b = dict(losses=[m["loss"] for m in metrics], step_s=step_s,
              tokens_per_s=batch * seq / float(np.median(step_s)), peak_bytes=peak,
              init_peak_bytes=init_peak,
-             init_reckoned_bytes=mesh_state_bytes(cfg, shape, grads=False),
+             init_reckoned_bytes=mesh_state_bytes(cfg, shape, grads=False, fsdp=fsdp),
              state_bytes=tree_bytes((loop.params, loop.opt_state)),
-             reckoned_bytes=mesh_state_bytes(cfg, shape))
+             reckoned_bytes=mesh_state_bytes(cfg, shape, fsdp=fsdp))
+    if group is not None:
+        b["fsdp_us_a_step"] = {k: v / steps * 1e6 for k, v in group.seconds.items()}
     if loop.mesh is not None:
         leaves = torch.utils._pytree.tree_leaves(loop.params)
         grads = [torch.zeros_like(p) for p in leaves]
@@ -3387,7 +3445,7 @@ def mesh_run(group, shape):
 
     # (c) compressed_psum over the 4 ranks, a CUDA tensor against its copy
     # on the CPU
-    if shape == (2, 2):
+    if shape == (2, 2) and not fsdp:
         from repro_torch.optim.compression import compressed_psum, quantize
         gen = torch.Generator("cuda").manual_seed(MESH_SEED + rank)
         x = torch.randn(MESH_PSUM, generator=gen, device="cuda") * (rank + 1)
@@ -3402,6 +3460,63 @@ def mesh_run(group, shape):
     return out
 
 
+def gate_mesh_runs(runs, ref, ref_b, tag_a, tag_b, worst, launches):
+    """Phase 16a/b (or 16d) gates of each rank of ``runs`` against (1, 1)'s
+    f32 run ``ref`` and bf16 losses ``ref_b``; prints each rank's lines."""
+    expected = 2 * MESH_LAYERS * MESH_F32[2]
+    for shape, res in runs.items():
+        for r in res:
+            a, b = r["a"], r["b"]
+            rl = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref["losses"]))
+            rg = max(abs(x - y) / abs(y) for x, y in zip(a["gnorms"], ref["gnorms"]))
+            rb = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], ref_b))
+            worst["loss"], worst["grad_norm"] = max(worst["loss"], rl), max(worst["grad_norm"], rg)
+            worst["bf16_loss"] = max(worst["bf16_loss"], rb)
+            launches[f"{tag_a} {shape[0]}x{shape[1]} rank {r['rank']}"] = a["launches"]
+            say(f"  [{tag_a}] {shape} rank {r['rank']} (d, m) = ({a['d']}, {a['m']}): heads "
+                f"{a['heads']}, d_ff {a['d_ff']}; f32 losses {a['losses']}, grad norms "
+                f"{a['gnorms']} (worst relative against (1, 1): loss {rl}, grad norm "
+                f"{rg}); flash launches {a['launches']} (expected {expected})")
+            say(f"  [{tag_b}] {shape} rank {r['rank']}: bf16 {MESH_BF16[0]} x {MESH_BF16[1]} "
+                f"tokens, step seconds {b['step_s']} (the slowest rank's), "
+                f"{b['tokens_per_s']} tokens/s of the mesh, peak memory "
+                f"{b['peak_bytes']} B, state {b['state_bytes']} B (reckoned with the "
+                f"gradients {b['reckoned_bytes']} B), gradient all-reduce "
+                f"{b.get('grad_all_reduce_us')} us for {b.get('grad_bytes')} B of "
+                f"gradients, activation all-reduce {b.get('act_all_reduce_us')} us "
+                f"for {b.get('act_bytes')} B, fsdp collectives a step "
+                f"{b.get('fsdp_us_a_step')} us; losses {b['losses']} (worst relative "
+                f"against (1, 1): {rb}); peak while the loop is built "
+                f"{b['init_peak_bytes']} B (reckoned state without the gradients "
+                f"{b['init_reckoned_bytes']} B)")
+            if rl > MESH_LOSS_REL or rg > MESH_GNORM_REL:
+                raise AssertionError(f"phase {tag_a}: mesh {shape} rank {r['rank']}: losses "
+                                     f"{a['losses']} / grad norms {a['gnorms']} against "
+                                     f"{ref['losses']} / {ref['gnorms']}")
+            if a["launches"] != expected:
+                raise AssertionError(f"phase {tag_a}: mesh {shape} rank {r['rank']}: flash "
+                                     f"launches {a['launches']} != {expected}")
+            if not all(np.isfinite(b["losses"])) or rb > MESH_BF16_LOSS_REL:
+                raise AssertionError(f"phase {tag_b}: mesh {shape} rank {r['rank']}: bf16 "
+                                     f"losses {b['losses']} against (1, 1)'s {ref_b} "
+                                     f"(limit {MESH_BF16_LOSS_REL} relative)")
+        if res[0]["fsdp"]:
+            continue            # data ranks hold different slices
+        # a leaf no rank splits is the same bits on every rank; every leaf on
+        # every data rank of one model index
+        r0 = res[0]["a"]
+        for key, n in r0["sums"].items():
+            holders = [r for r in res if key not in r0["split"] or r["a"]["m"] == 0]
+            if any(r["a"]["sums"][key] != n for r in holders):
+                raise AssertionError(f"phase {tag_a}: mesh {shape}: leaf {key} differs "
+                                     f"across the ranks that hold it whole")
+        for r in res:
+            twin = res[r["a"]["m"]]["a"]["sums"]
+            if r["a"]["sums"] != twin:
+                raise AssertionError(f"phase {tag_a}: mesh {shape}: rank {r['rank']}'s "
+                                     f"leaves differ from data rank 0's")
+
+
 def phase_train_mesh(dev):
     """Phase 16: training on the (data, model) mesh (see the constants)."""
     import torch
@@ -3411,10 +3526,12 @@ def phase_train_mesh(dev):
         f"{MESH_LAYERS} layers ({cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), flash_cuda pinned, "
         f"meshes (1, 1) in this process and {MESH_SHAPES} as rank processes on "
-        f"cuda:0 over gloo; reckoned state a rank (params, m, v, master, grads): "
-        + ", ".join(f"{s}: f32 {mesh_state_bytes(cfg, s)} B, bf16 "
-                    f"{mesh_state_bytes(mesh_cfg('bfloat16'), s)} B"
-                    for s in ((1, 1),) + MESH_SHAPES))
+        f"cuda:0 over gloo, then {FSDP_SHAPES} with fsdp (16d); the dry run's "
+        f"reckoned state a rank (params, m, v, master, grads): "
+        + ", ".join(f"{s}{' fsdp' if f else ''}: f32 {mesh_state_bytes(cfg, s, fsdp=f)} B, "
+                    f"bf16 {mesh_state_bytes(mesh_cfg('bfloat16'), s, fsdp=f)} B"
+                    for s, f in [((1, 1), False), *((s, False) for s in MESH_SHAPES),
+                                 *((s, True) for s in FSDP_SHAPES)]))
     gc.collect()
     torch.cuda.empty_cache()
     runs = {(1, 1): [mesh_run(None, (1, 1))]}
@@ -3422,74 +3539,210 @@ def phase_train_mesh(dev):
         t0 = time.perf_counter()
         runs[shape] = spawn_ranks(mesh_run, ["cuda:0"] * (shape[0] * shape[1]), (shape,))
         say(f"  mesh {shape}: {shape[0] * shape[1]} ranks in {time.perf_counter() - t0} s")
+    fsdp_runs = {}
+    for shape in FSDP_SHAPES:
+        t0 = time.perf_counter()
+        fsdp_runs[shape] = spawn_ranks(mesh_run, ["cuda:0"] * (shape[0] * shape[1]),
+                                       (shape, True))
+        say(f"  mesh {shape}, fsdp: {shape[0] * shape[1]} ranks in "
+            f"{time.perf_counter() - t0} s")
     ref = runs[(1, 1)][0]["a"]
-    expected = 2 * MESH_LAYERS * MESH_F32[2]
     ref_b = runs[(1, 1)][0]["b"]["losses"]
     worst = {"loss": 0.0, "grad_norm": 0.0, "bf16_loss": 0.0}
     launches = {}
-    for shape, res in runs.items():
-        for r in res:
-            a, b = r["a"], r["b"]
-            rl = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref["losses"]))
-            rg = max(abs(x - y) / abs(y) for x, y in zip(a["gnorms"], ref["gnorms"]))
-            rb = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], ref_b))
-            worst["loss"], worst["grad_norm"] = max(worst["loss"], rl), max(worst["grad_norm"], rg)
-            worst["bf16_loss"] = max(worst["bf16_loss"], rb)
-            launches[f"16a {shape[0]}x{shape[1]} rank {r['rank']}"] = a["launches"]
-            say(f"  [16a] {shape} rank {r['rank']} (d, m) = ({a['d']}, {a['m']}): heads "
-                f"{a['heads']}, d_ff {a['d_ff']}; f32 losses {a['losses']}, grad norms "
-                f"{a['gnorms']} (worst relative against (1, 1): loss {rl}, grad norm "
-                f"{rg}); flash launches {a['launches']} (expected {expected})")
-            say(f"  [16b] {shape} rank {r['rank']}: bf16 {MESH_BF16[0]} x {MESH_BF16[1]} "
-                f"tokens, step seconds {b['step_s']} (the slowest rank's), "
-                f"{b['tokens_per_s']} tokens/s of the mesh, peak memory "
-                f"{b['peak_bytes']} B, state {b['state_bytes']} B (reckoned with the "
-                f"gradients {b['reckoned_bytes']} B), gradient all-reduce "
-                f"{b.get('grad_all_reduce_us')} us for {b.get('grad_bytes')} B of "
-                f"gradients, activation all-reduce {b.get('act_all_reduce_us')} us "
-                f"for {b.get('act_bytes')} B; losses {b['losses']} (worst relative "
-                f"against (1, 1): {rb}); peak while the loop is built "
-                f"{b['init_peak_bytes']} B (reckoned state without the gradients "
-                f"{b['init_reckoned_bytes']} B)")
-            if rl > MESH_LOSS_REL or rg > MESH_GNORM_REL:
-                raise AssertionError(f"phase 16a: mesh {shape} rank {r['rank']}: losses "
-                                     f"{a['losses']} / grad norms {a['gnorms']} against "
-                                     f"{ref['losses']} / {ref['gnorms']}")
-            if a["launches"] != expected:
-                raise AssertionError(f"phase 16a: mesh {shape} rank {r['rank']}: flash "
-                                     f"launches {a['launches']} != {expected}")
-            if not all(np.isfinite(b["losses"])) or rb > MESH_BF16_LOSS_REL:
-                raise AssertionError(f"phase 16b: mesh {shape} rank {r['rank']}: bf16 "
-                                     f"losses {b['losses']} against (1, 1)'s {ref_b} "
-                                     f"(limit {MESH_BF16_LOSS_REL} relative)")
-        # a leaf no rank splits is the same bits on every rank; every leaf on
-        # every data rank of one model index
-        r0 = res[0]["a"]
-        for key, n in r0["sums"].items():
-            holders = [r for r in res if key not in r0["split"] or r["a"]["m"] == 0]
-            if any(r["a"]["sums"][key] != n for r in holders):
-                raise AssertionError(f"phase 16a: mesh {shape}: leaf {key} differs "
-                                     f"across the ranks that hold it whole")
-        for r in res:
-            twin = res[r["a"]["m"]]["a"]["sums"]
-            if r["a"]["sums"] != twin:
-                raise AssertionError(f"phase 16a: mesh {shape}: rank {r['rank']}'s "
-                                     f"leaves differ from data rank 0's")
+    gate_mesh_runs(runs, ref, ref_b, "16a", "16b", worst, launches)
+    worst_d = {"loss": 0.0, "grad_norm": 0.0, "bf16_loss": 0.0}
+    gate_mesh_runs(fsdp_runs, ref, ref_b, "16d f32", "16d bf16", worst_d, launches)
     c = [r["c"] for r in runs[(2, 2)]]
     say(f"[16c] compressed_psum of {MESH_PSUM} f32 a rank over 4 ranks (gloo): CUDA "
         f"against CPU max abs err {[x['max_abs_err'] for x in c]} (one int8 step of "
-        f"the agreed scale {c[0]['step']}), {[x['us'] for x in c]} us on CUDA tensors, "
-        f"{[x['us_cpu'] for x in c]} us on CPU copies")
+        f"the agreed scale {c[0]['step']}; gates: 0, and within 4 steps), "
+        f"{[x['us'] for x in c]} us on CUDA tensors, {[x['us_cpu'] for x in c]} us "
+        f"on CPU copies")
     if max(x["max_abs_err"] for x in c) > 4 * c[0]["step"]:
         raise AssertionError(f"phase 16c: compressed_psum CUDA vs CPU: {c}")
+    if max(x["max_abs_err"] for x in c) != 0:
+        raise AssertionError(f"phase 16c: compressed_psum CUDA and CPU part: {c}")
     say(f"  phase 16a gates: worst relative loss {worst['loss']} (limit "
         f"{MESH_LOSS_REL}), grad norm {worst['grad_norm']} (limit {MESH_GNORM_REL}); "
-        f"16b: worst relative bf16 loss {worst['bf16_loss']} (limit {MESH_BF16_LOSS_REL})")
-    return dict(runs={f"{s[0]}x{s[1]}": [{k: v for k, v in r.items() if k != "a"} |
-                                           {"a": {k: v for k, v in r["a"].items()
-                                                  if k != "sums"}} for r in res]
-                      for s, res in runs.items()},
-                worst=worst, launches=launches)
+        f"16b: worst relative bf16 loss {worst['bf16_loss']} (limit {MESH_BF16_LOSS_REL}); "
+        f"16d: loss {worst_d['loss']}, grad norm {worst_d['grad_norm']}, bf16 loss "
+        f"{worst_d['bf16_loss']}")
+
+    def plain(res):
+        return [{k: v for k, v in r.items() if k != "a"} |
+                {"a": {k: v for k, v in r["a"].items() if k != "sums"}} for r in res]
+    return dict(runs={f"{s[0]}x{s[1]}": plain(res) for s, res in runs.items()},
+                fsdp_runs={f"{s[0]}x{s[1]}": plain(res) for s, res in fsdp_runs.items()},
+                worst=worst, worst_fsdp=worst_d, launches=launches)
+
+
+# -- phase 17: the dry run against the card ---------------------------------------------
+
+SWEEP_WORKERS = 8          # the card machine's host cores
+SWEEP_TIMEOUT_S = 300.0
+# one sweep worker: ``launch.dryrun``'s main on each of its cells in turn,
+# in one process (the first count's imports are paid once); exit 1 if a
+# cell failed
+SWEEP_WORKER = """
+import sys
+from repro_torch.launch import dryrun
+rc = 0
+for cell in sys.argv[2:]:
+    arch, shape = cell.split(":")
+    try:
+        dryrun.main(["--arch", arch, "--shape", shape, "--no-probes", "--out", sys.argv[1]])
+    except SystemExit:
+        rc = 1
+sys.exit(rc)
+"""
+
+
+class DryRunSweep:
+    """``launch.dryrun --no-probes`` at (16, 16) over the 40 cells, on the
+    host (meta tensors; no card), in ``SWEEP_WORKERS`` processes that each
+    take every ``SWEEP_WORKERS``-th cell, train cells first.  It is
+    started only after the last timed phase, so no reading shares the
+    host with it; :meth:`stop` ends whatever still runs."""
+
+    def __init__(self) -> None:
+        from repro_torch.configs import ARCHS, SHAPES
+        self.dir = tempfile.TemporaryDirectory(prefix="dryrun-")
+        self.cells = [(a, s.name) for s in SHAPES for a in ARCHS]
+        self.procs = []
+
+    def result(self, timeout: float = SWEEP_TIMEOUT_S) -> dict:
+        env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
+               "OMP_NUM_THREADS": "1"}
+        t0 = time.perf_counter()
+        for w in range(SWEEP_WORKERS):
+            log = Path(self.dir.name) / f"worker{w}.log"
+            with open(log, "w") as f:
+                proc = subprocess.Popen(
+                    [sys.executable, "-c", SWEEP_WORKER, str(Path(self.dir.name) / "cells"),
+                     *(f"{a}:{s}" for a, s in self.cells[w::SWEEP_WORKERS])],
+                    stdout=f, stderr=subprocess.STDOUT, env=env)
+            proc.log = log
+            self.procs.append(proc)
+        try:
+            rcs = [proc.wait(timeout=max(0.0, timeout - (time.perf_counter() - t0)))
+                   for proc in self.procs]
+        except subprocess.TimeoutExpired:
+            return dict(rc=None, counts=None, lines=[], wall_s=time.perf_counter() - t0,
+                        timed_out=f"{sum(p.poll() is None for p in self.procs)} of "
+                                  f"{SWEEP_WORKERS} workers running after {timeout} s")
+        lines = [x for proc in self.procs for x in proc.log.read_text().splitlines()]
+        counts = {"ok": 0, "skipped": 0, "error": 0}
+        for line in lines:
+            m = re.match(r"cells: (\d+) ok, (\d+) skipped, (\d+) error", line)
+            if m:
+                for k, n in zip(("ok", "skipped", "error"), map(int, m.groups())):
+                    counts[k] += n
+        if sum(counts.values()) != len(self.cells):
+            counts = None       # a worker that died before its cells' tallies
+        return dict(rc=max(rcs), counts=counts, lines=lines,
+                    wall_s=time.perf_counter() - t0)
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        self.procs = []
+        self.dir.cleanup()
+
+
+def phase_dry_run(train_mesh):
+    """Phase 17 (a)-(c): the dry run (meta device) of phase 16's model
+    against the card's readings."""
+    from repro_torch.launch import dryrun, roofline
+    cfg = mesh_cfg("bfloat16")
+    say("[17] the dry run against the card: phase 16's bf16 model, 2 x 4096 tokens")
+    out = {"meshes": {}}
+    # (a) a rank's build peak against the dry run's state bytes
+    for key, fsdp in (("runs", False), ("fsdp_runs", True)):
+        for name, res in train_mesh[key].items():
+            shape = tuple(int(x) for x in name.split("x"))
+            built = mesh_build(cfg, shape, fsdp)
+            state = sum(t.nbytes for t in torch_leaves(built.state))
+            args = sum(t.nbytes for t in torch_leaves(built.args))
+            peaks = [r["b"]["init_peak_bytes"] for r in res]
+            out["meshes"][f"{name}{' fsdp' if fsdp else ''}"] = dict(
+                state_bytes=state, arg_bytes=args, build_peaks=peaks)
+            say(f"  [17a] {shape}{' fsdp' if fsdp else ''}: dry run state a rank {state} B "
+                f"(arguments {args} B); build peaks {peaks} B (gate: within "
+                f"[{state - 4}, {state + MESH_BUILD_SLACK}])")
+            for p in peaks:
+                if not state - 4 <= p <= state + MESH_BUILD_SLACK:
+                    raise AssertionError(f"phase 17a: {shape} fsdp={fsdp}: build peak {p} "
+                                         f"B outside the dry run's {state} B + "
+                                         f"{MESH_BUILD_SLACK}")
+    # (b) the (1, 1) step's peak, seconds and roofline; the fsdp meshes'
+    # counted collectives beside the measured ones
+    counted = {}
+    for shape, fsdp in (((1, 1), False), *((s, True) for s in FSDP_SHAPES)):
+        c = dryrun.count(mesh_build(cfg, shape, fsdp))
+        counted[shape] = c
+    one = train_mesh["runs"]["1x1"][0]["b"]
+    c = counted[(1, 1)]
+    built = mesh_build(cfg, (1, 1), False)
+    state = sum(t.nbytes for t in torch_leaves(built.state))
+    grads = sum(t.nbytes for t in torch_leaves(built.args[0]))
+    rl = roofline.derive(roofline.Probe(c["flops"], c["bytes_accessed"],
+                                        float(c["collectives"]["total"])),
+                         model_flops_per_device=6.0 * cfg.param_count()
+                         * MESH_BF16[0] * MESH_BF16[1])
+    rl.memory_floor_s = (sum(t.nbytes for t in torch_leaves(built.args)) + c["saved"]) \
+        / roofline.HBM_BW
+    measured_s = float(np.median(one["step_s"]))
+    out["one"] = dict(step_peak_bytes=one["peak_bytes"], state_bytes=state,
+                      grad_bytes=grads, saved_bytes=c["saved"], flops=c["flops"],
+                      bytes_accessed=c["bytes_accessed"], roofline=rl.as_dict(),
+                      measured_step_s=measured_s, share=rl.step_s / measured_s,
+                      floor_share=max(rl.compute_s, rl.memory_floor_s) / measured_s)
+    say(f"  [17b] (1, 1): step peak {one['peak_bytes']} B measured, against the dry "
+        f"run's state {state} B + gradients {grads} B + saved for backward "
+        f"{c['saved']} B = {state + grads + c['saved']} B; step {measured_s} s "
+        f"measured, roofline step_s {rl.step_s} s ({rl.dominant}; compute "
+        f"{rl.compute_s} s for {c['flops']} FLOPs, memory {rl.memory_s} s for "
+        f"{c['bytes_accessed']} B accessed, touch-once floor {rl.memory_floor_s} s): "
+        f"share {rl.step_s / measured_s}, against the floor "
+        f"{out['one']['floor_share']}")
+    for shape in FSDP_SHAPES:
+        coll = counted[shape]["collectives"]
+        us = train_mesh["fsdp_runs"][f"{shape[0]}x{shape[1]}"][0]["b"]["fsdp_us_a_step"]
+        say(f"  [17c] {shape} fsdp: counted a step {coll} B; measured rank 0 "
+            f"all-gather {us['all-gather']} us, reduce-scatter {us['reduce-scatter']} us "
+            f"a step ({coll['all-gather'] / max(us['all-gather'], 1e-9)} B/us, "
+            f"{coll['reduce-scatter'] / max(us['reduce-scatter'], 1e-9)} B/us)")
+        out[f"collectives {shape}"] = dict(counted=coll, measured_us=us)
+    return out
+
+
+def phase_dry_run_sweep():
+    """Phase 17d: the 40-cell sweep at (16, 16), after every timed phase."""
+    sweep = DryRunSweep()
+    try:
+        res = sweep.result()
+    finally:
+        sweep.stop()
+    say(f"  [17d] dry run --no-probes at (16, 16), the 40 cells in {SWEEP_WORKERS} "
+        f"worker processes after the last timed phase: {res['counts']} in {res['wall_s']} s, "
+        f"worst exit {res['rc']}")
+    for line in res["lines"]:
+        if line.startswith("[FAIL]") or line.startswith("[ok]"):
+            say(f"    {line}")
+    if res.get("timed_out"):
+        raise AssertionError(f"phase 17d: dry-run sweep: {res['timed_out']}")
+    if res["rc"] != 0 or not res["counts"] or res["counts"]["error"]:
+        raise AssertionError(f"phase 17d: dry-run sweep: {res['counts']}, exit "
+                             f"{res['rc']}: " + "\n".join(res["lines"][-20:]))
+    return {k: v for k, v in res.items() if k != "lines"}
+
+
+def torch_leaves(tree):
+    import torch
+    return [t for t in torch.utils._pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 # -- the paper path -----------------------------------------------------------------
@@ -4328,6 +4581,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    return run_phases(args, dev, t_start)
+
+
+def run_phases(args, dev, t_start) -> int:
+    import torch
 
     from repro_torch.configs import get_config
     smi = phase_environment()
@@ -4381,6 +4639,7 @@ def main(argv=None) -> int:
     by_path["flash_attention"] = {"7 training": train["launches"]}
     train_mesh = phase_train_mesh(dev)
     by_path["flash_attention"].update(train_mesh["launches"])
+    dry_run = phase_dry_run(train_mesh)
     paper_errors = phase_paper_kernel_checks(dev)
     paper_times = phase_paper_kernel_times(dev)
     paper = phase_paper_path(dev)
@@ -4390,6 +4649,7 @@ def main(argv=None) -> int:
     # the paper path runs f32: its kernels' line holds their f32 errors
     # (bf16 errors are printed in phase 9 and kept in the report)
     errors.update({name: e["float32"] for name, e in paper_errors.items()})
+    dry_run["sweep"] = phase_dry_run_sweep()
 
     kernels = []
     for name in ("paged_decode_attention", "paged_prefill_attention",
@@ -4413,7 +4673,7 @@ def main(argv=None) -> int:
                  faults=faults, replicas=replicas, head_sharding=shard,
                  full_width_logits=logits, traces=traces, moe=moe,
                  families=families, train=train,
-                 train_parity=train_parity, train_mesh=train_mesh,
+                 train_parity=train_parity, train_mesh=train_mesh, dry_run=dry_run,
                  paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1, default=str))

@@ -123,15 +123,15 @@ def restore(
     *,
     step: Optional[int] = None,
     cut: Optional[Callable[[str, Tuple[int, ...]],
-                           Optional[Tuple[int, int, int]]]] = None,
+                           List[Tuple[int, int, int]]]] = None,
 ) -> Tuple[Any, Dict, int]:
     """Restore into the tensors of ``like`` (a tree of tensors), in place.
 
     Every leaf of ``like`` must be in the checkpoint with its shape and
     dtype; all of them are checked before any is written.  ``cut(key,
-    stored shape)``, where given, is the (dim, start, size) slice of a
-    stored leaf that ``like`` holds, or None for all of it (a rank of a
-    model-parallel mesh restores its shard of the whole tree).  Returns
+    stored shape)``, where given, lists the (dim, start, size) cuts, applied
+    in turn, of the slice of a stored leaf that ``like`` holds, none for
+    all of it (a rank of a mesh restores its shard of the whole tree).  Returns
     (like, extra, step).
     """
     if step is None:
@@ -152,9 +152,8 @@ def restore(
         if item is None:
             raise KeyError(f"checkpoint missing leaf {key}")
         shape = tuple(item["shape"])
-        cuts[key] = cut(key, shape) if cut is not None else None
-        if cuts[key] is not None:
-            dim, _, size = cuts[key]
+        cuts[key] = list(cut(key, shape)) if cut is not None else []
+        for dim, _, size in cuts[key]:
             shape = shape[:dim] + (size,) + shape[dim + 1:]
         if shape != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {shape} "
@@ -165,5 +164,7 @@ def restore(
     with torch.no_grad():
         for key, leaf in flat:
             t = _load(os.path.join(d, by_key[key]["file"]), by_key[key])
-            leaf.copy_(t if cuts[key] is None else t.narrow(*cuts[key]))
+            for c in cuts[key]:
+                t = t.narrow(*c)
+            leaf.copy_(t)
     return like, extra, step

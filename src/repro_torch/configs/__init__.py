@@ -7,7 +7,7 @@ counterpart.
 
 from __future__ import annotations
 
-from .base import ModelConfig
+from .base import SHAPES, SHAPES_BY_NAME, ModelConfig, ShapeConfig, shape_applicable
 from .chameleon_34b import CONFIG as chameleon_34b
 from .h2o_danube_3_4b import CONFIG as h2o_danube_3_4b
 from .moonshot_v1_16b_a3b import CONFIG as moonshot_v1_16b_a3b
@@ -30,4 +30,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "get_config", "ModelConfig"]
+__all__ = ["ARCHS", "get_config", "ModelConfig", "ShapeConfig", "SHAPES",
+           "SHAPES_BY_NAME", "shape_applicable"]

@@ -6,13 +6,15 @@ assembly, as in the reference: dense, moe and vlm (the transformer), ssm
 (the RWKV6 stack), hybrid (Mamba2 + one shared attention block) and encdec
 (whisper-style, frontend stubbed).  ``reduced()`` derives the
 family-preserving smoke config (small width/depth/vocab/experts) the CPU
-parity tests run.
+parity tests run.  :class:`ShapeConfig`, :data:`SHAPES` and
+:func:`shape_applicable` are the dry run's input-shape cells, copied from
+the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +123,36 @@ class ModelConfig:
             attn_every=2,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: what step to lower and at what size."""
+
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    num_microbatches: int = 1
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256, num_microbatches=16),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32, num_microbatches=1),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable, reason-if-not): full quadratic attention skips the
+    524288-token decode."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "full quadratic attention at 524288 ctx (skip per brief)"
+    return True, ""

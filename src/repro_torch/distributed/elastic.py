@@ -5,8 +5,8 @@ sees devices lost calls :func:`best_mesh` for the largest usable
 ``(data, model)`` grid over the survivors, re-spawns one process a rank on
 it (:func:`repro_torch.runtime.fault.respawn_elastic`), and each rank
 restores the last checkpoint, which is the whole tree whatever mesh wrote
-it, keeping its own shard (:func:`reshard`; ``TrainLoop.restore`` does
-the same leaf by leaf from the files).
+it, keeping its own shard leaf by leaf from the files
+(``TrainLoop.restore`` through ``MeshShard.cuts``).
 """
 
 from __future__ import annotations
@@ -15,10 +15,6 @@ import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
-
-from repro_torch.configs.base import ModelConfig
-
-from . import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +50,6 @@ def best_mesh(devices: Optional[Sequence[Any]] = None, *,
     mp = _model_axis(n, model_parallel)
     dp = n // mp
     return Mesh(tuple(devices[:dp * mp]), (dp, mp))
-
-
-def reshard(cfg: ModelConfig, tree: Any, mesh: Mesh, rank: int) -> Any:
-    """Rank ``rank``'s shard of a whole params-shaped tree on ``mesh``
-    (replicated over the data axis)."""
-    return sharding.shard_params(cfg, tree, mesh.shape[1], rank % mesh.shape[1])[0]
 
 
 def shrink_plan(old_n: int, new_n: int, model_parallel: int) -> str:

@@ -26,7 +26,15 @@ once, as the whole product is on one device.
 * :class:`MeshGroups` — a rank's place on a
   ``(dp, mp)`` training grid: rank ``r`` is at ``(d, m) = divmod(r, mp)``,
   the reference's ``reshape(dp, mp)`` order, with a data subgroup (the
-  ranks of its ``m``) and a model subgroup (the ranks of its ``d``).
+  ranks of its ``m``) and a model subgroup (the ranks of its ``d``);
+* :func:`gather_leaf` / :func:`gather_params` — fsdp: a leaf cut over the
+  data group is all-gathered where the model reads it, one layer at a
+  time (inside the recomputed function under remat, so the whole weight
+  is not saved for backward and the recomputation gathers again, as XLA
+  does inside the scan body); its backward reduce-scatters the f32
+  gradient and divides by ``dp``, rounding once to the leaf's type: the
+  data mean of that slice, the numbers of ``MeshGroups.data_mean_`` on a
+  replicated leaf.
 
 Training differentiates through the sums.  Megatron's pair of
 collectives does it: :func:`enter_split` at each column-parallel input
@@ -54,7 +62,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -78,6 +86,21 @@ class ShardGroup:
         rank), in place; returns ``x``."""
         dist.all_reduce(x, group=group)
         return x
+
+    def all_gather_(self, parts: List[torch.Tensor], x: torch.Tensor,
+                    group: Any = None) -> List[torch.Tensor]:
+        """Every rank's ``x`` of ``group`` into ``parts`` (by rank in the
+        group); returns ``parts``."""
+        dist.all_gather(parts, x, group=group)
+        return parts
+
+    def reduce_scatter_(self, out: torch.Tensor, parts: List[torch.Tensor],
+                        group: Any = None) -> torch.Tensor:
+        """``out`` = the sum over the ranks of ``group`` of their
+        ``parts[i]``, ``i`` this rank's index in the group; returns
+        ``out``."""
+        dist.reduce_scatter(out, parts, group=group)
+        return out
 
     def agree(self, obj: Any) -> Any:
         """Rank 0's ``obj`` on every rank (what every other rank passes is
@@ -128,17 +151,20 @@ class MeshGroups:
     gradients are averaged), ``model`` the one at this ``d`` (over which a
     split layer's partial sums are completed); both are None where the
     axis has one rank, so no collective runs over it.  Every rank builds
-    every subgroup, in the same order (``dist.new_group`` is collective)."""
+    every subgroup, in the same order (``dist.new_group`` is collective;
+    ``new_group`` stands in for it where no process group exists, as in
+    the dry run's counting group)."""
 
-    def __init__(self, group: ShardGroup, dp: int, mp: int) -> None:
+    def __init__(self, group: ShardGroup, dp: int, mp: int, *,
+                 new_group: Callable[[List[int]], Any] = dist.new_group) -> None:
         if group.world != dp * mp:
             raise ValueError(f"a ({dp}, {mp}) mesh needs {dp * mp} ranks, "
                              f"the group has {group.world}")
         self.group, self.dp, self.mp = group, dp, mp
         self.d, self.m = divmod(group.rank, mp)
-        data = [dist.new_group([d * mp + m for d in range(dp)]) if dp > 1 else None
+        data = [new_group([d * mp + m for d in range(dp)]) if dp > 1 else None
                 for m in range(mp)]
-        model = [dist.new_group([d * mp + m for m in range(mp)]) if mp > 1 else None
+        model = [new_group([d * mp + m for m in range(mp)]) if mp > 1 else None
                  for d in range(dp)]
         self.data, self.model = data[self.m], model[self.d]
 
@@ -146,6 +172,12 @@ class MeshGroups:
         """The mean of ``x`` (f32) over the data group, in place."""
         if self.dp > 1:
             self.group.all_reduce_(x, group=self.data).div_(self.dp)
+        return x
+
+    def data_sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the data group, in place."""
+        if self.dp > 1:
+            self.group.all_reduce_(x, group=self.data)
         return x
 
     def model_sum_(self, x: torch.Tensor) -> torch.Tensor:
@@ -162,11 +194,17 @@ class ShardScope:
     """What the model needs of a rank's split: its process group, the plan,
     the model subgroup its partial sums run over (None: every rank of
     ``group``, as on a serve engine) and its index ``m`` in that subgroup
-    (None: ``group.rank``)."""
+    (None: ``group.rank``); under fsdp the data subgroup of ``dp`` ranks
+    and ``fsdp``, the dim (counted from the end) over which each leaf cut
+    over it is gathered, by key string (``"['embed']"``,
+    ``"['layers']['attn_wq']"``; a layer's leaf shares its stack's key)."""
     group: ShardGroup
     plan: ShardPlan
     model: Any = None
     m: Optional[int] = None
+    data: Any = None
+    dp: int = 1
+    fsdp: Optional[Mapping[str, int]] = None
 
     @property
     def index(self) -> int:
@@ -213,6 +251,48 @@ def splits(block: str) -> bool:
     projection or the ``"ffn"`` (dense or MoE) down projection."""
     scope = _SCOPE.get()
     return scope is not None and bool(getattr(scope.plan, block))
+
+
+class _GatherData(torch.autograd.Function):
+    """fsdp: every data rank's slice of a leaf gathered along ``dim``
+    forward; backward, the gradient's f32 partials reduce-scattered back
+    to the slices and divided by ``dp`` (rounded once to the leaf's
+    type)."""
+
+    @staticmethod
+    def forward(ctx, x, scope, dim):
+        ctx.scope, ctx.dim = scope, dim
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(scope.dp)]
+        return torch.cat(scope.group.all_gather_(parts, x, group=scope.data), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        scope = ctx.scope
+        parts = [p.contiguous() for p in g.float().chunk(scope.dp, ctx.dim)]
+        out = torch.empty_like(parts[0])
+        scope.group.reduce_scatter_(out, parts, group=scope.data)
+        return out.div_(scope.dp).to(g.dtype), None, None
+
+
+def gather_leaf(x: torch.Tensor, key: str) -> torch.Tensor:
+    """The rank's model shard of the leaf at ``key`` from the data group's
+    slices, where the active scope cuts it over ``data`` (fsdp); else
+    ``x`` itself."""
+    scope = _SCOPE.get()
+    dim = scope.fsdp.get(key) if scope is not None and scope.fsdp else None
+    if dim is None:
+        return x
+    return _GatherData.apply(x, scope, dim)
+
+
+def gather_params(p: Dict[str, torch.Tensor], stack: str) -> Dict[str, torch.Tensor]:
+    """``gather_leaf`` of each leaf of one layer's dict ``p`` of the stack
+    at key ``stack`` (``"['layers']"``)."""
+    scope = _SCOPE.get()
+    if scope is None or not scope.fsdp:
+        return p
+    return {k: gather_leaf(v, f"{stack}[{k!r}]") for k, v in p.items()}
 
 
 class _SumForward(torch.autograd.Function):

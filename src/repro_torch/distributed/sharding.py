@@ -35,18 +35,29 @@ the port applies, in the reference's form, for the tests to hold against
 its ``param_specs`` and ``serve_kv_spec``.
 
 Training on a ``(data, model)`` mesh uses the same split over the model
-axis and replicates over the data axis (the rules also split weights and
-optimizer state over ``data``: same numbers, ``dp`` times the memory).
+axis.  Over the data axis each leaf is either replicated (``fsdp`` off) or
+cut as the reference's rule table cuts it (``fsdp`` on, the layout the
+reference's launcher always trains with): :data:`RULES` is the table's
+copy, of which the port reads only the dim the first divisible candidate
+gives ``"fsdp"`` (:func:`fsdp_dim`), on the whole leaf at ``(dp, mp)``.
+:func:`fsdp_slice` cuts that dim of the rank's model shard; a leaf whose
+dim does not divide there, or whose fsdp dim is the port's model-split
+dim, stays replicated over ``data`` (the rules' fallback).  Where the
+port's model split departs from the rules (``embed`` and ``lm_head``
+replicated over ``model``), the fsdp dim is still the rules' (``embed``'s
+``d_model``, as in ``("tp", "fsdp")``).
 :func:`grad_layout` says how each leaf's gradient is completed on a rank:
 a split leaf's slice is whole, except a KV slice several ranks hold
 (:data:`KV_GROUP`), whose partials are summed over those ranks; a
 replicated leaf is whole, except ``q_norm``/``k_norm`` over split heads
 and the MoE ``router`` over split experts or columns, whose partials are
-summed over the model group.  :func:`unshard_leaf` puts a leaf back
-together for a checkpoint, which is the whole tree whatever the mesh.
+summed over the model group; a leaf cut over ``data`` arrives averaged
+over the data group by its gather's backward.  :func:`unshard_leaf` puts a leaf's model parts back together for a
+checkpoint (its data slices join on the data cut's dim), which is the
+whole tree whatever the mesh.
 Families other than dense, moe and vlm keep :func:`shard_plan`'s
 ``ValueError`` at ``mp > 1`` (the recurrent families' heads are not
-split) and train at any ``dp``.
+split) and train at any ``dp``, with or without fsdp.
 """
 
 from __future__ import annotations
@@ -116,8 +127,9 @@ class ShardPlan:
 
 
 def shard_plan(cfg: ModelConfig, mp: int) -> ShardPlan:
-    """The port's split of ``cfg`` over ``mp`` ranks (module docstring)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
+    """The port's split of ``cfg`` over ``mp`` ranks (module docstring); at
+    ``mp = 1`` nothing splits, whatever the family."""
+    if mp > 1 and cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"head sharding serves the transformer families; "
                          f"{cfg.name} is {cfg.family!r}")
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
@@ -246,11 +258,8 @@ def shard_params(cfg: ModelConfig, params: Any, mp: int, rank: int
     plan = shard_plan(cfg, mp)
     if not plan.splits:
         return params, cfg
-    values = {}
-    for path, t in _walk(params):
-        cut = leaf_slice(cfg, plan, rank, path, tuple(t.shape))
-        values[path] = t if cut is None else t.narrow(*cut).contiguous()
-    return _unflatten(params, values), shard_config(cfg, mp)
+    return (map_leaves(params, lambda path, t: cut_leaf(t, rank_cuts(
+        cfg, plan, rank, 0, 1, path, tuple(t.shape)))), shard_config(cfg, mp))
 
 
 def map_leaves(tree: Any, fn) -> Any:
@@ -305,20 +314,26 @@ class GradLeaf:
     over those ranks.  ``counted``: whether this rank adds the leaf's
     squares to the model group's sum (a split leaf's slice, once per
     holder group) rather than to its own (a replicated leaf, counted
-    once)."""
+    once).  ``data``: the (dim, start, size) of the rank's model shard that
+    it holds under fsdp (None: the whole shard); its gradient arrives
+    averaged over the data group and its squares are summed over it."""
     whole: Tuple[int, ...]
     cut: Optional[Tuple[int, int, int]]
     partial: Optional[str]
     counted: bool
+    data: Optional[Tuple[int, int, int]] = None
 
 
-def grad_layout(cfg: ModelConfig, mp: int, rank: int, tree: Any) -> Any:
+def grad_layout(cfg: ModelConfig, mp: int, rank: int, tree: Any, *,
+                dp: int = 1, d: int = 0) -> Any:
     """A :class:`GradLeaf` for each leaf of the whole ``tree`` (params or
-    their shapes), for rank ``rank`` of ``mp``, in ``tree``'s nesting."""
+    their shapes), for model rank ``rank`` of ``mp`` and, with ``dp > 1``
+    (fsdp on), data rank ``d`` of ``dp``, in ``tree``'s nesting."""
     plan = shard_plan(cfg, mp)
     values = {}
     for path, leaf in _walk(tree):
         shape = _shape(leaf)
+        data = fsdp_slice(cfg, plan, d, dp, path, shape)
         name = _layer_leaf(path)
         cut = leaf_slice(cfg, plan, rank, path, shape) if plan.splits else None
         partial, counted = None, cut is not None
@@ -329,5 +344,117 @@ def grad_layout(cfg: ModelConfig, mp: int, rank: int, tree: Any) -> Any:
         elif cut is None and ((plan.attn and name in ("attn_q_norm", "attn_k_norm"))
                               or (plan.moe and name == "moe_router")):
             partial = "model"
-        values[path] = GradLeaf(whole=shape, cut=cut, partial=partial, counted=counted)
+        values[path] = GradLeaf(whole=shape, cut=cut, partial=partial, counted=counted,
+                                data=data)
     return _unflatten(tree, values)
+
+
+# -- the data axis (fsdp) ---------------------------------------------------------------
+
+# The reference's rule table (``repro.distributed.sharding.RULES``): (regex
+# on the leaf's key string, candidate spec tails in preference order); a
+# candidate wins when each named dim divides by its mesh axis (``tp`` the
+# model axis, ``fsdp`` the data axis).  Tails address the trailing dims.
+RULES: List[Tuple[str, List[Tuple]]] = [
+    (r"embed",            [("tp", "fsdp"), ("fsdp", "tp"), (None, "tp"), (None, None)]),
+    (r"lm_head",          [("fsdp", "tp"), ("tp", "fsdp"), ("tp", None), (None, None)]),
+    (r"attn_w[qkv]\b|xattn_w[qkv]\b", [("fsdp", "tp"), (None, "tp"), (None, None)]),
+    (r"attn_wo\b|xattn_wo\b",         [("tp", "fsdp"), ("tp", None), (None, None)]),
+    (r"attn_b[qkv]\b|xattn_b[qkv]\b", [("tp",), (None,)]),
+    (r"q_norm|k_norm",    [(None,)]),
+    (r"ffn_w_gate|ffn_w_up|mlp_w_in|shared_w_gate|shared_w_up",
+                          [("fsdp", "tp"), (None, "tp"), (None, None)]),
+    (r"ffn_w_down|mlp_w_out|shared_w_down",
+                          [("tp", "fsdp"), ("tp", None), (None, None)]),
+    (r"mlp_b_in",         [("tp",), (None,)]),
+    (r"mlp_b_out",        [(None,)]),
+    (r"moe_router",       [("fsdp", None), (None, None)]),
+    (r"experts_gate|experts_up",
+                          [("tp", "fsdp", None), (None, "tp", None), (None, "fsdp", None),
+                           (None, None, None)]),
+    (r"experts_down",     [("tp", None, "fsdp"), (None, None, "tp"), (None, "fsdp", None),
+                           (None, None, None)]),
+    (r"m_in_proj",        [("fsdp", "tp"), (None, "tp"), (None, None)]),
+    (r"m_out_proj",       [("tp", "fsdp"), ("tp", None), (None, None)]),
+    (r"m_conv_w",         [(None, "tp"), (None, None)]),
+    (r"m_conv_b",         [("tp",), (None,)]),
+    (r"m_A_log|m_D|m_dt_bias", [("tp",), (None,)]),
+    (r"m_norm",           [("tp",), (None,)]),
+    (r"\bwr\b|\bwk\b|\bwv\b|\bwg\b|\bcr\b|\bck\b",
+                          [("fsdp", "tp"), (None, "tp"), (None, None)]),
+    (r"\bwo\b|\bcv\b",    [("tp", "fsdp"), ("tp", None), (None, None)]),
+    (r"w_lora_a",         [("fsdp", None), (None, None)]),
+    (r"w_lora_b",         [(None, "tp"), (None, None)]),
+    (r"mix_|cmix_|w_base|\bu\b|ln_x", [("tp",), (None,)]),
+    (r"ln1|ln2|ln_x|final_norm|enc_norm|dec_norm|m_ln", [(None,)]),
+]
+
+
+def _tail_ok(tail: Tuple, shape: Tuple[int, ...], sizes: Dict[str, int]) -> bool:
+    offset = len(shape) - len(tail)
+    if offset < 0:
+        return False
+    return all(t is None or shape[offset + i] % sizes[t] == 0
+               for i, t in enumerate(tail))
+
+
+def fsdp_dim(path: str, shape: Tuple[int, ...], dp: int, mp: int) -> Optional[int]:
+    """The dim (counted from the end) that the rules' first divisible
+    candidate gives ``"fsdp"`` for the whole leaf of ``shape`` at ``path`` on
+    a ``(dp, mp)`` mesh, or None (no candidate names it, or ``dp = 1``)."""
+    if dp == 1:
+        return None
+    sizes = {"fsdp": dp, "tp": mp}
+    for pattern, candidates in RULES:
+        if re.search(pattern, path):
+            for tail in candidates:
+                if _tail_ok(tail, shape, sizes):
+                    return tail.index("fsdp") - len(tail) if "fsdp" in tail else None
+            return None
+    return None
+
+
+def fsdp_slice(cfg: ModelConfig, plan: ShardPlan, d: int, dp: int, path: str,
+               shape: Tuple[int, ...]) -> Optional[Tuple[int, int, int]]:
+    """(dim, start, size) of data rank ``d``'s slice of the rank's model
+    shard of the whole leaf of ``shape`` at ``path`` (module docstring), or
+    None where every data rank holds the shard whole."""
+    ax = fsdp_dim(path, shape, dp, plan.mp)
+    if ax is None:
+        return None
+    dim = len(shape) + ax
+    local = list(shape)
+    cut = leaf_slice(cfg, plan, 0, path, shape) if plan.splits else None
+    if cut is not None:
+        if cut[0] == dim:
+            return None
+        local[cut[0]] = cut[2]
+    if local[dim] % dp:
+        return None
+    size = local[dim] // dp
+    return dim, d * size, size
+
+
+def rank_cuts(cfg: ModelConfig, plan: ShardPlan, m: int, d: int, dp: int, path: str,
+              shape: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
+    """The cuts that make rank ``(d, m)``'s slice of the whole leaf of
+    ``shape`` at ``path``, in order: the model cut on the whole leaf, then
+    the data cut on the model shard (each where it applies)."""
+    cuts = []
+    cut = leaf_slice(cfg, plan, m, path, shape) if plan.splits else None
+    if cut is not None:
+        cuts.append(cut)
+    data = fsdp_slice(cfg, plan, d, dp, path, shape)
+    if data is not None:
+        cuts.append(data)
+    return cuts
+
+
+def cut_leaf(t: torch.Tensor, cuts: List[Tuple[int, int, int]]) -> torch.Tensor:
+    """``t`` narrowed by each cut in turn, copied where cut: a slice of the
+    leading rows is a contiguous view, which ``contiguous()`` would return
+    as it is, keeping the whole leaf's storage alive (``lm_head``'s rows
+    under fsdp)."""
+    for cut in cuts:
+        t = t.narrow(*cut)
+    return t.clone(memory_format=torch.contiguous_format) if cuts else t

@@ -16,7 +16,8 @@ output; the scale stays the one of the real head dim, and zero dims add
 nothing to a score.  On a CUDA tensor it checks its arguments, launches
 the kernel on the current stream and counts the launch in its
 ``launches`` attribute — or raises; there is no fallback.  On a CPU
-tensor it runs the same padding around the plain version,
+tensor (and on the dry run's meta tensors, :data:`.ref.PLAIN_DEVICES`)
+it runs the same padding around the plain version,
 :func:`.ref.attention_ref` (the CPU tests' path), and counts nothing.
 """
 
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
+from .ref import PLAIN_DEVICES
 
 # tile sizes of csrc/flash_attention.cu per dtype (repro_flash_block_q/_k):
 # the padded S and T are multiples of them; the kernel refuses other shapes
@@ -97,7 +99,7 @@ def flash_attention_cuda(
     sp, tp = _round_up(S, BLOCK_Q[q.dtype]), _round_up(T, BLOCK_K[q.dtype])
     dp = _round_up(D, DIM_MULTIPLE[q.dtype])
     qp, kp, vp = _pad(q, sp, dp), _pad(k, tp, dp), _pad(v, tp, dp)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         out = ref.attention_ref(qp, kp, vp, causal=causal, window=window,
                                 scale=scale, t_valid=T, q_offset=T - S)
         return out[:, :, :S, :D]

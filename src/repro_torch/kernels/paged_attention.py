@@ -10,8 +10,9 @@ note on what bounds them, are in ``csrc/paged_attention.cu``.
 On a CUDA tensor a wrapper checks its arguments, allocates the output,
 launches the kernel on the current stream and counts the launch in its
 ``launches`` attribute — or raises; there is no fallback.  On a CPU tensor
-it returns the plain version from :mod:`.ref` (the CPU tests' path) and
-counts nothing.
+(and on the dry run's meta tensors, :data:`.ref.PLAIN_DEVICES`) it returns
+the plain version from :mod:`.ref` (the CPU tests' path) and counts
+nothing.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
+from .ref import PLAIN_DEVICES
 
 # largest dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SMEM = 232448
@@ -159,7 +161,7 @@ def paged_attention_cuda(
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     device = _device("lengths", q, k_pool, v_pool, block_tables, lengths)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
                                        window=window, scale=scale,
                                        read_dtype=read_dtype)
@@ -241,7 +243,7 @@ def paged_prefill_attention_cuda(
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     device = _device("base", q, k_pool, v_pool, block_tables, base)
-    if device.type == "cpu":
+    if device.type in PLAIN_DEVICES:
         return ref.paged_prefill_attention_ref(
             q, k_pool, v_pool, block_tables, base, chunk_len=chunk_len,
             window=window, scale=scale)

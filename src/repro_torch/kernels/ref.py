@@ -17,6 +17,11 @@ from typing import Iterator, Optional
 import torch
 import torch.nn.functional as F
 
+# the devices on which a kernel wrapper runs its plain version: the CPU
+# (the CPU tests) and the meta device (the dry run, which allocates and
+# launches nothing); a CUDA tensor launches the kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 @contextlib.contextmanager
 def full_f32() -> Iterator[None]:

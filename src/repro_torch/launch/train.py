@@ -13,9 +13,12 @@ config is trained on the production mesh (``launch.mesh``: the
 on a grid of DP*MP ranks, one process each (``spawn_ranks``), on the
 devices ``--device`` names: a comma list of DP*MP devices, or ``cpu``
 (every rank on the CPU) or ``cuda`` (rank r on ``cuda:{r % cards}``:
-ranks may share a card, over gloo).  Every rank draws the parameters
-from ``--seed``, keeping its slice of each leaf as it is drawn; rank 0's
-lines are printed.  ``--resume`` restores the checkpoint whatever mesh wrote it.
+ranks may share a card, over gloo).  As the reference's launcher
+(``param_shardings(..., fsdp=True)``), a mesh shards the parameters and
+the optimizer state over ``data`` as well as ``model`` (fsdp, gathered a
+layer at a time; the report line says ``[mesh 2x1, fsdp]``).  Every rank
+draws the parameters from ``--seed``, keeping its slice of each leaf as
+it is drawn; rank 0's lines are printed.  ``--resume`` restores the checkpoint whatever mesh wrote it.
 The VPE trials the family's implementation axes (``attn_impl``:
 ``reference``, ``flash_cuda``; ``ssd_impl`` or ``wkv_impl``:
 ``chunked``, ``sequential``) inside the loop unless ``--no-vpe``; its
@@ -121,12 +124,15 @@ def _train(group, args, cfg, shape: Tuple[int, int],
         log_every=max(args.steps // 20, 1) if group is None or group.rank == 0 else 0,
     )
     mesh = MeshGroups(group, *shape) if group is not None else None
-    loop = TrainLoop(cfg, loop_cfg, data, seed=args.seed, device=device, mesh=mesh)
+    loop = TrainLoop(cfg, loop_cfg, data, seed=args.seed, device=device, mesh=mesh,
+                     fsdp=True)
     lines = []
     if args.resume and loop.restore():
         lines.append(f"resumed from step {loop.step}")
     metrics = loop.run()
-    note = f" [mesh {shape[0]}x{shape[1]}]" if group is not None else ""
+    note = ""
+    if group is not None:
+        note = f" [mesh {shape[0]}x{shape[1]}{', fsdp' if loop.mesh.fsdp else ''}]"
     lines.append(f"done: {loop.step} steps{note}; "
                  f"loss {metrics[0]['loss']:.4f} -> {metrics[-1]['loss']:.4f}")
     lines.append(loop.vpe.report())

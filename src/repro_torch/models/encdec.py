@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.group import gather_params
 
 from . import kvcache, layers
 from .layers import AttnSpec, Params
@@ -111,6 +112,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def _enc_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                positions: torch.Tensor, impl: str) -> torch.Tensor:
+    lp = gather_params(lp, "['encoder']")
     h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
     x = x + layers.attn_block(_sub(lp, "attn_"), attn_spec(cfg), h, positions,
                               causal=False, attn_impl=impl)
@@ -131,13 +133,14 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     x = frames
     for lp in layers.unstack_layers(params["encoder"], cfg.encoder_layers):
         x = layers.remat(cfg, _enc_layer, cfg, lp, x, positions, impl)
-    return layers.rmsnorm(x, params["enc_norm"], cfg.rms_eps)
+    return layers.rmsnorm(x, layers.leaf(params, "enc_norm"), cfg.rms_eps)
 
 
 def _dec_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
                positions: torch.Tensor, enc_positions: torch.Tensor,
                impl: str) -> torch.Tensor:
     s = attn_spec(cfg)
+    lp = gather_params(lp, "['decoder']")
     h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
     x = x + layers.attn_block(_sub(lp, "attn_"), s, h, positions, causal=True,
                               attn_impl=impl)
@@ -159,12 +162,12 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     enc_positions = torch.arange(enc_out.shape[1], device=tokens.device)
     impl = attn_impl or cfg.attn_impl
-    x = F.embedding(tokens.long(), params["embed"])
+    x = F.embedding(tokens.long(), layers.leaf(params, "embed"))
     for lp in layers.unstack_layers(params["decoder"], cfg.decoder_layers):
         x = layers.remat(cfg, _dec_layer, cfg, lp, x, enc_out, positions,
                          enc_positions, impl)
-    x = layers.rmsnorm(x, params["dec_norm"], cfg.rms_eps)
-    return (x @ params["lm_head"]).float()
+    x = layers.rmsnorm(x, layers.leaf(params, "dec_norm"), cfg.rms_eps)
+    return (x @ layers.leaf(params, "lm_head")).float()
 
 
 def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
@@ -196,7 +199,8 @@ def precompute_cross_kv(cfg: ModelConfig, params: Params, enc_out: torch.Tensor
     enc_positions = torch.arange(enc_out.shape[1], device=enc_out.device)
     ks, vs = [], []
     for l in range(cfg.decoder_layers):
-        lp = {k: v[l] for k, v in params["decoder"].items()}
+        lp = gather_params({k: v[l] for k, v in params["decoder"].items()},
+                           "['decoder']")
         _, k, v = layers.attn_qkv(_sub(lp, "xattn_"), s, enc_out, enc_positions)
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
@@ -213,9 +217,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict,
     positions = length.expand(B)[:, None]
     src_last = torch.full((), cfg.source_len - 1, dtype=torch.int32,
                           device=tokens.device)
-    x = params["embed"][tokens.long()]
+    x = layers.leaf(params, "embed")[tokens.long()]
     for l in range(cfg.decoder_layers):
-        lp = {k: v[l] for k, v in params["decoder"].items()}
+        lp = gather_params({k: v[l] for k, v in params["decoder"].items()},
+                           "['decoder']")
         h = layers.rmsnorm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = layers.attn_qkv(_sub(lp, "attn_"), s, h, positions)
         kc, vc = cache["k"][l], cache["v"][l]
@@ -229,5 +234,5 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict,
         x = x + layers._merge_heads(o) @ xp["wo"]
         h = layers.rmsnorm(x, lp["ln2"], cfg.rms_eps)
         x = x + layers.gelu_mlp(_sub(lp, "mlp_"), h)
-    x = layers.rmsnorm(x, params["dec_norm"], cfg.rms_eps)
-    return {**cache, "length": length + 1}, (x @ params["lm_head"]).float()
+    x = layers.rmsnorm(x, layers.leaf(params, "dec_norm"), cfg.rms_eps)
+    return {**cache, "length": length + 1}, (x @ layers.leaf(params, "lm_head")).float()

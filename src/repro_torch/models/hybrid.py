@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.group import gather_params
 
 from . import kvcache, layers, mamba2
 from .layers import Params
@@ -145,24 +146,25 @@ def _shared_block_fwd(cfg: ModelConfig, sp: Params, x: torch.Tensor,
 def _macro_fwd(cfg: ModelConfig, mamba_layers: list, sp: Params, x: torch.Tensor,
                positions: torch.Tensor, attn_impl: Optional[str]) -> torch.Tensor:
     for lp in mamba_layers:
-        x, _ = _mamba_layer_fwd(cfg, lp, x)
-    return _shared_block_fwd(cfg, sp, x, positions, attn_impl)
+        x, _ = _mamba_layer_fwd(cfg, gather_params(lp, "['macro']"), x)
+    return _shared_block_fwd(cfg, gather_params(sp, "['shared']"), x, positions,
+                             attn_impl)
 
 
 def _tail_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
-    return _mamba_layer_fwd(cfg, lp, x)[0]
+    return _mamba_layer_fwd(cfg, gather_params(lp, "['tail']"), x)[0]
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = layers.rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    return (x @ params["lm_head"]).float()
+    x = layers.rmsnorm(x, layers.leaf(params, "final_norm"), cfg.rms_eps)
+    return (x @ layers.leaf(params, "lm_head")).float()
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             attn_impl: Optional[str] = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in f32."""
     num_macro, per, tail = macro_counts(cfg)
-    x = F.embedding(tokens.long(), params["embed"])
+    x = F.embedding(tokens.long(), layers.leaf(params, "embed"))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for mp in layers.unstack_layers(params["macro"], num_macro):
         x = layers.remat(cfg, _macro_fwd, cfg, layers.unstack_layers(mp, per),
@@ -206,11 +208,12 @@ def _run_layers(cfg: ModelConfig, params: Params, cache: Dict, x: torch.Tensor,
     Returns (x, the new macro and tail states)."""
     num_macro, per, tail = macro_counts(cfg)
     s = attn_spec(cfg)
-    sp = params["shared"]
+    sp = gather_params(params["shared"], "['shared']")
     macro_states = []
     for m in range(num_macro):
         for j in range(per):
-            lp = {k: v[m, j] for k, v in params["macro"].items()}
+            lp = gather_params({k: v[m, j] for k, v in params["macro"].items()},
+                               "['macro']")
             st = {k: v[m, j] for k, v in cache["macro_ssm"].items()}
             x, st = _mamba_layer_fwd(cfg, lp, x, state=st)
             macro_states.append(st)
@@ -225,7 +228,8 @@ def _run_layers(cfg: ModelConfig, params: Params, cache: Dict, x: torch.Tensor,
     if tail:
         tail_states = []
         for t in range(tail):
-            lp = {k: v[t] for k, v in params["tail"].items()}
+            lp = gather_params({k: v[t] for k, v in params["tail"].items()},
+                               "['tail']")
             st = {k: v[t] for k, v in cache["tail_ssm"].items()}
             x, st = _mamba_layer_fwd(cfg, lp, x, state=st)
             tail_states.append(st)
@@ -238,7 +242,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict,
     """One lockstep decode step; tokens (B, 1).  Returns (cache, logits
     (B, 1, V))."""
     B = tokens.shape[0]
-    x = params["embed"][tokens.long()]
+    x = layers.leaf(params, "embed")[tokens.long()]
     length = cache["length"]
     positions = length.expand(B)[:, None]
 
@@ -259,7 +263,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     shared block's KV cache.  Returns (cache, last-position logits
     (B, 1, V))."""
     S = tokens.shape[1]
-    x = params["embed"][tokens.long()]
+    x = layers.leaf(params, "embed")[tokens.long()]
     positions = torch.arange(S, device=tokens.device)
     attn = layers.ATTENTION_VARIANTS[cfg.attn_impl]
     zero = torch.zeros((), dtype=torch.int32, device=tokens.device)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.group import enter_split, keep_scope, project_out
+from repro_torch.distributed.group import enter_split, gather_leaf, keep_scope, project_out
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref as kref
 
@@ -332,6 +332,13 @@ def remat(cfg, fn, *args):
     if cfg.remat == "full" and torch.is_grad_enabled():
         return checkpoint(keep_scope(fn), *args, use_reentrant=False)
     return fn(*args)
+
+
+def leaf(params: Params, name: str) -> torch.Tensor:
+    """``params[name]`` (``embed``, ``lm_head``, a final norm) as the model
+    reads it: under fsdp the rank's slice gathered over the data group
+    (:func:`~repro_torch.distributed.group.gather_leaf`), else as it is."""
+    return gather_leaf(params[name], f"[{name!r}]")
 
 
 def unstack_layers(stacked: Params, n: int) -> list:

@@ -73,12 +73,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                 keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
                 ) -> Any:
     """Random parameters drawn from ``gen``.  ``keep(path, leaf)``, where
-    given (the transformer families), replaces each layer's leaf as soon
-    as it is drawn: a rank of a model-parallel mesh keeps its slice, so it
-    never holds the whole parameters, and draws the same numbers."""
+    given, replaces each leaf by what a mesh rank keeps of it, with the
+    same numbers: the transformer families apply it to each layer's leaf
+    as soon as it is drawn, so the rank never holds the whole parameters;
+    the other families draw them whole first."""
     if keep is None:
         return family_module(cfg).init_params(cfg, gen)
-    return family_module(cfg).init_params(cfg, gen, keep=keep)
+    if family_module(cfg) is transformer:
+        return transformer.init_params(cfg, gen, keep=keep)
+    whole = family_module(cfg).init_params(cfg, gen)
+    return pytree.tree_map_with_path(
+        lambda path, leaf: keep("".join(f"[{k.key!r}]" for k in path), leaf), whole)
 
 
 # -- training ------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.group import gather_params
 
 from . import layers, rwkv6
 from .layers import Params
@@ -82,17 +83,17 @@ def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def _train_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
-    return _layer_fwd(cfg, lp, x)[0]
+    return _layer_fwd(cfg, gather_params(lp, "['layers']"), x)[0]
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = layers.rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    return (x @ params["lm_head"]).float()
+    x = layers.rmsnorm(x, layers.leaf(params, "final_norm"), cfg.rms_eps)
+    return (x @ layers.leaf(params, "lm_head")).float()
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in f32."""
-    x = F.embedding(tokens.long(), params["embed"])
+    x = F.embedding(tokens.long(), layers.leaf(params, "embed"))
     for lp in layers.unstack_layers(params["layers"], cfg.num_layers):
         x = layers.remat(cfg, _train_layer, cfg, lp, x)
     return _logits(cfg, params, x)
@@ -114,7 +115,8 @@ def _run_layers(cfg: ModelConfig, params: Params, cache: Dict, x: torch.Tensor
     on the L axis)."""
     states = []
     for l in range(cfg.num_layers):
-        lp = {k: v[l] for k, v in params["layers"].items()}
+        lp = gather_params({k: v[l] for k, v in params["layers"].items()},
+                           "['layers']")
         x, st = _layer_fwd(cfg, lp, x, state={k: cache[k][l] for k in STATE_KEYS})
         states.append(st)
     return x, {k: torch.stack([st[k] for st in states]) for k in STATE_KEYS}
@@ -124,7 +126,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict,
                 tokens: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
     """One lockstep decode step; tokens (B, 1).  Returns (cache, logits
     (B, 1, V))."""
-    x, states = _run_layers(cfg, params, cache, params["embed"][tokens.long()])
+    x, states = _run_layers(cfg, params, cache, layers.leaf(params, "embed")[tokens.long()])
     return {**states, "length": cache["length"] + 1}, _logits(cfg, params, x)
 
 
@@ -133,7 +135,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Prompts (B, S) through the state-carrying pass (the chunked WKV form
     under ``wkv_impl="chunked"``: S a multiple of the chunk, or shorter).
     Returns (cache, last-position logits (B, 1, V))."""
-    x, states = _run_layers(cfg, params, cache, params["embed"][tokens.long()])
+    x, states = _run_layers(cfg, params, cache, layers.leaf(params, "embed")[tokens.long()])
     length = torch.full((), tokens.shape[1], dtype=torch.int32,
                         device=tokens.device)
     return {**states, "length": length}, _logits(cfg, params, x[:, -1:])

@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.group import enter_split, keep_scope, project_out
+from repro_torch.distributed.group import (enter_split, gather_params, keep_scope,
+                                           project_out)
 
 from . import kvcache, layers, moe
 from .layers import AttnSpec, Params
@@ -100,7 +101,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     router stays f32), not the same numbers — parity tests convert the
     reference's parameters instead, :mod:`repro_torch.models.convert`.
     ``keep(path, leaf)`` replaces each layer's leaf as it is drawn (path
-    ``['layers']['name']``), before the next layer is drawn."""
+    ``['layers']['name']``), before the next layer is drawn, and each other
+    leaf once it is drawn (``['embed']``)."""
     dt = _dtype(cfg)
     dev = gen.device
     s = attn_spec(cfg)
@@ -128,6 +130,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+    if keep is not None:
+        params = {k: v if k == "layers" else keep(f"[{k!r}]", v)
+                  for k, v in params.items()}
     return params
 
 
@@ -136,6 +141,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 def layer_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor) -> torch.Tensor:
     s = attn_spec(cfg)
+    p = gather_params(p, "['layers']")
     h = layers.rmsnorm(x, p["ln1"], cfg.rms_eps)
     x = x + layers.attn_block(_sub(p, "attn_"), s, h, positions, causal=True,
                               attn_impl=cfg.attn_impl)
@@ -150,7 +156,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
     counterpart of the reference's ``jax.checkpoint`` around the scan
     body."""
     B, S = tokens.shape
-    x = F.embedding(tokens.long(), params["embed"])
+    x = F.embedding(tokens.long(), layers.leaf(params, "embed"))
     positions = torch.arange(S, device=tokens.device)
     for lp in layers.unstack_layers(params["layers"], cfg.num_layers):
         if cfg.remat == "full":
@@ -214,6 +220,12 @@ def _layer(params: Params, l: int) -> Params:
     return {k: v[l] for k, v in params["layers"].items()}
 
 
+def _gathered_layer(params: Params, l: int) -> Params:
+    """Layer ``l``'s leaves, under fsdp gathered over the data group (the
+    lockstep prefill and decode, which a dry run drives under fsdp)."""
+    return gather_params(_layer(params, l), "['layers']")
+
+
 def _sub(p: Params, prefix: str) -> Params:
     n = len(prefix)
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
@@ -273,8 +285,9 @@ def _prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = layers.rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = layers.rmsnorm(x, layers.leaf(params, "final_norm"), cfg.rms_eps)
+    head = (layers.leaf(params, "embed").T if cfg.tie_embeddings
+            else layers.leaf(params, "lm_head"))
     return (x @ head).float()
 
 
@@ -293,13 +306,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     Returns (cache, last-position logits (B, 1, V))."""
     B, S = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens.long()]
+    x = layers.leaf(params, "embed")[tokens.long()]
     positions = torch.arange(S, device=dev)
     s = attn_spec(cfg)
     attn_call = _prompt_attention(cfg, s, attn_impl)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     for l in range(cfg.num_layers):
-        x, k, v = _layer_kv_fwd(cfg, s, _layer(params, l), x, positions,
+        x, k, v = _layer_kv_fwd(cfg, s, _gathered_layer(params, l), x, positions,
                                 attn_call)
         kc, vc = cache["k"][l], cache["v"][l]
         T_eff = kc.shape[2]
@@ -475,14 +488,14 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict,
     when None) — a slot frozen mid-horizon re-writes its own frozen
     position.  Returns (cache, logits (B, 1, V))."""
     B = tokens.shape[0]
-    x = params["embed"][tokens.long()]
+    x = layers.leaf(params, "embed")[tokens.long()]
     length = cache["length"]
     per_slot = length.ndim == 1
     positions = length[:, None] if per_slot else length.expand(B)[:, None]
     s = attn_spec(cfg)
     attn_fn = kvcache.DECODE_ATTN_VARIANTS[decode_impl or "grouped"]
     for l in range(cfg.num_layers):
-        lp = _layer(params, l)
+        lp = _gathered_layer(params, l)
         kc, vc = cache["k"][l], cache["v"][l]
         ring = (not per_slot and cfg.window is not None
                 and kc.shape[2] <= cfg.window)

@@ -54,7 +54,9 @@ def init(cfg: AdamWConfig, params: Any) -> Dict[str, Any]:
 
 
 def global_norm(tree: Any, *, counted: Optional[Sequence[Optional[bool]]] = None,
-                model_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                model_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                data: Optional[Sequence[bool]] = None,
+                data_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a 0-d tensor on
     the leaves' device).
@@ -64,15 +66,26 @@ def global_norm(tree: Any, *, counted: Optional[Sequence[Optional[bool]]] = None
     True for a split leaf whose squares this rank adds to the model
     group's sum (``model_sum``, in place), False for a copy of a slice
     another rank counts, None for a leaf whole on every rank (counted
-    here, once).  Every rank of the group then gets the same norm, so the
-    clip factor is the same on all of them."""
+    here, once).  ``data``, leaf by leaf: True for a leaf cut over the data
+    axis (fsdp), whose squares are summed over the data group
+    (``data_sum``, in place) as well.  Every rank of the mesh then gets the
+    same norm, so the clip factor is the same on all of them."""
     leaves = pytree.tree_leaves(tree)
     norms = [torch.linalg.vector_norm(x, dtype=torch.float32) for x in leaves]
     if counted is None:
         return torch.linalg.vector_norm(torch.stack(norms))
+    data = data or [False] * len(norms)
     zero = torch.zeros((), dtype=torch.float32, device=norms[0].device)
-    whole = sum((n * n for n, c in zip(norms, counted) if c is None), zero)
-    split = sum((n * n for n, c in zip(norms, counted) if c), zero.clone())
+
+    def squares(model_cut, data_cut):
+        return sum((n * n for n, c, d in zip(norms, counted, data)
+                    if (c if model_cut else c is None) and d == data_cut), zero.clone())
+    whole, split = squares(False, False), squares(True, False)
+    if any(data):
+        # one sum over the data group: the slices of replicated leaves, and
+        # of split leaves (then summed over the model group with the rest)
+        cut = data_sum(torch.stack([squares(False, True), squares(True, True)]))
+        whole, split = whole + cut[0], split + cut[1]
     return torch.sqrt(whole + model_sum(split))
 
 

@@ -9,11 +9,18 @@ The counterpart of ``repro.optim.compression``:
   blocks of ``block`` elements, as the reference's global arrays are: a
   block's scale is the MAX over the model group of each rank's partial
   ``amax`` over its elements in that block (a shard whose runs of the
-  whole leaf's flat order are whole blocks needs no collective);
+  whole leaf's flat order are whole blocks needs no collective); a leaf
+  cut on two dims, one over ``model`` and one over ``data`` (fsdp), takes
+  the MAX over both groups;
 * :func:`compressed_psum`, the wire form: an int8 all-reduce over a
   process group (quantize, the MAX of the scales, requantize against it,
   an int32 sum, dequantize), the reference's ``_compressed_psum_local``.
   A function, not wired into the loop, as in the reference.
+
+Every scale is divided by a tensor on the values' device, never by a
+Python number: on CUDA, ``t / 127.0`` multiplies by the rounded
+reciprocal of 127, so a value on a rounding boundary lands on the other
+int8 neighbour than on the CPU, which divides.
 """
 
 from __future__ import annotations
@@ -32,10 +39,15 @@ def quantize(x: torch.Tensor, *, block: int = 256) -> Tuple[torch.Tensor, torch.
     flat = x.float().reshape(-1)
     flat = torch.nn.functional.pad(flat, (0, (-flat.shape[0]) % block))
     blocks = flat.reshape(-1, block)
-    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    scale = _scale(blocks.abs().amax(dim=1, keepdim=True))
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127``, divided on the device (module docstring)."""
+    return amax / torch.full_like(amax, 127.0)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor, shape,
@@ -48,28 +60,37 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, shape,
 
 
 def _split_roundtrip(tot: torch.Tensor, whole: Tuple[int, ...],
-                     cut: Tuple[int, int, int], group: Any, block: int
-                     ) -> torch.Tensor:
+                     cuts: Sequence[Tuple[int, int, int]], groups: Sequence[Any],
+                     block: int) -> torch.Tensor:
     """quantize + dequantize of a rank's slice ``tot`` (f32) of a leaf of
-    shape ``whole``, in the whole leaf's blocks: each element's block is
-    that of its index in the whole leaf's flat order, the block's scale
-    the MAX over ``group`` of every rank's amax in it."""
-    dim, start, size = cut
-    inner = math.prod(whole[dim + 1:])
-    run = size * inner                          # a contiguous run of the whole
-    if run % block == 0 and (start * inner) % block == 0 \
-            and (whole[dim] * inner) % block == 0:
+    shape ``whole``, in the whole leaf's blocks.  ``cuts``: the (dim,
+    start, size) cuts that made the slice, in order (the model cut on the
+    whole leaf, then the data cut on the model shard), and ``groups`` the
+    process group over which each cut's parts lie.  Each element's block
+    is that of its index in the whole leaf's flat order, the block's scale
+    the MAX over the groups of every rank's amax in it."""
+    off = [0] * len(whole)
+    for dim, start, _ in cuts:
+        off[dim] += start
+    local = tot.shape
+    stride = [math.prod(whole[d + 1:]) for d in range(len(whole))]
+    k = max(d for d, _, _ in cuts)               # the innermost cut dim
+    if all(x % block == 0 for x in (local[k] * stride[k], off[k] * stride[k],
+                                    whole[k] * stride[k])):
         q, s = quantize(tot, block=block)       # runs are whole blocks
         return dequantize(q, s, tot.shape)
+    g = torch.zeros((), dtype=torch.int64, device=tot.device)
+    for d, n in enumerate(local):
+        idx = (torch.arange(n, device=tot.device) + off[d]) * stride[d]
+        g = g.unsqueeze(-1) + idx
+    blk = g.reshape(-1) // block
     flat = tot.reshape(-1)
-    i = torch.arange(flat.numel(), device=flat.device)
-    g = (i // run) * (whole[dim] * inner) + start * inner + i % run
-    blk = g // block
     amax = torch.zeros(-(-math.prod(whole) // block), dtype=torch.float32,
                        device=flat.device)
     amax.scatter_reduce_(0, blk, flat.abs(), reduce="amax")
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
-    scale = amax / 127.0
+    for group in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = _scale(amax)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)[blk]
     q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
     return (q.float() * scale).reshape(tot.shape)
@@ -86,12 +107,14 @@ class ErrorFeedback:
 
     @staticmethod
     def apply(grads: Any, residual: Any, *, block: int = 256,
-              splits: Optional[Sequence[Any]] = None, group: Any = None
-              ) -> Tuple[Any, Any]:
+              splits: Optional[Sequence[Any]] = None, group: Any = None,
+              data_group: Any = None) -> Tuple[Any, Any]:
         """``splits`` (a mesh rank's), leaf by leaf: None for a leaf the
-        rank holds whole, else ``(whole shape, (dim, start, size))`` of its
-        slice, quantized in the whole leaf's blocks with scales agreed
-        over ``group`` (the model group; None: every rank)."""
+        rank holds whole, else ``(whole shape, model cut, data cut)`` of
+        its slice (each cut a (dim, start, size) or None), quantized in
+        the whole leaf's blocks with scales agreed over ``group`` for the
+        model cut (the model group; None: every rank) and over
+        ``data_group`` for the data cut."""
         g_leaves, spec = pytree.tree_flatten(grads)
         splits = splits or [None] * len(g_leaves)
         comp, res = [], []
@@ -101,7 +124,11 @@ class ErrorFeedback:
                 q, s = quantize(tot, block=block)
                 deq = dequantize(q, s, g.shape)
             else:
-                deq = _split_roundtrip(tot, sp[0], sp[1], group, block)
+                whole, cut, data_cut = sp
+                cuts = [(c, grp) for c, grp in ((cut, group), (data_cut, data_group))
+                        if c is not None]
+                deq = _split_roundtrip(tot, whole, [c for c, _ in cuts],
+                                       [grp for _, grp in cuts], block)
             comp.append(deq)
             res.append(tot - deq)
         return pytree.tree_unflatten(comp, spec), pytree.tree_unflatten(res, spec)

@@ -23,22 +23,29 @@ and a second late step in a row escalates to restore-from-checkpoint.
 :class:`~repro_torch.distributed.group.MeshGroups`, one process a rank):
 
 * the rank holds its shard of the params and of the optimizer state
-  (``shard_params``; replicated over the data axis, where the reference's
-  rule table also splits them over ``data``: same numbers, ``dp`` times
-  the memory) and runs the loss and its backward at the shard's config
-  under its :class:`~repro_torch.distributed.group.ShardScope`;
+  (the model split of :mod:`~repro_torch.distributed.sharding`) and runs
+  the loss and its backward at the shard's config under its
+  :class:`~repro_torch.distributed.group.ShardScope`.  Over the data axis
+  the state is replicated, or, with ``fsdp``, cut as the reference's rule
+  table cuts it (``sharding.fsdp_slice``; the layout the reference's
+  launcher always trains with): each leaf's slice is gathered where the
+  model reads it, one layer at a time, and its gradient comes back
+  reduce-scattered, already the data group's mean; AdamW updates the
+  slice;
 * it takes its rows of each global batch (:func:`rank_rows`);
 * :class:`MeshShard` completes each leaf's gradient (the model group's
   partial sums of :func:`~repro_torch.distributed.sharding.grad_layout`,
   then the data group's mean, in f32, rounded once), takes the whole
-  model's global norm and quantizes the error feedback in the whole
-  leaves' blocks; the loss is the data group's mean;
+  model's global norm (the squares of data slices summed over the data
+  group) and quantizes the error feedback in the whole leaves' blocks;
+  the loss is the data group's mean;
 * rank 0 decides everything that reads a clock: the VPE's variant each
   step (fed the slowest rank's step seconds) and the watchdog's verdict,
   which every rank follows (``ShardGroup.agree``), so the ranks step,
   switch and restore together;
-* a checkpoint is the whole tree, independent of the mesh: the model
-  group of data rank 0 gathers its shards and world rank 0 writes them;
+* a checkpoint is the whole tree, independent of the mesh: each data
+  group gathers its slices (fsdp), the model group of data rank 0 its
+  shards, and world rank 0 writes them;
   every rank restores its shard of the whole tree, so a checkpoint of
   any mesh (or of one device) restores at any other.
 """
@@ -123,22 +130,30 @@ def rank_rows(batch: int, dp: int, d: int, num_microbatches: int = 1
 class MeshShard:
     """A rank's part of training on a ``(dp, mp)`` mesh (module docstring):
     its shard of any params-shaped tree, its scope, and the completion of
-    its gradients.  ``cfg`` is the whole model's; :meth:`bind` orders the
-    gradients' layout as the rank's params are flattened."""
+    its gradients.  ``cfg`` is the whole model's; ``fsdp`` cuts the state
+    over the data axis too (no effect at ``dp = 1``); :meth:`bind` orders
+    the gradients' layout as the rank's params are flattened."""
 
-    def __init__(self, cfg: ModelConfig, groups: MeshGroups) -> None:
+    def __init__(self, cfg: ModelConfig, groups: MeshGroups, *,
+                 fsdp: bool = False) -> None:
         self.cfg, self.groups = cfg, groups
         mp = groups.mp
+        self.fsdp = fsdp and groups.dp > 1
         self.local_cfg = cfg
         self.scope: Optional[ShardScope] = None
         self.layout: Optional[List[sharding.GradLeaf]] = None
         self._by_path: Dict[str, sharding.GradLeaf] = {}
-        if mp > 1:
-            plan = sharding.shard_plan(cfg, mp)   # raises for other families
+        if mp > 1 or self.fsdp:
+            self.plan = sharding.shard_plan(cfg, mp)   # raises for other families
             self.local_cfg = sharding.shard_config(cfg, mp)
-            self.scope = ShardScope(groups.group, plan, groups.model, groups.m)
+            dp, d = (groups.dp, groups.d) if self.fsdp else (1, 0)
             self._by_path = dict(sharding._walk(sharding.grad_layout(
-                cfg, mp, groups.m, model_lib.param_shapes(cfg))))
+                cfg, mp, groups.m, model_lib.param_shapes(cfg), dp=dp, d=d)))
+            dims = {path: leaf.data[0] - len(leaf.whole)
+                    for path, leaf in self._by_path.items() if leaf.data is not None}
+            self.scope = ShardScope(groups.group, self.plan, groups.model, groups.m,
+                                    data=groups.data if self.fsdp else None, dp=dp,
+                                    fsdp=dims or None)
 
     def bind(self, params: Any) -> None:
         """Order the gradients' layout as ``params`` (the rank's shard)
@@ -148,16 +163,32 @@ class MeshShard:
 
     def shard(self, tree: Any) -> Any:
         """The rank's part of a whole params-shaped tree."""
-        if self.groups.mp == 1:
+        if self.scope is None:
             return tree
-        return sharding.shard_params(self.cfg, tree, self.groups.mp, self.groups.m)[0]
+        return sharding.map_leaves(tree, self.keep)
+
+    def cuts(self, path: str, shape) -> List[Any]:
+        """The cuts of the rank's slice of the whole leaf of ``shape`` at
+        ``path`` (``sharding.rank_cuts``)."""
+        g = self.groups
+        dp = g.dp if self.fsdp else 1
+        return sharding.rank_cuts(self.cfg, self.plan, g.m, g.d if self.fsdp else 0, dp,
+                                  path, tuple(shape))
 
     def keep(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
         """The rank's slice of one whole leaf at ``path`` (a copy where it
-        is cut, so the whole leaf can be dropped); mp > 1 only."""
-        cut = sharding.leaf_slice(self.cfg, self.scope.plan, self.groups.m, path,
-                                  tuple(leaf.shape))
-        return leaf if cut is None else leaf.narrow(*cut).contiguous()
+        is cut, so the whole leaf can be dropped); with a scope only."""
+        return sharding.cut_leaf(leaf, self.cuts(path, leaf.shape))
+
+    def data_cut(self, path: str) -> Optional[Any]:
+        """The data cut (fsdp) of the leaf at ``path`` in any params-shaped
+        tree (``['opt']['m']['layers']['attn_wq']``), or None."""
+        while path:
+            leaf = self._by_path.get(path)
+            if leaf is not None:
+                return leaf.data
+            path = path[path.index("]") + 1:]
+        return None
 
     def context(self):
         return shard_scope(self.scope) if self.scope else contextlib.nullcontext()
@@ -190,7 +221,9 @@ class MeshShard:
         for i, g in enumerate(grads):
             leaf = self.layout[i] if self.layout else None
             partial = leaf.partial if leaf else None
-            if partial is None and g_.dp == 1:
+            # a slice cut over the data axis arrived as the data group's mean
+            averaged = leaf is not None and leaf.data is not None
+            if partial is None and (g_.dp == 1 or averaged):
                 out.append(g)
                 continue
             g32 = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
@@ -198,9 +231,13 @@ class MeshShard:
                 g_.model_sum_(g32)
             elif partial == "holders":
                 buf = torch.zeros(leaf.whole, dtype=torch.float32, device=g.device)
-                buf.narrow(*leaf.cut).copy_(g32)
-                g32 = g_.model_sum_(buf).narrow(*leaf.cut).contiguous()
-            out.append(g_.data_mean_(g32).to(g.dtype))
+                mine = buf.narrow(*leaf.cut)
+                if averaged:
+                    mine = mine.narrow(*leaf.data)
+                mine.copy_(g32)
+                g_.model_sum_(buf)
+                g32 = mine.contiguous()
+            out.append((g32 if averaged else g_.data_mean_(g32)).to(g.dtype))
         return out
 
     def norm(self, grads: Any) -> torch.Tensor:
@@ -208,14 +245,16 @@ class MeshShard:
         if not self.layout:
             return adamw.global_norm(grads)
         counted = [None if leaf.cut is None else leaf.counted for leaf in self.layout]
+        data = [leaf.data is not None for leaf in self.layout]
         return adamw.global_norm(grads, counted=counted,
-                                 model_sum=self.groups.model_sum_)
+                                 model_sum=self.groups.model_sum_, data=data,
+                                 data_sum=self.groups.data_sum_)
 
     def ef_splits(self) -> Optional[List[Any]]:
         if not self.layout:
             return None
-        return [None if leaf.cut is None else (leaf.whole, leaf.cut)
-                for leaf in self.layout]
+        return [None if leaf.cut is None and leaf.data is None
+                else (leaf.whole, leaf.cut, leaf.data) for leaf in self.layout]
 
 
 def make_train_step(
@@ -300,7 +339,8 @@ def make_train_step(
         clip_norm = gnorm
         if compress_grads:
             ef_kw = ({} if mesh is None else
-                     dict(splits=mesh.ef_splits(), group=mesh.groups.model))
+                     dict(splits=mesh.ef_splits(), group=mesh.groups.model,
+                          data_group=mesh.groups.data))
             grads, new_ef = compression.ErrorFeedback.apply(grads, opt_state["ef"],
                                                             **ef_kw)
             # the reference clips by the compressed gradients' norm
@@ -357,7 +397,9 @@ class TrainLoop:
     parameters, of which the loop keeps the rank's shard, or none: each
     layer leaf is drawn from ``seed`` and cut to the rank's slice at once,
     the same numbers (module docstring); ``data_stream`` yields the global
-    batch.  The loop reads its clock through ``clock`` (tests skew it)."""
+    batch; ``fsdp`` cuts the params and optimizer state over the data axis
+    as well (:class:`MeshShard`).  The loop reads its clock through
+    ``clock`` (tests skew it)."""
 
     def __init__(
         self,
@@ -371,6 +413,7 @@ class TrainLoop:
         vpe: Optional[VPE] = None,
         device: DeviceLike = "cuda",
         mesh: Optional[MeshGroups] = None,
+        fsdp: bool = False,
         clock: Callable[[], float] = time.perf_counter,
     ) -> None:
         self.cfg = cfg
@@ -379,7 +422,7 @@ class TrainLoop:
         self.device = resolve_device(device)
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.clock = clock
-        self.mesh = MeshShard(cfg, mesh) if mesh is not None else None
+        self.mesh = MeshShard(cfg, mesh, fsdp=fsdp) if mesh is not None else None
         if params is None:
             # on a mesh each layer leaf is cut to the rank's slice as it is
             # drawn: the card never holds the whole parameters
@@ -482,8 +525,9 @@ class TrainLoop:
     # -- checkpointing -------------------------------------------------------
     def save(self) -> Optional[str]:
         """Write the whole training state (on a mesh: every rank calls it;
-        the model group of data rank 0 gathers its shards and world rank
-        0 writes them, the others return None once it is written)."""
+        each data group gathers its slices under fsdp, the model group of
+        data rank 0 its shards, and world rank 0 writes them; the others
+        return None once it is written)."""
         if not self.loop_cfg.checkpoint_dir:
             return None
         tree = {"params": self.params, "opt": self.opt_state}
@@ -496,7 +540,7 @@ class TrainLoop:
             return ckpt.save(self.loop_cfg.checkpoint_dir, self.step, tree, extra=extra)
         g = self.mesh.groups
         path = None
-        if g.d == 0:
+        if g.d == 0 or self.mesh.fsdp:
             tree = sharding.map_leaves(tree, self._gathered)
             if g.group.rank == 0:
                 path = ckpt.save(self.loop_cfg.checkpoint_dir, self.step, tree,
@@ -505,15 +549,24 @@ class TrainLoop:
         return path
 
     def _gathered(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
-        """The whole leaf on the host, from the model group's parts: they
-        are gathered on the rank's device (NCCL takes no host tensors) and
-        the whole leaf is copied to the host before the next is gathered."""
+        """The whole leaf on the host, from the data group's slices (fsdp)
+        and then the model group's parts: they are gathered on the rank's
+        device (NCCL takes no host tensors) and the whole leaf is copied to
+        the host before the next is gathered.  None on a data rank other
+        than 0, once its slice is sent."""
         g = self.mesh.groups
         part = leaf.detach()
+        data = self.mesh.data_cut(path)
+        if data is not None:
+            part = part.contiguous()
+            parts = [torch.empty_like(part) for _ in range(g.dp)]
+            part = torch.cat(g.group.all_gather_(parts, part, group=g.data), data[0])
+        if g.d != 0:
+            return None
         if g.mp > 1 and sharding.splits_leaf(self.cfg, g.mp, path):
             part = part.contiguous()
             parts = [torch.empty_like(part) for _ in range(g.mp)]
-            torch.distributed.all_gather(parts, part, group=g.model)
+            g.group.all_gather_(parts, part, group=g.model)
             part = sharding.unshard_leaf(self.cfg, g.mp, path, parts)
         return part.cpu()
 
@@ -524,12 +577,7 @@ class TrainLoop:
         d = self.loop_cfg.checkpoint_dir
         if not d or ckpt.latest_step(d) is None:
             return False
-        cut = None
-        if self.mesh and self.mesh.groups.mp > 1:
-            plan = sharding.shard_plan(self.cfg, self.mesh.groups.mp)
-            m = self.mesh.groups.m
-            cut = lambda path, shape: sharding.leaf_slice(  # noqa: E731
-                self.cfg, plan, m, path, shape)
+        cut = self.mesh.cuts if self.mesh and self.mesh.scope else None
         _, extra, step = ckpt.restore(d, {"params": self.params, "opt": self.opt_state},
                                       cut=cut)
         if extra.get("vpe"):

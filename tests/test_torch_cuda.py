@@ -425,6 +425,43 @@ def test_cuda_f32_product_gradients(cuda_device):
         torch.testing.assert_close(a.float(), b, rtol=2 ** -7, atol=1e-3)
 
 
+def _on_grid_values(seed, n=1 << 20, block=256):
+    """``n`` seeded f32 values in blocks of ``block``, half of each block's
+    values exact multiples of its amax/127 (the quantizer's rounding
+    boundaries lie between such multiples; a scale one ulp off moves the
+    multiples themselves across them)."""
+    gen = torch.Generator().manual_seed(seed)
+    blocks = torch.randn((n // block, block), generator=gen)
+    amax = blocks.abs().amax(1, keepdim=True)
+    k = torch.randint(-127, 128, blocks.shape, generator=gen).float()
+    grid = torch.rand(blocks.shape, generator=gen) < 0.5
+    step = amax / torch.full_like(amax, 127.0)
+    return torch.where(grid, k * step, blocks).reshape(-1)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_equals_cpu_bit_for_bit(cuda_device):
+    """``quantize``, and the whole-leaf-block round trip of a split leaf
+    (``_split_roundtrip`` of one rank's slice, over no group: each block's
+    scale from the slice's own part of it), on a CUDA tensor equal the
+    same calls on its CPU copy bit for bit: the scales are divided on the
+    device, never multiplied by a rounded reciprocal."""
+    from repro_torch.optim.compression import _split_roundtrip, quantize
+    x = _on_grid_values(21)
+    qc, sc = quantize(x.to(cuda_device))
+    q, s = quantize(x)
+    assert torch.equal(sc.cpu(), s)
+    assert torch.equal(qc.cpu(), q), int((qc.cpu() != q).sum())
+    # a (1024, 1024) leaf cut to columns 384..767: runs of 384 are not
+    # whole blocks, so each element's block comes from the whole leaf's
+    # flat order
+    tot = x.reshape(1024, 1024)[:, 384:768].contiguous()
+    got = _split_roundtrip(tot.to(cuda_device), (1024, 1024), [(1, 384, 384)],
+                           [], 256)
+    want = _split_roundtrip(tot, (1024, 1024), [(1, 384, 384)], [], 256)
+    assert torch.equal(got.cpu(), want)
+
+
 def _mesh_train_rank(group, ckpt_dir):
     """One rank of a (1, world) training mesh on ``cuda:0`` (run by
     ``spawn_ranks``): parameters drawn from the seed, each rank keeping

@@ -162,12 +162,38 @@ class TestCpuDispatch:
         assert torch.equal(got, want)
         assert tpa.paged_prefill_attention_cuda.launches == before
 
-    def test_other_devices_raise(self):
+    def test_other_devices_raise(self, monkeypatch):
+        """A device with neither a plain version nor a kernel raises.  The
+        meta device runs the plain version now (the dry run's path), so
+        this stands meta in for such a device."""
+        monkeypatch.setattr(tpa, "PLAIN_DEVICES", ("cpu",))
         q = torch.zeros((1, 2, 1, 8), device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             tpa.paged_attention_cuda(q, q, q, q, q)
         with pytest.raises(ValueError, match="unsupported device"):
             tpa.paged_prefill_attention_cuda(q, q, q, q, q)
+
+    def test_meta_tensors_run_the_plain_version(self):
+        """The dry run's meta tensors take the plain version's path and
+        count no launch: the output's shape and dtype, nothing computed."""
+        from repro_torch.kernels import flash_attention as tfa
+        meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
+        for fn, inputs, kw, want in (
+                (tpa.paged_attention_cuda, _t(*_decode_inputs(DECODE_CASES[0])),
+                 {}, tref.paged_attention_ref),
+                (tpa.paged_prefill_attention_cuda, _t(*_prefill_inputs(PREFILL_CASES[1])),
+                 {"chunk_len": 5, "window": 11}, tref.paged_prefill_attention_ref)):
+            before = fn.launches
+            got = fn(*meta(*inputs), **kw)
+            ref = want(*inputs, **kw)
+            assert got.is_meta and got.shape == ref.shape and got.dtype == ref.dtype
+            assert fn.launches == before
+        q = torch.zeros((1, 4, 40, 32), device="meta")
+        kv = torch.zeros((1, 2, 40, 32), device="meta")
+        before = tfa.flash_attention_cuda.launches
+        out = tfa.flash_attention_cuda(q, kv, kv, causal=True)
+        assert out.is_meta and out.shape == q.shape
+        assert tfa.flash_attention_cuda.launches == before
 
     def test_mixed_devices_raise(self):
         """A CPU q with the pool elsewhere is refused, not run as the

@@ -71,12 +71,13 @@ from repro.runtime import train_loop as jtrain  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import Prefetcher, SyntheticStream, device_put_batch  # noqa: E402
 from repro_torch.distributed import elastic, sharding  # noqa: E402
-from repro_torch.distributed.group import spawn_ranks  # noqa: E402
+from repro_torch.distributed.group import ShardGroup, spawn_ranks  # noqa: E402
+from repro_torch.launch import specs  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.optim import schedule  # noqa: E402
 from repro_torch.runtime.fault import respawn_elastic  # noqa: E402
-from repro_torch.runtime.train_loop import rank_rows  # noqa: E402
+from repro_torch.runtime.train_loop import MeshShard, rank_rows  # noqa: E402
 
 torch.set_num_threads(1)
 QWEN, QWEN2, MOE, ZAMBA = "qwen3-8b", "qwen2-7b", "qwen2-moe-a2.7b", "zamba2-1.2b"
@@ -445,18 +446,19 @@ def test_launcher_trains_on_a_mesh(capsys):
     tlaunch.main(["--arch", QWEN, "--smoke", "--steps", "2", "--batch", "4",
                   "--seq", "16", "--mesh", "2,1", "--device", "cpu", "--no-vpe"])
     out = capsys.readouterr().out
-    assert "done: 2 steps [mesh 2x1]" in out
+    assert "done: 2 steps [mesh 2x1, fsdp]" in out
 
 
 @pytest.mark.parametrize("arch,mp", [(QWEN, 2), (QWEN, 4), (MOE, 2)])
 def test_reshard_then_unshard_gives_the_whole_tree(arch, mp):
-    """Each rank's shard (``elastic.reshard``, as a restore keeps it) put
-    back together leaf by leaf (``unshard_leaf``, as a checkpoint gathers
-    it) is the whole tree, ``KV_GROUP`` slices taken once."""
+    """Each rank's shard (``MeshShard.shard``, which ``TrainLoop`` keeps
+    as it draws or restores a leaf) put back together leaf by leaf
+    (``unshard_leaf``, as a checkpoint gathers it) is the whole tree,
+    ``KV_GROUP`` slices taken once."""
     cfg = get_config(arch).reduced()
     whole = port_params(arch)
-    mesh = elastic.Mesh(tuple(["cpu"] * 2 * mp), (2, mp))
-    shards = [elastic.reshard(cfg, whole, mesh, r) for r in range(2 * mp)]
+    shards = [MeshShard(cfg, specs.counting_groups(2, mp, r)).shard(whole)
+              for r in range(2 * mp)]
     for key, leaf in sharding._walk(whole):
         parts = [dict(sharding._walk(s))[key] for s in shards[mp:]]   # data rank 1
         assert torch.equal(sharding.unshard_leaf(cfg, mp, key, parts), leaf), key
@@ -489,7 +491,6 @@ def test_a_rank_draws_only_its_slice(arch, mp):
     from types import SimpleNamespace
 
     from repro_torch.models import model as tmodel
-    from repro_torch.runtime.train_loop import MeshShard
     cfg = get_config(arch).reduced()
     whole = tmodel.init_params(cfg, torch.Generator().manual_seed(5))
     for m in range(mp):
@@ -530,7 +531,8 @@ def test_checkpoint_gather_hands_the_collective_device_tensors(monkeypatch):
     shard = sharding.shard_params(cfg, whole, mp, 1)[0]
     on_card = sharding.map_leaves(shard, lambda _, t: t.to("meta"))
     loop = SimpleNamespace(cfg=cfg, mesh=SimpleNamespace(
-        groups=SimpleNamespace(mp=mp, model=None)))
+        groups=SimpleNamespace(mp=mp, model=None, d=0, group=ShardGroup(0, mp, "nccl")),
+        data_cut=lambda path: None))
     got = sharding.map_leaves(on_card, lambda k, t: TrainLoop._gathered(loop, k, t))
     splits = [k for k, _ in sharding._walk(whole) if sharding.splits_leaf(cfg, mp, k)]
     assert splits and len(seen) == len(splits)

@@ -40,11 +40,13 @@ def loop_config(**kw):
 
 def case_loop(mesh, case, **loop_kw):
     """The case's TrainLoop on ``mesh`` (None: one device), from the WHOLE
-    params the parent converted from the reference's."""
+    params the parent converted from the reference's; ``case["fsdp"]``
+    cuts the state over the data axis too."""
     cfg = dataclasses.replace(get_config(case["arch"]).reduced(), **case.get("cfg", {}))
     params = pytree.tree_map(torch.clone, case["params"])
     return TrainLoop(cfg, loop_config(**{**case.get("loop", {}), **loop_kw}),
-                     data_for(cfg), params=params, device="cpu", mesh=mesh)
+                     data_for(cfg), params=params, device="cpu", mesh=mesh,
+                     fsdp=case.get("fsdp", False))
 
 
 def _digest(t: torch.Tensor) -> str:
@@ -53,13 +55,14 @@ def _digest(t: torch.Tensor) -> str:
 
 def _whole(loop):
     """{key: numpy} of the gathered params, m and v (every rank of data
-    rank 0's model group gathers; the others return None)."""
+    rank 0's model group gathers, every rank under fsdp; rank 0 returns
+    them, the others None)."""
     g = loop.mesh.groups
     tree = {"params": loop.params, "m": loop.opt_state["m"], "v": loop.opt_state["v"]}
-    if g.d != 0:
+    if g.d != 0 and not loop.mesh.fsdp:
         return None
     whole = sharding.map_leaves(tree, loop._gathered)
-    return {k: v.numpy() for k, v in sharding._walk(whole)} if g.m == 0 else None
+    return {k: v.numpy() for k, v in sharding._walk(whole)} if g.group.rank == 0 else None
 
 
 def _metrics(log):
@@ -119,6 +122,11 @@ def train_case(mesh, case):
     out["metrics"] = _metrics(loop.metrics_log)
     out["whole"] = _whole(loop)
     out["digests"] = {k: _digest(v) for k, v in sharding._walk(loop.params)}
+    # the bytes of the storages the state holds: a slice that is a view of
+    # the whole leaf counts the whole
+    storages = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                for t in pytree.tree_leaves((loop.params, loop.opt_state))}
+    out["state_bytes"] = sum(storages.values())
     return out
 
 
