@@ -177,9 +177,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 8. training parity: reduced h2o-danube-3-4b in f32, loss and gradients
    and three loop steps of ``flash_cuda`` against ``reference``;
 16. training on the (data, model) mesh, after phase 8 with no model held:
-   full-width h2o-danube-3-4b cut to 4 layers (so that four ranks'
-   training state fits the card), ``flash_cuda`` pinned, at (1, 1) in
-   this process and at (2, 1), (1, 2) and (2, 2) as rank processes
+   full-width h2o-danube-3-4b cut to ``MESH_LAYERS`` layers (so that four
+   ranks' training state fits the card, and the script its time),
+   ``flash_cuda`` pinned, at (1, 1) in this process and at (2, 1), (1, 2)
+   and (2, 2) as rank processes
    (``spawn_ranks``) on ``cuda:0`` over gloo, each rank's bytes reckoned
    and printed first; (a) f32, global batch 2 x 1024, 3 steps, the flash
    launch counts zeroed just before them and read just after on every
@@ -210,8 +211,31 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    meshes' counted collective bytes beside 16d's measured µs; (d) the
    40-cell sweep ``--no-probes`` at (16, 16), in ``SWEEP_WORKERS`` processes
    on the host, run after phase 11 so that no timed phase shares the host with
-   it: its count of ok, skipped and error cells; an error, or a sweep
-   not done in ``SWEEP_TIMEOUT_S``, fails the phase;
+   it: its count of ok, skipped and error cells; any count but
+   ``SWEEP_COUNTS`` (33 ok, 7 skipped, 0 error), or a sweep not done in
+   ``SWEEP_TIMEOUT_S``, fails the phase;
+18. the recurrent and encoder-decoder families on the (data, model) mesh,
+   after phase 17 with no model held, every rank a process on ``cuda:0``
+   over gloo, the (1, 1) references in this process: the flash kernel at
+   a rank's heads (zamba2's shared block at 16/16 heads, whisper's 4/4)
+   against its plain version, bf16 and f32; (a) zamba2-1.2b at full width
+   and depth, flash pinned, f32 2 x 1024 for 2 steps at (1, 1), (1, 2),
+   (2, 2) and bf16 1 x 4096 (1 warm-up, 2 timed steps) at (1, 1), (1, 2);
+   (b) rwkv6-7b at full width cut to 4 layers, f32, at (1, 1), (1, 2),
+   (1, 4); (c) whisper-base whole, f32 2 x 256 tokens against 1500 seeded
+   frames, at (1, 1), (1, 2); gates as phase 16's (f32 losses and grad
+   norms within ``MESH_LOSS_REL``, bf16 losses within
+   ``MESH_BF16_LOSS_REL`` of (1, 1)'s, replicas bit-equal at (2, 2), 2
+   flash launches an attention a step on every rank), the (1, 2) bf16
+   build peak within [the dry run's state, + ``MESH_BUILD_SLACK``];
+   printed per rank: step seconds, peak memory, the gradient sync's and an
+   activation all-reduce's µs; (d) lockstep ``prefill`` and 16 greedy
+   ``decode_step``s of the three at full width, bf16, 4 rows of 120-512
+   prompt tokens (whisper: 256 against 1500 frames), at (1, 2) against
+   (1, 1): tokens equal, or parting only where (1, 1)'s top-2 margin is at
+   most ``TIE_MARGIN``; the reduced configs in f32 at (1, 2) and (1, 4)
+   token for token; one flash launch an attention of each prefill on
+   every rank;
 9. paper-path kernels: matmul and conv2d against their plain versions on
    the card, f32 and bf16 (matmul at tests/test_kernels.py's shapes, 512^3,
    1000^3 off every tile and 4096^3; conv2d at the JAX tests' shapes,
@@ -3267,11 +3291,14 @@ def phase_train_parity(dev):
 
 # phase 16: training on the (data, model) mesh.  Full-width h2o-danube-3-4b
 # cut to MESH_LAYERS layers, so that four ranks' training state fits the
-# card together; every rank a process of its own on cuda:0 over gloo,
+# card together (1 since phase 18 joined the script: 4 until then, and
+# the script must end within its time; gloo's host copies of the
+# gradients, which scale with the depth, are most of the phase's time);
+# every rank a process of its own on cuda:0 over gloo,
 # flash_cuda pinned.  (a) f32, gated against the (1, 1) run in the parent;
 # (b) bf16, timed; (c) compressed_psum at 4 ranks, CUDA against CPU; (d)
 # (a) and (b) with fsdp (params and optimizer state cut over data too).
-MESH_LAYERS = 4
+MESH_LAYERS = 1
 MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
 FSDP_SHAPES = ((2, 1), (2, 2))
 MESH_SEED = 16
@@ -3460,6 +3487,12 @@ def mesh_run(group, shape, fsdp=False):
     return out
 
 
+def mesh_runs(group, shape, fsdps):
+    """:func:`mesh_run` of this rank of ``shape`` once for each of ``fsdps``,
+    in turn (one spawn pays the ranks' start once)."""
+    return [mesh_run(group, shape, fsdp) for fsdp in fsdps]
+
+
 def gate_mesh_runs(runs, ref, ref_b, tag_a, tag_b, worst, launches):
     """Phase 16a/b (or 16d) gates of each rank of ``runs`` against (1, 1)'s
     f32 run ``ref`` and bf16 losses ``ref_b``; prints each rank's lines."""
@@ -3535,16 +3568,16 @@ def phase_train_mesh(dev):
     gc.collect()
     torch.cuda.empty_cache()
     runs = {(1, 1): [mesh_run(None, (1, 1))]}
-    for shape in MESH_SHAPES:
-        t0 = time.perf_counter()
-        runs[shape] = spawn_ranks(mesh_run, ["cuda:0"] * (shape[0] * shape[1]), (shape,))
-        say(f"  mesh {shape}: {shape[0] * shape[1]} ranks in {time.perf_counter() - t0} s")
     fsdp_runs = {}
-    for shape in FSDP_SHAPES:
+    # one spawn a shape runs its replicated and its fsdp runs in turn
+    for shape in dict.fromkeys(MESH_SHAPES + FSDP_SHAPES):
+        fsdps = [f for f, shapes in ((False, MESH_SHAPES), (True, FSDP_SHAPES))
+                 if shape in shapes]
         t0 = time.perf_counter()
-        fsdp_runs[shape] = spawn_ranks(mesh_run, ["cuda:0"] * (shape[0] * shape[1]),
-                                       (shape, True))
-        say(f"  mesh {shape}, fsdp: {shape[0] * shape[1]} ranks in "
+        res = spawn_ranks(mesh_runs, ["cuda:0"] * (shape[0] * shape[1]), (shape, fsdps))
+        for i, fsdp in enumerate(fsdps):
+            (fsdp_runs if fsdp else runs)[shape] = [r[i] for r in res]
+        say(f"  mesh {shape}, fsdp {fsdps}: {shape[0] * shape[1]} ranks in "
             f"{time.perf_counter() - t0} s")
     ref = runs[(1, 1)][0]["a"]
     ref_b = runs[(1, 1)][0]["b"]["losses"]
@@ -3581,46 +3614,74 @@ def phase_train_mesh(dev):
 
 SWEEP_WORKERS = 8          # the card machine's host cores
 SWEEP_TIMEOUT_S = 300.0
-# one sweep worker: ``launch.dryrun``'s main on each of its cells in turn,
-# in one process (the first count's imports are paid once); exit 1 if a
-# cell failed
+# every family splits over the model axis: only the quadratic archs'
+# long_500k cells are skipped
+SWEEP_COUNTS = {"ok": 33, "skipped": 7, "error": 0}
+# one sweep worker: ``launch.dryrun``'s main on each cell it claims, in turn,
+# in one process (the first count's imports are paid once).  Every worker
+# walks the whole list, heaviest cells first, and runs a cell only where it
+# creates the cell's claim file first, so the cells spread over the workers
+# as they free up.  Prints each cell's seconds; exit 1 if a cell failed.
+# ``full`` counts the recurrent families at full depth (no depth probes)
 SWEEP_WORKER = """
-import sys
+import os, sys, time
 from repro_torch.launch import dryrun
+out, mode, cells = sys.argv[1], sys.argv[2], sys.argv[3:]
+if mode == "full":
+    dryrun.depth_probes = lambda cfg: None
 rc = 0
-for cell in sys.argv[2:]:
-    arch, shape = cell.split(":")
+for i, cell in enumerate(cells):
     try:
-        dryrun.main(["--arch", arch, "--shape", shape, "--no-probes", "--out", sys.argv[1]])
+        os.close(os.open(os.path.join(out, f"claim{i}"), os.O_CREAT | os.O_EXCL))
+    except FileExistsError:
+        continue
+    arch, shape = cell.split(":")
+    t = time.perf_counter()
+    try:
+        dryrun.main(["--arch", arch, "--shape", shape, "--no-probes", "--out",
+                     os.path.join(out, "cells")])
     except SystemExit:
         rc = 1
+    print(f"cell {arch} {shape} {time.perf_counter() - t:.1f} s", flush=True)
 sys.exit(rc)
 """
 
 
 class DryRunSweep:
-    """``launch.dryrun --no-probes`` at (16, 16) over the 40 cells, on the
-    host (meta tensors; no card), in ``SWEEP_WORKERS`` processes that each
-    take every ``SWEEP_WORKERS``-th cell, train cells first.  It is
-    started only after the last timed phase, so no reading shares the
-    host with it; :meth:`stop` ends whatever still runs."""
+    """``launch.dryrun --no-probes`` at (16, 16) over the 40 cells (or
+    ``cells``), on the host (meta tensors; no card), in ``workers``
+    processes that claim the cells in turn, heaviest first: the recurrent
+    families' train and prefill cells, then the train, prefill, decode
+    and long cells.  It is started only after the last timed phase, so no
+    reading shares the host with it; :meth:`stop` ends whatever still
+    runs.  ``full_depth``: the recurrent families counted at full depth."""
 
-    def __init__(self) -> None:
-        from repro_torch.configs import ARCHS, SHAPES
+    def __init__(self, cells=None, workers: int = SWEEP_WORKERS,
+                 full_depth: bool = False) -> None:
+        from repro_torch.configs import ARCHS, SHAPES, get_config
         self.dir = tempfile.TemporaryDirectory(prefix="dryrun-")
-        self.cells = [(a, s.name) for s in SHAPES for a in ARCHS]
+        order = {s.name: i for i, s in enumerate(SHAPES)}
+
+        def heavy(cell):
+            a, s = cell
+            scans = get_config(a).family in ("ssm", "hybrid") and order[s] < 2
+            return (not scans, order[s])
+        self.cells = sorted(cells or [(a, s.name) for s in SHAPES for a in ARCHS],
+                            key=heavy)
+        self.workers, self.full_depth = workers, full_depth
         self.procs = []
 
     def result(self, timeout: float = SWEEP_TIMEOUT_S) -> dict:
         env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
                "OMP_NUM_THREADS": "1"}
         t0 = time.perf_counter()
-        for w in range(SWEEP_WORKERS):
+        for w in range(self.workers):
             log = Path(self.dir.name) / f"worker{w}.log"
             with open(log, "w") as f:
                 proc = subprocess.Popen(
-                    [sys.executable, "-c", SWEEP_WORKER, str(Path(self.dir.name) / "cells"),
-                     *(f"{a}:{s}" for a, s in self.cells[w::SWEEP_WORKERS])],
+                    [sys.executable, "-c", SWEEP_WORKER, self.dir.name,
+                     "full" if self.full_depth else "probes",
+                     *(f"{a}:{s}" for a, s in self.cells)],
                     stdout=f, stderr=subprocess.STDOUT, env=env)
             proc.log = log
             self.procs.append(proc)
@@ -3630,7 +3691,7 @@ class DryRunSweep:
         except subprocess.TimeoutExpired:
             return dict(rc=None, counts=None, lines=[], wall_s=time.perf_counter() - t0,
                         timed_out=f"{sum(p.poll() is None for p in self.procs)} of "
-                                  f"{SWEEP_WORKERS} workers running after {timeout} s")
+                                  f"{self.workers} workers running after {timeout} s")
         lines = [x for proc in self.procs for x in proc.log.read_text().splitlines()]
         counts = {"ok": 0, "skipped": 0, "error": 0}
         for line in lines:
@@ -3734,15 +3795,457 @@ def phase_dry_run_sweep():
             say(f"    {line}")
     if res.get("timed_out"):
         raise AssertionError(f"phase 17d: dry-run sweep: {res['timed_out']}")
-    if res["rc"] != 0 or not res["counts"] or res["counts"]["error"]:
-        raise AssertionError(f"phase 17d: dry-run sweep: {res['counts']}, exit "
-                             f"{res['rc']}: " + "\n".join(res["lines"][-20:]))
+    if res["rc"] != 0 or res["counts"] != SWEEP_COUNTS:
+        raise AssertionError(f"phase 17d: dry-run sweep: {res['counts']} (expected "
+                             f"{SWEEP_COUNTS}), exit {res['rc']}: "
+                             + "\n".join(res["lines"][-20:]))
     return {k: v for k, v in res.items() if k != "lines"}
 
 
 def torch_leaves(tree):
     import torch
     return [t for t in torch.utils._pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+# -- phase 18: the recurrent and encoder-decoder families on the mesh -------------------
+
+# Every rank a process of its own on FAM_DEVICE over gloo, as in phases 15 and
+# 16, one spawn a mesh shape running all of its cases; the (1, 1) references
+# run in this process first.  (a) zamba2-1.2b at full width and depth, flash
+# pinned: f32 FAM_F32 at (1, 1), (1, 2), (2, 2); bf16 FAM_BF16 at (1, 1),
+# (1, 2).  (b) rwkv6-7b at full width cut to RWKV_MESH_LAYERS layers, f32
+# FAM_F32 at (1, 1), (1, 2), (1, 4).  (c) whisper-base whole, f32
+# WHISPER_F32 with 1500 seeded frames, at (1, 1), (1, 2).  (d) lockstep
+# prefill and FAM_LOCK_NEW decode steps of the three at full width, bf16, 4
+# rows, at (1, 2) against (1, 1); the reduced configs in f32 at (1, 2) and
+# (1, 4) against (1, 1), token for token.
+FAM_DEVICE = "cuda:0"
+FAM_SEED = 18
+# f32: 3 steps, the last one's loss and grad norm after an update (the
+# learning rate is 0 at step 0)
+FAM_F32 = (2, 1024, 3)              # global batch, sequence, steps
+FAM_BF16 = (1, 4096, 1, 2)          # global batch, sequence, warm-up, timed steps
+# the learning rate ramps over this many steps (3e-5 at the first update).
+# AdamW's first step moves every weight by +-lr, the sign of each near-zero
+# gradient decided by its rounding: at the full rate (3e-4) it lifts
+# random-weight zamba2-1.2b's loss from 10.9 to 12.4 (f32) or 13.5 (bf16),
+# and the ranks' other roundings then part the next bf16 loss from (1, 1)'s
+# by 5.4e-4 and the next f32 grad norm at (2, 2) by 2.3e-4 on an H100
+# (PERF.md), chaos that says nothing of the split
+FAM_LR_RAMP = 10
+WHISPER_F32 = (2, 256, 2)           # global batch, decoder tokens, steps
+# 4 layers of rwkv6-7b at full width: 1.41 B parameters, 22.6 GB of f32
+# state at (1, 1); at (1, 4) a rank holds the 0.54 B of embed and lm_head
+# and cr whole and a quarter of the rest: ~0.80 B, 12.9 GB, 51.6 GB for the
+# four ranks together
+RWKV_MESH_LAYERS = 4
+FAM_LOCK_NEW = 16
+# what each mesh shape runs (the (1, 1) row: this process)
+FAM_CASES = {
+    (1, 1): ("a", "a_bf16", "b", "c", "d", "d_reduced"),
+    (1, 2): ("a", "a_bf16", "b", "c", "d", "d_reduced"),
+    (2, 2): ("a",),
+    (1, 4): ("b", "d_reduced"),
+}
+# the flash kernel at a rank's heads on these paths (Hq, Hkv, S, T, D,
+# causal): zamba2's shared block at (1, 2) in training (1024, 4096) and in
+# the lockstep prefill (512); whisper's 4 heads a rank, the encoder over
+# 1500 frames, the decoder's self- (256) and cross-attention
+FAM_SHARD_FLASH_CASES = ((16, 16, 1024, 1024, 64, True), (16, 16, 4096, 4096, 64, True),
+                         (16, 16, 512, 512, 64, True), (4, 4, 1500, 1500, 64, False),
+                         (4, 4, 256, 256, 64, True), (4, 4, 256, 1500, 64, False))
+
+
+class FamFrames:
+    """A token stream with seeded stub frames (B, 1500, 512) beside each
+    batch, for whisper-base's training (the frames are the model's input;
+    ``SyntheticStream`` yields none)."""
+
+    def __init__(self, cfg, batch, seq):
+        from repro_torch.data import DataConfig, SyntheticStream
+        self.cfg, self.batch = cfg, batch
+        self.base = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                               global_batch=batch, seed=FAM_SEED))
+
+    def batch_at(self, step):
+        out = dict(self.base.batch_at(step))
+        rng = np.random.default_rng((FAM_SEED, step))
+        out["frames"] = rng.standard_normal(
+            (self.batch, self.cfg.source_len, self.cfg.d_model)).astype(np.float32)
+        return out
+
+
+def fam_cfg(name, dtype, layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    kw = dict(dtype=dtype)
+    if not cfg.attention_free:
+        kw["attn_impl"] = "flash_cuda"
+    if layers:
+        kw["num_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
+
+
+def fam_train(group, shape, name, dtype, sizes, layers=None):
+    """One training run of ``name`` on this rank of ``shape`` (``group``
+    None: (1, 1) in this process): losses, grad norms, step seconds, peak
+    memory (and while the loop is built), flash launches of the timed
+    steps (zeroed just before them), the shard's heads, the leaves' bit
+    sums, and on a mesh the µs of the gradient sync and of an activation
+    all-reduce over the model group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.group import MeshGroups
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+    batch, seq, warm, steps = sizes if len(sizes) == 4 else (*sizes[:2], 0, sizes[2])
+    cfg = fam_cfg(name, dtype, layers)
+    data = (FamFrames(cfg, batch, seq) if cfg.family == "encdec" else
+            SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                       global_batch=batch, seed=FAM_SEED)))
+    lc = TrainLoopConfig(total_steps=warm + steps, warmup_steps=FAM_LR_RAMP,
+                         log_every=0, enable_vpe=False, watchdog=False)
+    mesh = MeshGroups(group, *shape) if group is not None else None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, lc, data, seed=FAM_SEED, device=FAM_DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - base
+    if warm:
+        loop.run(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    metrics = loop.run(warm + steps)[-steps:]
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    local = loop.local_cfg
+    out = dict(
+        # 2 an attention a step under remat (forward and recompute; the
+        # backward runs the reference's VJP)
+        expected=2 * flash_per_prefill(cfg) * steps,
+        name=name, dtype=dtype, rank=group.rank if group is not None else 0,
+        d=loop.mesh.groups.d if loop.mesh else 0, m=loop.mesh.groups.m if loop.mesh else 0,
+        losses=[m["loss"] for m in metrics], gnorms=[m["grad_norm"] for m in metrics],
+        step_s=[m["step_time_s"] for m in metrics],
+        tokens_per_s=batch * seq / float(np.median([m["step_time_s"] for m in metrics])),
+        peak_bytes=torch.cuda.max_memory_allocated() - base, build_peak_bytes=build_peak,
+        state_bytes=tree_bytes((loop.params, loop.opt_state)), launches=launches,
+        heads=(local.num_heads, local.num_kv_heads), d_ff=local.d_ff,
+        mixer_heads=sharding.mixer_heads(cfg) // getattr(local, "mixer_shards", 1),
+        sums=bit_sums(loop.params) if shape[0] > 1 else None,
+        split=[k for k, _ in sharding._walk(loop.params)
+               if shape[1] > 1 and sharding.splits_leaf(cfg, shape[1], k)])
+    if loop.mesh is not None:
+        leaves = torch.utils._pytree.tree_leaves(loop.params)
+        grads = [torch.zeros_like(p) for p in leaves]
+        out["grad_bytes"] = tree_bytes(grads)
+        out["grad_all_reduce_us"] = fenced_us(lambda: loop.mesh.sync(grads), iters=1)
+        del grads
+        if shape[1] > 1:
+            rows = batch // shape[0] if batch % shape[0] == 0 else batch
+            x = torch.ones((rows, seq, cfg.d_model), device=FAM_DEVICE)
+            out["act_bytes"] = x.numel() * 4
+            out["act_all_reduce_us"] = fenced_us(
+                lambda: dist.all_reduce(x, group=loop.mesh.groups.model))
+            del x
+    del loop, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_lock_inputs(cfg, reduced):
+    """4 rows of prompts (left-padded to a multiple of the scan chunks: 64-512
+    tokens at full width) and, for whisper, seeded frames, made on the host
+    from seeds (the same on every rank)."""
+    import torch
+    if cfg.family == "encdec":
+        waves = family_waves(cfg, (16,) if reduced else (WHISPER_WAVES[1],), seed=FAM_SEED)
+        gen = torch.Generator().manual_seed(FAM_SEED)
+        frames = torch.randn((FAMILY_SLOTS, cfg.source_len, cfg.d_model), generator=gen)
+        return np.stack(waves[0]), frames.to(getattr(torch, cfg.dtype))
+    lens = ((16, 9, 32, 20),) if reduced else (FAMILY_WAVES[1],)
+    return left_padded(family_waves(cfg, lens, seed=FAM_SEED)[0]), None
+
+
+def fam_lockstep(group, shape, name, reduced):
+    """``model.prefill`` and FAM_LOCK_NEW greedy ``decode_step``s of ``name``
+    (full width bf16, or reduced f32) on this rank of ``shape`` under its
+    scope, each rank drawing only its slice of the seeded weights: the
+    tokens, each step's top-2 margin, the flash launches (zeroed just
+    before) and the walls."""
+    import contextlib
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import MeshGroups
+    from repro_torch.distributed.sharding import mixer_heads
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.train_loop import MeshShard
+    cfg = get_config(name).reduced() if reduced else fam_cfg(name, "bfloat16")
+    if reduced and not cfg.attention_free:
+        cfg = dataclasses.replace(cfg, attn_impl="flash_cuda")
+    shard = MeshShard(cfg, MeshGroups(group, *shape)) if group is not None else None
+    keep = shard.keep if shard is not None and shard.scope is not None else None
+    params = model_lib.init_params(cfg, torch.Generator(FAM_DEVICE).manual_seed(FAM_SEED),
+                                   keep=keep)
+    local = shard.local_cfg if shard is not None else cfg
+    toks, frames = fam_lock_inputs(cfg, reduced)
+    batch = {"tokens": torch.as_tensor(toks, device=FAM_DEVICE)}
+    if frames is not None:
+        batch["frames"] = frames.to(FAM_DEVICE)
+    scope = shard.context() if shard is not None else contextlib.nullcontext()
+    tokens, margins, walls = [], [], []
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    with torch.no_grad(), scope:
+        t0 = time.perf_counter()
+        cache = model_lib.init_cache(local, toks.shape[0], FAMILY_MAX_LEN, FAM_DEVICE)
+        cache, logits = model_lib.prefill(local, params, batch, cache)
+        for i in range(FAM_LOCK_NEW + 1):
+            last = logits[:, -1].float()
+            top = last.topk(2, dim=-1).values
+            tok = last.argmax(-1)
+            tokens.append(tok.cpu().numpy())
+            margins.append((top[:, 0] - top[:, 1]).cpu().numpy())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == FAM_LOCK_NEW:
+                break
+            t0 = time.perf_counter()
+            cache, logits = model_lib.decode_step(local, params, cache,
+                                                  tok[:, None].to(torch.int32))
+    launches = fa.flash_attention_cuda.launches
+    out = dict(name=name, reduced=reduced, rank=group.rank if group is not None else 0,
+               expected=flash_per_prefill(cfg),
+               tokens=np.stack(tokens, 1), margins=np.stack(margins, 1),
+               prefill_s=walls[0], decode_ms=float(np.mean(walls[1:])) * 1e3,
+               launches=launches, heads=(local.num_heads, local.num_kv_heads),
+               mixer_heads=mixer_heads(cfg) // getattr(local, "mixer_shards", 1),
+               finite=bool(torch.isfinite(logits).all()))
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_rank(group, shape):
+    """Every case of phase 18 for ``shape`` on this rank (``group`` None: the
+    (1, 1) references in this process)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for case in FAM_CASES[shape]:
+        t0 = time.perf_counter()
+        if case == "a":
+            out[case] = fam_train(group, shape, "zamba2-1.2b", "float32", FAM_F32)
+        elif case == "a_bf16":
+            out[case] = fam_train(group, shape, "zamba2-1.2b", "bfloat16", FAM_BF16)
+        elif case == "b":
+            out[case] = fam_train(group, shape, "rwkv6-7b", "float32", FAM_F32,
+                                  layers=RWKV_MESH_LAYERS)
+        elif case == "c":
+            out[case] = fam_train(group, shape, "whisper-base", "float32", WHISPER_F32)
+        else:
+            out[case] = {name: fam_lockstep(group, shape, name, case == "d_reduced")
+                         for name in ("zamba2-1.2b", "rwkv6-7b", "whisper-base")}
+        out[f"{case}_s"] = time.perf_counter() - t0
+    return out
+
+
+def fam_flash_checks(dev):
+    """The flash kernel at a rank's heads on phase 18's paths against its
+    plain version, bf16 and f32, with phase 3's tolerances."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(dev).manual_seed(FAM_SEED)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for Hq, Hkv, S, T, D, causal in FAM_SHARD_FLASH_CASES:
+            q, k, v = flash_inputs(gen, dtype, Hq, Hkv, S, T, D)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                f"[18] flash at a rank's heads {str(dtype)[6:]} Hq={Hq} Hkv={Hkv} D={D} "
+                f"S={S} T={T} causal={causal}", got, want, *flash_tolerance(dtype)))
+            del q, k, v, got, want
+    return err
+
+
+def gate_fam_train(runs, case, tag, worst, launches):
+    """18a/b/c's gates of every rank of every mesh against (1, 1)'s run of
+    ``case``; prints each rank's line."""
+    ref = runs[(1, 1)][0][case]
+    bf16 = ref["dtype"] == "bfloat16"
+    for shape, res in runs.items():
+        if shape == (1, 1) or case not in res[0]:
+            continue
+        for r in (x[case] for x in res):
+            rl = max(abs(x - y) / abs(y) for x, y in zip(r["losses"], ref["losses"]))
+            rg = max(abs(x - y) / abs(y) for x, y in zip(r["gnorms"], ref["gnorms"]))
+            expected = r["expected"]
+            launches[f"{tag} {r['name']} {shape[0]}x{shape[1]} rank {r['rank']}"] = \
+                r["launches"]
+            say(f"  [{tag}] {r['name']} {r['dtype']} {shape} rank {r['rank']} (d, m) = "
+                f"({r['d']}, {r['m']}): attention heads {r['heads']}, mixer heads "
+                f"{r['mixer_heads']}, d_ff {r['d_ff']}; losses {r['losses']}, grad norms "
+                f"{r['gnorms']} (worst relative against (1, 1): loss {rl}, grad norm {rg}); "
+                f"step seconds {r['step_s']} (the slowest rank's), {r['tokens_per_s']} "
+                f"tokens/s of the mesh; peak memory {r['peak_bytes']} B, while built "
+                f"{r['build_peak_bytes']} B, state {r['state_bytes']} B; gradient sync "
+                f"{r.get('grad_all_reduce_us')} us for {r.get('grad_bytes')} B, activation "
+                f"all-reduce {r.get('act_all_reduce_us')} us for {r.get('act_bytes')} B; "
+                f"flash launches {r['launches']} ({r['launches'] / len(r['losses'])} a "
+                f"step, expected {expected})")
+            key = "bf16_loss" if bf16 else "loss"
+            worst[key] = max(worst[key], rl)
+            if not bf16:
+                worst["grad_norm"] = max(worst["grad_norm"], rg)
+            if not all(np.isfinite(r["losses"])):
+                raise AssertionError(f"phase {tag}: {shape} rank {r['rank']}: losses "
+                                     f"{r['losses']}")
+            if (bf16 and rl > MESH_BF16_LOSS_REL) or (
+                    not bf16 and (rl > MESH_LOSS_REL or rg > MESH_GNORM_REL)):
+                raise AssertionError(f"phase {tag}: {r['name']} {shape} rank {r['rank']}: "
+                                     f"losses {r['losses']} / grad norms {r['gnorms']} "
+                                     f"against {ref['losses']} / {ref['gnorms']}")
+            if r["launches"] != expected:
+                raise AssertionError(f"phase {tag}: {r['name']} {shape} rank {r['rank']}: "
+                                     f"flash launches {r['launches']} != {expected}")
+        if shape[0] > 1:
+            # a leaf no rank splits is the same bits on every rank; every
+            # leaf on every data rank of one model index
+            rs = [x[case] for x in res]
+            for key, n in rs[0]["sums"].items():
+                holders = [r for r in rs if key not in rs[0]["split"] or r["m"] == 0]
+                if any(r["sums"][key] != n for r in holders):
+                    raise AssertionError(f"phase {tag}: {shape}: leaf {key} differs across "
+                                         f"the ranks that hold it whole")
+            for r in rs:
+                if r["sums"] != rs[r["m"]]["sums"]:
+                    raise AssertionError(f"phase {tag}: {shape}: rank {r['rank']}'s leaves "
+                                         f"differ from data rank 0's")
+
+
+def gate_fam_lockstep(runs, case, tag, launches):
+    """18d's gates: every rank's tokens the same; against (1, 1)'s, equal
+    (reduced f32), or parting only where (1, 1)'s top-2 margin is at most
+    TIE_MARGIN (full width, bf16); finite logits; flash launched once an
+    attention of the prefill on every rank."""
+    out = {}
+    for name, ref in runs[(1, 1)][0][case].items():
+        for shape, res in runs.items():
+            if shape == (1, 1) or case not in res[0]:
+                continue
+            rs = [x[case][name] for x in res]
+            for r in rs[1:]:
+                if not np.array_equal(r["tokens"], rs[0]["tokens"]):
+                    raise AssertionError(f"phase {tag}: {name} {shape}: ranks' tokens differ")
+            got, want = rs[0]["tokens"], ref["tokens"]
+            partings = []
+            for row in range(want.shape[0]):
+                diff = np.nonzero(got[row] != want[row])[0]
+                if len(diff):
+                    j = int(diff[0])
+                    partings.append((row, j, float(ref["margins"][row, j])))
+            expected = ref["expected"]
+            for r in rs:
+                launches[f"{tag} {name} {shape[0]}x{shape[1]} rank {r['rank']}"] = \
+                    r["launches"]
+            say(f"  [{tag}] {name}{' reduced f32' if ref['reduced'] else ' bf16'} {shape}: "
+                f"attention heads a rank {rs[0]['heads']}, mixer heads {rs[0]['mixer_heads']}; "
+                f"{want.shape[0]} rows x {want.shape[1]} tokens, partings from (1, 1) "
+                f"(row, step, (1, 1)'s top-2 margin) {partings}; prefill {rs[0]['prefill_s']} "
+                f"s, decode {rs[0]['decode_ms']} ms a step (1, 1): {ref['prefill_s']} s, "
+                f"{ref['decode_ms']} ms; flash launches {[r['launches'] for r in rs]} "
+                f"(expected {expected} a rank)")
+            out[f"{name} {shape}"] = dict(partings=partings, prefill_s=rs[0]["prefill_s"],
+                                          decode_ms=rs[0]["decode_ms"])
+            if not all(r["finite"] for r in rs):
+                raise AssertionError(f"phase {tag}: {name} {shape}: non-finite logits")
+            if any(r["launches"] != expected for r in rs):
+                raise AssertionError(f"phase {tag}: {name} {shape}: flash launches "
+                                     f"{[r['launches'] for r in rs]} != {expected}")
+            if ref["reduced"] and partings:
+                raise AssertionError(f"phase {tag}: reduced {name} {shape}: tokens part "
+                                     f"from (1, 1)'s: {partings}")
+            if any(m > TIE_MARGIN for _, _, m in partings):
+                raise AssertionError(f"phase {tag}: {name} {shape}: tokens part from "
+                                     f"(1, 1)'s at a margin above {TIE_MARGIN}: {partings}")
+    return out
+
+
+def phase_family_mesh(dev):
+    """Phase 18: the recurrent and encoder-decoder families on the (data,
+    model) mesh (see the constants)."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.group import spawn_ranks
+    from repro_torch.launch import specs
+    t_phase = time.perf_counter()
+    say(f"[18] the recurrent and encoder-decoder families on the mesh: zamba2-1.2b at "
+        f"full width and depth (18a), rwkv6-7b at full width cut to {RWKV_MESH_LAYERS} "
+        f"layers (18b), whisper-base (18c), lockstep serving of the three (18d); (1, 1) "
+        f"in this process, the meshes {[s for s in FAM_CASES if s != (1, 1)]} as rank "
+        f"processes on {FAM_DEVICE} over gloo")
+    err = fam_flash_checks(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {(1, 1): [fam_rank(None, (1, 1))]}
+    for shape in FAM_CASES:
+        if shape == (1, 1):
+            continue
+        t0 = time.perf_counter()
+        runs[shape] = spawn_ranks(fam_rank, [FAM_DEVICE] * (shape[0] * shape[1]), (shape,))
+        say(f"  mesh {shape}: {shape[0] * shape[1]} ranks in {time.perf_counter() - t0} s "
+            f"(cases {FAM_CASES[shape]}, rank 0's seconds "
+            f"{ {k: v for k, v in runs[shape][0].items() if k.endswith('_s')} })")
+    worst = {"loss": 0.0, "grad_norm": 0.0, "bf16_loss": 0.0}
+    launches = {}
+    for case, tag in (("a", "18a"), ("a_bf16", "18a bf16"), ("b", "18b"), ("c", "18c")):
+        r11 = runs[(1, 1)][0][case]
+        say(f"  [{tag}] {r11['name']} {r11['dtype']} (1, 1): losses {r11['losses']}, grad "
+            f"norms {r11['gnorms']}, step seconds {r11['step_s']}, {r11['tokens_per_s']} "
+            f"tokens/s, peak memory {r11['peak_bytes']} B, state {r11['state_bytes']} B, "
+            f"flash launches {r11['launches']}")
+        launches[f"{tag} {r11['name']} 1x1"] = r11["launches"]
+        gate_fam_train(runs, case, tag, worst, launches)
+    # the (1, 2) bf16 run's build peak against the dry run's state a rank
+    cfg = fam_cfg("zamba2-1.2b", "bfloat16")
+    built = specs.build_train(cfg, ShapeConfig("fam", "train", FAM_BF16[1], FAM_BF16[0]),
+                              specs.dry_mesh(1, 2), fsdp=False, tp=True)
+    state = specs.tree_bytes(built.state)
+    peaks = [r["a_bf16"]["build_peak_bytes"] for r in runs[(1, 2)]]
+    say(f"  [18a] (1, 2) bf16: dry run state a rank {state} B; build peaks {peaks} B (gate: "
+        f"within [{state - 4}, {state + MESH_BUILD_SLACK}])")
+    for p in peaks:
+        if not state - 4 <= p <= state + MESH_BUILD_SLACK:
+            raise AssertionError(f"phase 18a: (1, 2) build peak {p} B outside the dry run's "
+                                 f"{state} B + {MESH_BUILD_SLACK}")
+    lock = gate_fam_lockstep(runs, "d", "18d", launches)
+    lock.update(gate_fam_lockstep(runs, "d_reduced", "18d reduced", launches))
+    wall = time.perf_counter() - t_phase
+    say(f"  phase 18 gates: f32 worst relative loss {worst['loss']}, grad norm "
+        f"{worst['grad_norm']} (limits {MESH_LOSS_REL}, {MESH_GNORM_REL}); bf16 loss "
+        f"{worst['bf16_loss']} (limit {MESH_BF16_LOSS_REL}); flash at a rank's heads max "
+        f"abs err {err}; phase 18 wall {wall} s")
+
+    def plain(r):
+        return {k: ({n: {kk: vv for kk, vv in x.items() if kk not in ("tokens", "margins")}
+                     for n, x in v.items()} if k in ("d", "d_reduced") else
+                    {kk: vv for kk, vv in v.items() if kk != "sums"}
+                    if isinstance(v, dict) else v) for k, v in r.items()}
+    return dict(runs={f"{s[0]}x{s[1]}": [plain(r) for r in res] for s, res in runs.items()},
+                worst=worst, lockstep=lock, launches=launches, flash_err=err,
+                build=dict(state_bytes=state, peaks=peaks), wall_s=wall)
 
 
 # -- the paper path -----------------------------------------------------------------
@@ -4640,6 +5143,8 @@ def run_phases(args, dev, t_start) -> int:
     train_mesh = phase_train_mesh(dev)
     by_path["flash_attention"].update(train_mesh["launches"])
     dry_run = phase_dry_run(train_mesh)
+    families_mesh = phase_family_mesh(dev)
+    by_path["flash_attention"].update(families_mesh["launches"])
     paper_errors = phase_paper_kernel_checks(dev)
     paper_times = phase_paper_kernel_times(dev)
     paper = phase_paper_path(dev)
@@ -4674,6 +5179,7 @@ def run_phases(args, dev, t_start) -> int:
                  full_width_logits=logits, traces=traces, moe=moe,
                  families=families, train=train,
                  train_parity=train_parity, train_mesh=train_mesh, dry_run=dry_run,
+                 families_mesh=families_mesh,
                  paper_check_errors=paper_errors,
                  paper=paper, kernels=kernels,
                  seconds=time.perf_counter() - t_start), indent=1, default=str))

@@ -33,6 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
+
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
     """(key, leaf) pairs in the reference's order: dict keys sorted, each
     key written as ``['name']``."""
@@ -123,14 +125,14 @@ def restore(
     *,
     step: Optional[int] = None,
     cut: Optional[Callable[[str, Tuple[int, ...]],
-                           List[Tuple[int, int, int]]]] = None,
+                           List[sharding.Cut]]] = None,
 ) -> Tuple[Any, Dict, int]:
     """Restore into the tensors of ``like`` (a tree of tensors), in place.
 
     Every leaf of ``like`` must be in the checkpoint with its shape and
     dtype; all of them are checked before any is written.  ``cut(key,
-    stored shape)``, where given, lists the (dim, start, size) cuts, applied
-    in turn, of the slice of a stored leaf that ``like`` holds, none for
+    stored shape)``, where given, lists the cuts (``sharding.rank_cuts``:
+    (dim, start, size), or ``Runs`` of several ranges), applied in turn, of the slice of a stored leaf that ``like`` holds, none for
     all of it (a rank of a mesh restores its shard of the whole tree).  Returns
     (like, extra, step).
     """
@@ -153,8 +155,7 @@ def restore(
             raise KeyError(f"checkpoint missing leaf {key}")
         shape = tuple(item["shape"])
         cuts[key] = list(cut(key, shape)) if cut is not None else []
-        for dim, _, size in cuts[key]:
-            shape = shape[:dim] + (size,) + shape[dim + 1:]
+        shape = sharding.cut_shape(shape, cuts[key])
         if shape != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {shape} "
                              f"vs model {tuple(leaf.shape)}")
@@ -165,6 +166,6 @@ def restore(
         for key, leaf in flat:
             t = _load(os.path.join(d, by_key[key]["file"]), by_key[key])
             for c in cuts[key]:
-                t = t.narrow(*c)
+                t = sharding.narrow(t, c)
             leaf.copy_(t)
     return like, extra, step

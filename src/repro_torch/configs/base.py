@@ -6,9 +6,9 @@ assembly, as in the reference: dense, moe and vlm (the transformer), ssm
 (the RWKV6 stack), hybrid (Mamba2 + one shared attention block) and encdec
 (whisper-style, frontend stubbed).  ``reduced()`` derives the
 family-preserving smoke config (small width/depth/vocab/experts) the CPU
-parity tests run.  :class:`ShapeConfig`, :data:`SHAPES` and
-:func:`shape_applicable` are the dry run's input-shape cells, copied from
-the reference's.
+parity tests run; :class:`ShardConfig` is a mesh rank's.
+:class:`ShapeConfig`, :data:`SHAPES` and :func:`shape_applicable` are the
+dry run's input-shape cells, copied from the reference's.
 """
 
 from __future__ import annotations
@@ -123,6 +123,18 @@ class ModelConfig:
             attn_every=2,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(ModelConfig):
+    """A mesh rank's shard-local config (``distributed.sharding.
+    shard_config``): ModelConfig's fields at the rank's heads and hidden
+    widths, and ``mixer_shards``, the ranks over which the recurrent
+    mixer's heads are split (RWKV6's time-mix, Mamba2).  Their specs derive
+    the heads from ``d_model``, which the projections' input keeps whole,
+    so no ModelConfig field can express the split; a rank's spec divides
+    them by this count."""
+    mixer_shards: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,6 +27,9 @@ once, as the whole product is on one device.
   ``(dp, mp)`` training grid: rank ``r`` is at ``(d, m) = divmod(r, mp)``,
   the reference's ``reshape(dp, mp)`` order, with a data subgroup (the
   ranks of its ``m``) and a model subgroup (the ranks of its ``d``);
+* :func:`split_sum` — a row's sum over channels that the ranks split
+  (RWKV6's ``ln_x``, Mamba2's gated norm: whole-row RMSNorms), summed over
+  the model group forward and backward;
 * :func:`gather_leaf` / :func:`gather_params` — fsdp: a leaf cut over the
   data group is all-gathered where the model reads it, one layer at a
   time (inside the recomputed function under remat, so the whole weight
@@ -70,6 +73,7 @@ import torch.distributed as dist
 from repro_torch.distributed.sharding import ShardPlan
 
 DEFAULT_TIMEOUT_S = 600.0
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class ShardGroup:
@@ -81,10 +85,11 @@ class ShardGroup:
         self.world = world
         self.backend = backend
 
-    def all_reduce_(self, x: torch.Tensor, group: Any = None) -> torch.Tensor:
-        """Sum ``x`` over the ranks of ``group`` (a subgroup; None: every
-        rank), in place; returns ``x``."""
-        dist.all_reduce(x, group=group)
+    def all_reduce_(self, x: torch.Tensor, group: Any = None,
+                    op: str = "sum") -> torch.Tensor:
+        """Reduce ``x`` over the ranks of ``group`` (a subgroup; None: every
+        rank) by ``op`` (``"sum"`` or ``"max"``), in place; returns ``x``."""
+        dist.all_reduce(x, op=_OPS[op], group=group)
         return x
 
     def all_gather_(self, parts: List[torch.Tensor], x: torch.Tensor,
@@ -169,9 +174,13 @@ class MeshGroups:
         self.data, self.model = data[self.m], model[self.d]
 
     def data_mean_(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean of ``x`` (f32) over the data group, in place."""
+        """The mean of ``x`` (f32) over the data group, in place.  The sum is
+        divided by ``dp`` as a tensor on ``x``'s device: a Python number
+        makes PyTorch's CUDA kernel multiply by its rounded reciprocal, one
+        ulp off the CPU's quotient where ``dp`` is no power of two."""
         if self.dp > 1:
-            self.group.all_reduce_(x, group=self.data).div_(self.dp)
+            self.group.all_reduce_(x, group=self.data).div_(
+                torch.full((), self.dp, dtype=x.dtype, device=x.device))
         return x
 
     def data_sum_(self, x: torch.Tensor) -> torch.Tensor:
@@ -248,7 +257,9 @@ def keep_scope(fn: Callable) -> Callable:
 
 def splits(block: str) -> bool:
     """Whether the active plan splits ``block``: the ``"attn"`` output
-    projection or the ``"ffn"`` (dense or MoE) down projection."""
+    projection, the ``"ffn"`` (dense, MoE, RWKV6's channel-mix, the GELU
+    MLP) down projection, or the recurrent ``"mixer"`` (RWKV6's time-mix,
+    Mamba2)."""
     scope = _SCOPE.get()
     return scope is not None and bool(getattr(scope.plan, block))
 
@@ -272,7 +283,9 @@ class _GatherData(torch.autograd.Function):
         parts = [p.contiguous() for p in g.float().chunk(scope.dp, ctx.dim)]
         out = torch.empty_like(parts[0])
         scope.group.reduce_scatter_(out, parts, group=scope.data)
-        return out.div_(scope.dp).to(g.dtype), None, None
+        # divided by a device tensor, as MeshGroups.data_mean_ divides
+        dp = torch.full((), scope.dp, dtype=out.dtype, device=out.device)
+        return out.div_(dp).to(g.dtype), None, None
 
 
 def gather_leaf(x: torch.Tensor, key: str) -> torch.Tensor:
@@ -326,9 +339,40 @@ class _SumBackward(torch.autograd.Function):
         return g32.to(g.dtype), None
 
 
+class _SumBoth(torch.autograd.Function):
+    """A sum over the model group of values every rank goes on to use
+    whole (a row's sum of squares over split channels): the sum forward,
+    and backward the sum of each rank's partial gradient of it."""
+
+    @staticmethod
+    def forward(ctx, x, scope):
+        ctx.scope = scope
+        out = x.clone(memory_format=torch.contiguous_format)
+        return scope.group.all_reduce_(out, group=scope.model)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.scope.group.all_reduce_(g, group=ctx.scope.model), None
+
+
+def split_sum(x: torch.Tensor, block: str) -> torch.Tensor:
+    """``x`` (f32) summed over the model group forward and backward where
+    the active plan splits ``block`` (:class:`_SumBoth`); else ``x``."""
+    if not splits(block):
+        return x
+    return _SumBoth.apply(x, _SCOPE.get())
+
+
+def split_ways(block: str) -> int:
+    """The ranks ``block`` is split over (1 where it is whole)."""
+    return _SCOPE.get().plan.mp if splits(block) else 1
+
+
 def enter_split(x: torch.Tensor, block: str) -> torch.Tensor:
     """``x`` where it enters the split part of ``block`` (the input of the
-    q/k/v projections, of the FFN's gate and up, of the MoE block): the
+    q/k/v projections, of the FFN's gate and up, of the MoE block, of
+    RWKV6's time-mix and channel-mix key, of Mamba2): the
     identity, whose gradient is summed over the model group when the
     active plan splits ``block``."""
     if not splits(block):

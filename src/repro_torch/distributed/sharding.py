@@ -52,12 +52,36 @@ a split leaf's slice is whole, except a KV slice several ranks hold
 replicated leaf is whole, except ``q_norm``/``k_norm`` over split heads
 and the MoE ``router`` over split experts or columns, whose partials are
 summed over the model group; a leaf cut over ``data`` arrives averaged
-over the data group by its gather's backward.  :func:`unshard_leaf` puts a leaf's model parts back together for a
-checkpoint (its data slices join on the data cut's dim), which is the
-whole tree whatever the mesh.
-Families other than dense, moe and vlm keep :func:`shard_plan`'s
-``ValueError`` at ``mp > 1`` (the recurrent families' heads are not
-split) and train at any ``dp``, with or without fsdp.
+over the data group by its gather's backward.  :func:`unshard_leaf` puts
+a leaf's model parts back together for a checkpoint (its data slices join
+on the data cut's dim), which is the whole tree whatever the mesh.
+
+The recurrent and encoder-decoder families split the same way, whole
+heads and whole blocks (:data:`ShardPlan.mixer`):
+
+* ssm (RWKV6): the time-mix splits its heads (``wr``, ``wk``, ``wv``,
+  ``wg``, ``w_lora_b`` by head columns, ``w_base``, ``u``, ``ln_x`` by
+  head, ``wo`` by rows, then the sum); ``mix_*`` and ``w_lora_a`` stay
+  whole, and so does the token-shift state; the channel-mix splits ``ck``
+  columns and ``cv`` rows, ``cr`` (whose sigmoid multiplies the completed
+  sum) and ``cmix_*`` stay whole;
+* hybrid (Mamba2 + the shared block): Mamba2 splits its heads: the z, x
+  and dt columns of ``m_in_proj``, the x channels of ``m_conv_*``,
+  ``m_A_log``, ``m_D``, ``m_dt_bias``, ``m_norm`` by head, ``m_out_proj``
+  by rows; the B and C columns and their conv channels (one group) are
+  whole on every rank, so a rank's slice of ``m_in_proj`` and ``m_conv_*``
+  is several ranges of the whole leaf (:class:`Runs`); the shared block
+  splits as a transformer layer does;
+* encdec: self- and cross-attention by head (cross K/V read the
+  encoder's output), the GELU MLP by hidden columns (``mlp_w_in``,
+  ``mlp_b_in``) and rows (``mlp_w_out``); ``mlp_b_out`` is added once,
+  after the sum.
+
+The two norms over split channels, RWKV6's ``ln_x`` and Mamba2's gated
+``norm``, stay RMSNorms over the whole row (``layers.rmsnorm_split``: an
+f32 sum of squares summed over the model group, forward and backward).
+Departures from the rules (recorded in the roadmap): ``mix_*``, ``cr``
+and the B/C columns whole on every rank where the rules split them.
 """
 
 from __future__ import annotations
@@ -68,12 +92,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShardConfig
 
 MP = "mp"
 # the spec entry of a KV weight whose heads are not split evenly: each
 # rank holds the KV heads its query heads read (several ranks the same)
 KV_GROUP = "mp:kv-group"
+# the spec entry of a dim cut in several ranges, some of which every rank
+# holds (Mamba2's in_proj columns and conv channels: Runs)
+MP_RUNS = "mp:runs"
 
 
 def _walk(tree: Any, path: str = ""):
@@ -103,8 +130,11 @@ class ShardPlan:
     """How a model splits over ``mp`` ranks.  ``attn``: the attention block
     splits its query heads (``q_heads`` a rank) and each rank holds
     ``kv_heads`` KV heads, evenly split when ``kv_even`` (else the one its
-    query heads read); ``ffn``: the dense FFN or the MoE block splits
-    (``moe`` is ``"experts"`` or ``"columns"`` for the MoE block)."""
+    query heads read); ``ffn``: the dense FFN, the MoE block, RWKV6's
+    channel-mix or the encoder-decoder's GELU MLP splits (``moe`` is
+    ``"experts"`` or ``"columns"`` for the MoE block); ``mixer``: the
+    recurrent mixer (RWKV6's time-mix, Mamba2) splits its heads,
+    ``mixer_heads`` a rank."""
     mp: int
     attn: bool
     q_heads: int
@@ -112,10 +142,13 @@ class ShardPlan:
     kv_even: bool
     ffn: bool
     moe: Optional[str] = None
+    family: str = "dense"
+    mixer: bool = False
+    mixer_heads: int = 0
 
     @property
     def splits(self) -> bool:
-        return self.attn or self.ffn
+        return self.attn or self.ffn or self.mixer
 
     def kv_head0(self, rank: int, num_heads: int, num_kv_heads: int) -> int:
         """The first KV head rank ``rank`` holds."""
@@ -126,16 +159,26 @@ class ShardPlan:
         return rank * self.q_heads // (num_heads // num_kv_heads)
 
 
+def mixer_heads(cfg: ModelConfig) -> int:
+    """The recurrent mixer's heads of the whole model: RWKV6's ``d_model /
+    rwkv_head_dim``, Mamba2's ``ssm_expand * d_model / ssm_head_dim`` (0 for
+    the other families).  Its specs derive them from ``d_model``, not from
+    ``num_heads``."""
+    if cfg.family == "ssm":
+        return cfg.d_model // cfg.rwkv_head_dim
+    if cfg.family == "hybrid":
+        return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    return 0
+
+
 def shard_plan(cfg: ModelConfig, mp: int) -> ShardPlan:
     """The port's split of ``cfg`` over ``mp`` ranks (module docstring); at
     ``mp = 1`` nothing splits, whatever the family."""
-    if mp > 1 and cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(f"head sharding serves the transformer families; "
-                         f"{cfg.name} is {cfg.family!r}")
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     group = Hq // Hkv
     hq = Hq // mp if Hq % mp == 0 else 0
-    attn = mp > 1 and hq > 0 and (hq % group == 0 or group % hq == 0)
+    attn = (mp > 1 and not cfg.attention_free and hq > 0
+            and (hq % group == 0 or group % hq == 0))
     kv_even = attn and Hkv % mp == 0
     kv_heads = (Hkv // mp if kv_even else 1) if attn else Hkv
     moe = None
@@ -151,32 +194,62 @@ def shard_plan(cfg: ModelConfig, mp: int) -> ShardPlan:
         ffn = moe is not None
     else:
         ffn = mp > 1 and cfg.d_ff % mp == 0
+    H = mixer_heads(cfg)
+    mixer = mp > 1 and H > 0 and H % mp == 0
     return ShardPlan(mp=mp, attn=attn, q_heads=hq if attn else Hq,
-                     kv_heads=kv_heads, kv_even=kv_even, ffn=ffn, moe=moe)
+                     kv_heads=kv_heads, kv_even=kv_even, ffn=ffn, moe=moe,
+                     family=cfg.family, mixer=mixer,
+                     mixer_heads=H // mp if mixer else H)
+
+
+# the leaves each block splits, by family: name -> (axis counted from the
+# end, how); how: "q" query-head columns or rows, "kv" KV-head columns,
+# "even" an even cut, "experts" the expert axis (the MoE block's own
+# rules are in _leaf_split), "in_proj" / "conv" Mamba2's runs (Runs)
+_ATTN = {f"{p}_{n}": (ax, how) for p in ("attn", "xattn")
+         for n, (ax, how) in (("wq", (-1, "q")), ("bq", (-1, "q")), ("wo", (-2, "q")),
+                              ("wk", (-1, "kv")), ("wv", (-1, "kv")),
+                              ("bk", (-1, "kv")), ("bv", (-1, "kv")))}
+_FFN = {
+    "ffn_w_gate": (-1, "even"), "ffn_w_up": (-1, "even"), "ffn_w_down": (-2, "even"),
+    "mlp_w_in": (-1, "even"), "mlp_b_in": (-1, "even"), "mlp_w_out": (-2, "even"),
+    "ck": (-1, "even"), "cv": (-2, "even"),
+}
+_MIXER = {
+    "ssm": {**{n: (-1, "even") for n in ("wr", "wk", "wv", "wg", "w_lora_b", "w_base",
+                                          "u", "ln_x")},
+            "wo": (-2, "even")},
+    "hybrid": {"m_in_proj": (-1, "in_proj"), "m_conv_w": (-1, "conv"),
+               "m_conv_b": (-1, "conv"), "m_A_log": (-1, "even"), "m_D": (-1, "even"),
+               "m_dt_bias": (-1, "even"), "m_norm": (-1, "even"),
+               "m_out_proj": (-2, "even")},
+}
+# replicated leaves whose gradient is a partial on each rank when the
+# block splits: RWKV6's mixes and decay LoRA input, read before the split
+# heads (the time-mix's input gradient is summed once, at its entry)
+_PARTIAL = {"mixer": ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g", "w_lora_a"),
+            "attn": ("attn_q_norm", "attn_k_norm"), "moe": ("moe_router",)}
 
 
 def _leaf_split(name: str, plan: ShardPlan) -> Optional[Tuple[int, str]]:
     """(the axis of a layer leaf, counted from the end, that splits, and how)
-    for ``params["layers"][name]``, or None when it is whole on every
-    rank.  How: ``"q"`` query-head columns or rows, ``"kv"`` KV-head
-    columns, ``"ffn"`` even hidden columns or rows, ``"experts"`` the
-    expert axis."""
-    if plan.attn:
-        if name in ("attn_wq", "attn_bq"):
-            return -1, "q"
-        if name == "attn_wo":
-            return -2, "q"
-        if name in ("attn_wk", "attn_wv", "attn_bk", "attn_bv"):
-            return -1, "kv"
+    for the leaf ``name`` of a layer stack, or None when it is whole on
+    every rank (the tables above)."""
+    if plan.attn and name in _ATTN:
+        return _ATTN[name]
+    if plan.mixer and name in _MIXER.get(plan.family, {}):
+        return _MIXER[plan.family][name]
     if plan.ffn:
-        if name in ("ffn_w_gate", "ffn_w_up", "moe_shared_w_gate", "moe_shared_w_up"):
-            return -1, "ffn"
-        if name in ("ffn_w_down", "moe_shared_w_down"):
-            return -2, "ffn"
+        if name in _FFN:
+            return _FFN[name]
+        if name in ("moe_shared_w_gate", "moe_shared_w_up"):
+            return -1, "even"
+        if name == "moe_shared_w_down":
+            return -2, "even"
         if name in ("moe_experts_gate", "moe_experts_up", "moe_experts_down"):
             if plan.moe == "experts":
                 return -3, "experts"
-            return (-1 if name != "moe_experts_down" else -2), "ffn"
+            return (-1 if name != "moe_experts_down" else -2), "even"
     return None
 
 
@@ -185,17 +258,19 @@ def shard_specs(cfg: ModelConfig, tree: Any, mp: int) -> Any:
     shapes), in the form of the reference's ``param_specs``: ``"mp"`` on
     the dim that
     splits evenly, :data:`KV_GROUP` on a KV weight's dim when ranks hold
-    the KV heads their query heads read, ``None`` elsewhere."""
+    the KV heads their query heads read, :data:`MP_RUNS` on a dim cut in
+    several ranges (:class:`Runs`), ``None`` elsewhere."""
     plan = shard_plan(cfg, mp)
     values = {}
     for path, leaf in _walk(tree):
         shape = _shape(leaf)
         dims: List[Optional[str]] = [None] * len(shape)
-        m = re.fullmatch(r"\['layers'\]\['(\w+)'\]", path)
-        split = _leaf_split(m.group(1), plan) if m else None
+        name = _layer_leaf(path)
+        split = _leaf_split(name, plan) if name else None
         if split is not None:
             axis, how = split
-            dims[axis] = KV_GROUP if how == "kv" and not plan.kv_even else MP
+            dims[axis] = (KV_GROUP if how == "kv" and not plan.kv_even
+                          else MP_RUNS if how in ("in_proj", "conv") else MP)
         values[path] = tuple(dims)
     return _unflatten(tree, values)
 
@@ -203,7 +278,9 @@ def shard_specs(cfg: ModelConfig, tree: Any, mp: int) -> Any:
 def shard_config(cfg: ModelConfig, mp: int) -> ModelConfig:
     """The shard-local config: the heads, FFN hidden width and expert
     hidden width one rank holds (the expert count stays whole: every rank
-    routes over all experts)."""
+    routes over all experts); where the recurrent mixer splits, a
+    :class:`~repro_torch.configs.base.ShardConfig` whose ``mixer_shards``
+    divides the heads its specs derive from ``d_model``."""
     plan = shard_plan(cfg, mp)
     kw: Dict[str, Any] = {}
     if plan.attn:
@@ -212,20 +289,107 @@ def shard_config(cfg: ModelConfig, mp: int) -> ModelConfig:
         kw["moe_d_ff"] = cfg.moe_d_ff // mp
     elif plan.ffn and cfg.family != "moe":
         kw["d_ff"] = cfg.d_ff // mp
-    return dataclasses.replace(cfg, **kw)
+    local = dataclasses.replace(cfg, **kw)
+    if plan.mixer:
+        local = ShardConfig(**{f.name: getattr(local, f.name)
+                               for f in dataclasses.fields(ModelConfig)},
+                            mixer_shards=mp)
+    return local
+
+
+# the stacks whose leaves are a layer's (a hybrid's macro stack has two
+# leading dims, its shared block none)
+_LEAF = re.compile(r"\['(layers|macro|tail|shared|encoder|decoder)'\]\['(\w+)'\]$")
 
 
 def _layer_leaf(path: str) -> Optional[str]:
     """The layer leaf's name of ``path`` (``…['layers']['attn_wq']`` in
-    params, ``m``, ``v``, the master copy or the error feedback)."""
-    m = re.search(r"\['layers'\]\['(\w+)'\]$", path)
-    return m.group(1) if m else None
+    params, ``m``, ``v``, the master copy or the error feedback; also under
+    a hybrid's ``['macro']``, ``['tail']``, ``['shared']`` and an
+    encoder-decoder's ``['encoder']``, ``['decoder']``)."""
+    m = _LEAF.search(path)
+    return m.group(2) if m else None
+
+
+@dataclasses.dataclass(frozen=True)
+class Runs:
+    """A rank's slice along ``dim`` that is several ranges of the whole leaf
+    (Mamba2's ``m_in_proj``: its z, x and dt columns and the B/C columns
+    every rank holds; ``m_conv_*``: its x channels and B/C): ``runs``, the
+    (start, size) of each range in the whole leaf, in the slice's order;
+    ``shared``, whether every model rank holds that range.  A one-range
+    cut is a plain ``(dim, start, size)``."""
+    dim: int
+    runs: Tuple[Tuple[int, int], ...]
+    shared: Tuple[bool, ...]
+
+    @property
+    def size(self) -> int:
+        return sum(n for _, n in self.runs)
+
+
+Cut = Any   # a (dim, start, size) tuple or a Runs
+
+
+def cut_dim_size(cut: Cut) -> Tuple[int, int]:
+    """(dim, size of the slice along it) of a cut."""
+    return (cut.dim, cut.size) if isinstance(cut, Runs) else (cut[0], cut[2])
+
+
+def cut_shape(shape: Tuple[int, ...], cuts: List[Cut]) -> Tuple[int, ...]:
+    """``shape`` after each cut in turn."""
+    shape = list(shape)
+    for cut in cuts:
+        dim, size = cut_dim_size(cut)
+        shape[dim] = size
+    return tuple(shape)
+
+
+def narrow(t: torch.Tensor, cut: Cut) -> torch.Tensor:
+    """The slice of ``t`` a cut gives (a view of one range; several ranges
+    are concatenated, a copy)."""
+    if isinstance(cut, Runs):
+        return torch.cat([t.narrow(cut.dim, s, n) for s, n in cut.runs], cut.dim)
+    return t.narrow(*cut)
+
+
+def place(whole: torch.Tensor, cut: Cut, part: torch.Tensor) -> None:
+    """Write ``part`` where ``cut`` took it from ``whole``, in place."""
+    if not isinstance(cut, Runs):
+        whole.narrow(*cut).copy_(part)
+        return
+    at = 0
+    for s, n in cut.runs:
+        whole.narrow(cut.dim, s, n).copy_(part.narrow(cut.dim, at, n))
+        at += n
+
+
+def cut_index(cut: Cut, device=None) -> torch.Tensor:
+    """The indices along the cut's dim, in the leaf it cuts, of the slice's
+    elements, in order."""
+    runs = cut.runs if isinstance(cut, Runs) else ((cut[1], cut[2]),)
+    return torch.cat([torch.arange(s, s + n, device=device) for s, n in runs])
+
+
+def _mamba_runs(cfg: ModelConfig, plan: ShardPlan, rank: int, dim: int,
+                how: str) -> Runs:
+    """Rank ``rank``'s ranges of Mamba2's ``in_proj`` columns [z | x | B C |
+    dt] or conv channels [x | B C]: its heads' share of z, x and dt, and
+    the whole B/C group."""
+    D, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    di, h = D // plan.mp, plan.mixer_heads
+    if how == "in_proj":
+        runs = ((rank * di, di), (D + rank * di, di), (2 * D, 2 * N),
+                (2 * D + 2 * N + rank * h, h))
+        return Runs(dim, runs, (False, False, True, False))
+    return Runs(dim, ((rank * di, di), (D, 2 * N)), (False, True))
 
 
 def leaf_slice(cfg: ModelConfig, plan: ShardPlan, rank: int, path: str,
-               shape: Tuple[int, ...]) -> Optional[Tuple[int, int, int]]:
+               shape: Tuple[int, ...]) -> Optional[Cut]:
     """(dim, start, size) of rank ``rank``'s slice of the whole leaf of
-    ``shape`` at ``path``, or None when the rank holds it whole."""
+    ``shape`` at ``path`` (a :class:`Runs` where it is several ranges), or
+    None when the rank holds it whole."""
     name = _layer_leaf(path)
     split = _leaf_split(name, plan) if name else None
     if split is None:
@@ -238,6 +402,8 @@ def leaf_slice(cfg: ModelConfig, plan: ShardPlan, rank: int, path: str,
     if how == "kv":
         kv0 = plan.kv_head0(rank, cfg.num_heads, cfg.num_kv_heads)
         return dim, kv0 * hd, plan.kv_heads * hd
+    if how in ("in_proj", "conv"):
+        return _mamba_runs(cfg, plan, rank, dim, how)
     size = shape[dim] // plan.mp
     return dim, rank * size, size
 
@@ -245,8 +411,8 @@ def leaf_slice(cfg: ModelConfig, plan: ShardPlan, rank: int, path: str,
 def shard_params(cfg: ModelConfig, params: Any, mp: int, rank: int
                  ) -> Tuple[Any, ModelConfig]:
     """Rank ``rank``'s shard of ``params`` and its shard-local config.
-    ``params`` may be any tree whose layer leaves sit under ``['layers']``
-    as the params' do (the optimizer's ``m``, ``v``, master copy).
+    ``params`` may be any tree whose layer leaves sit under their stacks'
+    keys as the params' do (the optimizer's ``m``, ``v``, master copy).
 
     Split leaves are copied (contiguous, on the leaves' device), so the
     caller may drop the whole parameters; replicated leaves are the
@@ -273,28 +439,30 @@ def splits_leaf(cfg: ModelConfig, mp: int, path: str) -> bool:
     return name is not None and _leaf_split(name, shard_plan(cfg, mp)) is not None
 
 
+def whole_shape(cfg: ModelConfig, path: str) -> Tuple[int, ...]:
+    """The whole shape of the layer leaf at ``path`` (in any params-shaped
+    tree), from the model's ``param_shapes``."""
+    from repro_torch.models.model import param_shapes
+    m = _LEAF.search(path)
+    return tuple(param_shapes(cfg)[m.group(1)][m.group(2)])
+
+
 def unshard_leaf(cfg: ModelConfig, mp: int, path: str,
                  parts: List[torch.Tensor]) -> torch.Tensor:
-    """The whole leaf at ``path`` from every rank's part (by rank): the
-    parts concatenated along the split dim, a slice that several ranks
-    hold (:data:`KV_GROUP`) taken once; ``parts[0]`` for a whole leaf."""
+    """The whole leaf at ``path`` from every rank's part (by rank): each
+    part written where its rank's slice lies (a slice that several ranks
+    hold, :data:`KV_GROUP` or a shared :class:`Runs` range, written by each,
+    the same values); ``parts[0]`` for a whole leaf."""
     plan = shard_plan(cfg, mp)
-    name = _layer_leaf(path)
-    split = _leaf_split(name, plan) if name is not None and plan.splits else None
-    if split is None:
+    if not plan.splits or not splits_leaf(cfg, mp, path):
         return parts[0]
-    axis, how = split
     shape = list(parts[0].shape)
-    dim = len(shape) + axis
-    shape[dim] = (cfg.num_kv_heads * cfg.head_dim if how == "kv" and not plan.kv_even
-                  else shape[dim] * mp)
-    taken, pieces = set(), []
+    dim = cut_dim_size(leaf_slice(cfg, plan, 0, path, whole_shape(cfg, path)))[0]
+    shape[dim] = whole_shape(cfg, path)[dim]
+    whole = parts[0].new_empty(shape)
     for r, part in enumerate(parts):
-        start = leaf_slice(cfg, plan, r, path, tuple(shape))[1]
-        if start not in taken:
-            taken.add(start)
-            pieces.append(part)
-    return torch.cat(pieces, dim)
+        place(whole, leaf_slice(cfg, plan, r, path, tuple(shape)), part)
+    return whole
 
 
 # -- gradients on a training mesh ----------------------------------------------------
@@ -305,23 +473,47 @@ class GradLeaf:
     norm and quantizes it in the whole leaf's blocks.
 
     ``whole`` is the whole leaf's shape and ``cut`` the rank's (dim, start,
-    size) of it (None: the rank holds it whole).  ``partial``: None when
+    size) of it, or its :class:`Runs` (None: the rank holds it whole).
+    ``partial``: None when
     the rank's gradient is already its slice's whole gradient; ``"model"``
     when a replicated leaf gets a partial on each rank (``q_norm`` and
     ``k_norm`` over split heads, the MoE ``router`` over split experts or
-    columns), summed over the model group; ``"holders"`` when several
+    columns, RWKV6's ``mix_*`` and ``w_lora_a`` over split heads), summed
+    over the model group; ``"holders"`` when several
     ranks hold the slice (:data:`KV_GROUP`) and each has a partial, summed
-    over those ranks.  ``counted``: whether this rank adds the leaf's
-    squares to the model group's sum (a split leaf's slice, once per
+    over those ranks.  ``shared``: the (dim, ranges in the rank's slice) of
+    a :class:`Runs` cut that every model rank holds (Mamba2's B/C columns
+    and channels), whose gradients are partials summed over the model
+    group and counted in the norm once.  ``counted``: whether this rank
+    adds the leaf's squares to the model group's sum (a split leaf's slice,
+    once per
     holder group) rather than to its own (a replicated leaf, counted
     once).  ``data``: the (dim, start, size) of the rank's model shard that
     it holds under fsdp (None: the whole shard); its gradient arrives
     averaged over the data group and its squares are summed over it."""
     whole: Tuple[int, ...]
-    cut: Optional[Tuple[int, int, int]]
+    cut: Optional[Cut]
     partial: Optional[str]
     counted: bool
     data: Optional[Tuple[int, int, int]] = None
+    shared: Optional[Tuple[int, Tuple[Tuple[int, int], ...]]] = None
+
+    def own_and_shared(self, g: torch.Tensor) -> Tuple[List[torch.Tensor],
+                                                       List[torch.Tensor]]:
+        """The rank's gradient ``g`` in the parts this rank owns and the
+        ranges every model rank holds (``shared``)."""
+        if self.shared is None:
+            return [g], []
+        dim, runs = self.shared
+        own, shared, at = [], [], 0
+        for s, n in runs:
+            if s > at:
+                own.append(g.narrow(dim, at, s - at))
+            shared.append(g.narrow(dim, s, n))
+            at = s + n
+        if at < g.shape[dim]:
+            own.append(g.narrow(dim, at, g.shape[dim] - at))
+        return own, shared
 
 
 def grad_layout(cfg: ModelConfig, mp: int, rank: int, tree: Any, *,
@@ -330,22 +522,30 @@ def grad_layout(cfg: ModelConfig, mp: int, rank: int, tree: Any, *,
     their shapes), for model rank ``rank`` of ``mp`` and, with ``dp > 1``
     (fsdp on), data rank ``d`` of ``dp``, in ``tree``'s nesting."""
     plan = shard_plan(cfg, mp)
+    partial_names = {n for block, names in _PARTIAL.items()
+                     if getattr(plan, block) for n in names}
     values = {}
     for path, leaf in _walk(tree):
         shape = _shape(leaf)
         data = fsdp_slice(cfg, plan, d, dp, path, shape)
         name = _layer_leaf(path)
         cut = leaf_slice(cfg, plan, rank, path, shape) if plan.splits else None
-        partial, counted = None, cut is not None
+        partial, counted, shared = None, cut is not None, None
         if cut is not None and _leaf_split(name, plan)[1] == "kv" and not plan.kv_even:
             partial = "holders"
             # the first of the ranks that hold this KV head counts it
             counted = rank == 0 or leaf_slice(cfg, plan, rank - 1, path, shape) != cut
-        elif cut is None and ((plan.attn and name in ("attn_q_norm", "attn_k_norm"))
-                              or (plan.moe and name == "moe_router")):
+        elif cut is None and name in partial_names:
             partial = "model"
+        elif isinstance(cut, Runs):
+            at, local = 0, []
+            for (_, n), sh in zip(cut.runs, cut.shared):
+                if sh:
+                    local.append((at, n))
+                at += n
+            shared = (cut.dim, tuple(local))
         values[path] = GradLeaf(whole=shape, cut=cut, partial=partial, counted=counted,
-                                data=data)
+                                data=data, shared=shared)
     return _unflatten(tree, values)
 
 
@@ -426,9 +626,10 @@ def fsdp_slice(cfg: ModelConfig, plan: ShardPlan, d: int, dp: int, path: str,
     local = list(shape)
     cut = leaf_slice(cfg, plan, 0, path, shape) if plan.splits else None
     if cut is not None:
-        if cut[0] == dim:
+        cdim, csize = cut_dim_size(cut)
+        if cdim == dim:
             return None
-        local[cut[0]] = cut[2]
+        local[cdim] = csize
     if local[dim] % dp:
         return None
     size = local[dim] // dp
@@ -436,7 +637,7 @@ def fsdp_slice(cfg: ModelConfig, plan: ShardPlan, d: int, dp: int, path: str,
 
 
 def rank_cuts(cfg: ModelConfig, plan: ShardPlan, m: int, d: int, dp: int, path: str,
-              shape: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
+              shape: Tuple[int, ...]) -> List[Cut]:
     """The cuts that make rank ``(d, m)``'s slice of the whole leaf of
     ``shape`` at ``path``, in order: the model cut on the whole leaf, then
     the data cut on the model shard (each where it applies)."""
@@ -450,11 +651,11 @@ def rank_cuts(cfg: ModelConfig, plan: ShardPlan, m: int, d: int, dp: int, path: 
     return cuts
 
 
-def cut_leaf(t: torch.Tensor, cuts: List[Tuple[int, int, int]]) -> torch.Tensor:
+def cut_leaf(t: torch.Tensor, cuts: List[Cut]) -> torch.Tensor:
     """``t`` narrowed by each cut in turn, copied where cut: a slice of the
     leading rows is a contiguous view, which ``contiguous()`` would return
     as it is, keeping the whole leaf's storage alive (``lm_head``'s rows
     under fsdp)."""
     for cut in cuts:
-        t = t.narrow(*cut)
+        t = narrow(t, cut)
     return t.clone(memory_format=torch.contiguous_format) if cuts else t

@@ -34,15 +34,23 @@ and three counts take its place:
 An eager count does not fold a loop body, so the step's totals are of the
 full depth directly, where the reference extrapolates from depth probes;
 ``probe_totals`` still come from those probes (``roofline.probe_configs``)
-for comparison.  A train step of ``n`` microbatches is counted at one and
-at two microbatches and extrapolated linearly (exact: the microbatches run
-the same ops), as the reference scales its probes by ``n``.
+for comparison.  The recurrent families are the exception: an eager count
+walks every chunk of every layer's scan (rwkv6-7b's train_4k cell took 11
+minutes at full depth on one core), so their step is counted at 1 and 2
+layers (RWKV6) or at one macro block, two, and one with a tail layer (the
+hybrid), and combined linearly (:func:`depth_probes`: exact, since their
+layers run the same ops).  A train step of ``n`` microbatches is counted
+at one and at two microbatches and extrapolated linearly (exact: the
+microbatches run the same ops), as the reference scales its probes by
+``n``.
 
 Cells the port cannot run are written with ``skipped`` and the reason:
-``long_500k`` for a quadratic arch (``shape_applicable``), and the
-recurrent and encoder-decoder families at ``mp > 1`` (their heads are not
-split yet).  ``--multi-pod`` is a ``(32, 16)`` grid whose data axis spans
-the two pods: the reference's ``pod`` axis carries only data parallelism.
+``long_500k`` for a quadratic arch (``shape_applicable``), as the
+reference skips them.  Every family splits over the model axis (the
+recurrent and encoder-decoder families' heads too), so at (16, 16) the
+40 cells give 33 runs and 7 skips.  ``--multi-pod`` is a ``(32, 16)``
+grid whose data axis spans the two pods: the reference's ``pod`` axis
+carries only data parallelism.
 ``--mesh DP,MP`` sets any other grid.
 """
 
@@ -54,7 +62,7 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -66,7 +74,6 @@ from repro_torch.launch import specs as speclib
 
 PRODUCTION = (16, 16)
 MULTI_POD = (32, 16)
-SPLIT_FAMILIES = ("dense", "moe", "vlm")
 
 
 class _Bytes(TorchDispatchMode):
@@ -110,16 +117,25 @@ def count(built: speclib.Built) -> Dict[str, Any]:
                 saved=float(sum(saved.values())), collectives=built.group.summary())
 
 
-def _extrapolate(c1: Dict, c2: Dict, n: int) -> Dict:
-    """c1 + (n - 1)(c2 - c1) of two counts at one and two microbatches."""
-    lin = lambda a, b: a + (n - 1) * (b - a)  # noqa: E731
-    coll = {k: lin(c1["collectives"][k], c2["collectives"][k])
-            for k in (*speclib.COLLECTIVES, "total")}
-    coll["counts"] = {k: lin(c1["collectives"]["counts"][k], c2["collectives"]["counts"][k])
+def _combine(counts: List[Dict], weights: List[int],
+             saved: Optional[float] = None) -> Dict:
+    """The sum of ``weights[i] * counts[i]``, key by key (the saved bytes
+    too, unless ``saved`` is given)."""
+    def lin(get):
+        return sum(w * get(c) for w, c in zip(weights, counts))
+    coll = {k: lin(lambda c: c["collectives"][k]) for k in (*speclib.COLLECTIVES, "total")}
+    coll["counts"] = {k: lin(lambda c: c["collectives"]["counts"][k])
                       for k in speclib.COLLECTIVES}
-    return dict(flops=lin(c1["flops"], c2["flops"]),
-                bytes_accessed=lin(c1["bytes_accessed"], c2["bytes_accessed"]),
-                saved=c1["saved"], collectives=coll)
+    return dict(flops=lin(lambda c: c["flops"]),
+                bytes_accessed=lin(lambda c: c["bytes_accessed"]),
+                saved=lin(lambda c: c["saved"]) if saved is None else saved,
+                collectives=coll)
+
+
+def _extrapolate(c1: Dict, c2: Dict, n: int) -> Dict:
+    """c1 + (n - 1)(c2 - c1) of two counts at one and two microbatches (the
+    saved bytes are one microbatch's)."""
+    return _combine([c1, c2], [2 - n, n - 1], saved=c1["saved"])
 
 
 def _microbatch_shape(shape, k: int, nmb: int):
@@ -127,16 +143,51 @@ def _microbatch_shape(shape, k: int, nmb: int):
     return dataclasses.replace(shape, global_batch=k * mb, num_microbatches=k)
 
 
-def count_step(cfg, shape, mesh, bkw: Dict) -> Tuple[speclib.Built, Dict]:
-    """(the cell's build, its counts): a train step of ``n`` microbatches is
-    counted at one and two and extrapolated."""
-    built = speclib.build(cfg, shape, mesh, **bkw)
+def depth_probes(cfg) -> Optional[Tuple[List[Any], List[int]]]:
+    """(configs, weights) whose counts, weighted and summed, are the full
+    depth's, for the recurrent families: an eager count walks every chunk
+    of each layer's scan, and their layers run the same ops, so a count is
+    affine in the layers.  RWKV6: 1 and 2 layers; the hybrid: one macro
+    block, two, and one with a tail layer.  None where counting the full
+    depth is no dearer (the other families, shallow configs)."""
+    rep = dataclasses.replace
+    if cfg.family == "ssm" and cfg.num_layers > 3:
+        L = cfg.num_layers
+        return [rep(cfg, num_layers=1), rep(cfg, num_layers=2)], [2 - L, L - 1]
+    if cfg.family == "hybrid" and cfg.num_layers > 4 * cfg.attn_every + 1:
+        e = cfg.attn_every
+        nm, tail = cfg.num_layers // e, cfg.num_layers % e
+        return ([rep(cfg, num_layers=e), rep(cfg, num_layers=2 * e),
+                 rep(cfg, num_layers=e + 1)], [2 - nm - tail, nm - 1, tail])
+    return None
+
+
+def _count_microbatches(cfg, shape, mesh, bkw: Dict, built: speclib.Built) -> Dict:
+    """The counts of ``built``: a train step of ``n`` microbatches counted at
+    one and two and extrapolated."""
     n = built.num_microbatches
     if shape.kind != "train" or n == 1:
-        return built, count(built)
+        return count(built)
     one = [count(speclib.build(cfg, _microbatch_shape(shape, k, n), mesh,
                                **{**bkw, "num_microbatches": k})) for k in (1, 2)]
-    return built, _extrapolate(*one, n)
+    return _extrapolate(*one, n)
+
+
+def count_step(cfg, shape, mesh, bkw: Dict) -> Tuple[speclib.Built, Dict]:
+    """(the cell's build, its counts): a train step of ``n`` microbatches is
+    counted at one and two and extrapolated; a recurrent family's step is
+    counted at the depths of :func:`depth_probes` (with the full config's
+    layout) and combined."""
+    built = speclib.build(cfg, shape, mesh, **bkw)
+    probes = depth_probes(cfg)
+    if probes is None:
+        return built, _count_microbatches(cfg, shape, mesh, bkw, built)
+    # the full config's layout: a shallower one may fall under auto_tp's
+    # or auto_fsdp's thresholds
+    pin = {**bkw, "tp": built.tp, "fsdp": built.fsdp} if shape.kind == "train" else bkw
+    counts = [_count_microbatches(c, shape, mesh, pin, speclib.build(c, shape, mesh, **pin))
+              for c in probes[0]]
+    return built, _combine(counts, probes[1])
 
 
 def _probe(cfg, shape, mesh, bkw: Dict) -> roofline.Probe:
@@ -148,20 +199,10 @@ def _mesh_name(mesh: Tuple[int, int], multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else f"{mesh[0]}x{mesh[1]}"
 
 
-def skip_reason(cfg, shape, mesh: speclib.Mesh, bkw: Dict) -> Optional[str]:
+def skip_reason(cfg, shape) -> Optional[str]:
     """Why the port cannot run the cell, or None."""
     ok, reason = shape_applicable(cfg, shape)
-    if not ok:
-        return reason
-    tp = bkw.get("tp", "auto")
-    if shape.kind == "train" and tp == "auto":
-        tp = speclib.auto_tp(cfg, mesh)
-    if (shape.kind != "train" or tp) and mesh.shape[1] > 1 \
-            and cfg.family not in SPLIT_FAMILIES:
-        return (f"family {cfg.family!r} is not head-split at mp = {mesh.shape[1]} "
-                f"(the recurrent and encoder-decoder families train and serve "
-                f"at mp = 1 only)")
-    return None
+    return None if ok else reason
 
 
 def run_cell(arch: str, shape_name: str, *, mesh: Tuple[int, int] = PRODUCTION,
@@ -177,7 +218,7 @@ def run_cell(arch: str, shape_name: str, *, mesh: Tuple[int, int] = PRODUCTION,
     grid = speclib.dry_mesh(*(MULTI_POD if multi_pod else mesh))
     name = _mesh_name(grid.shape, multi_pod)
     bkw = dict(build_kwargs or {})
-    reason = skip_reason(cfg, shape, grid, bkw)
+    reason = skip_reason(cfg, shape)
     if reason:
         return {"arch": arch, "shape": shape_name, "mesh": name, "skipped": reason}
     n_dev = grid.shape[0] * grid.shape[1]

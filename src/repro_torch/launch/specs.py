@@ -42,7 +42,8 @@ from repro_torch.runtime.train_loop import (MeshShard, init_opt_state, make_trai
                                             rank_rows)
 
 META = torch.device("meta")
-COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter")
+# an all-reduce by MAX (the error feedback's block scales) is its own kind
+COLLECTIVES = ("all-reduce", "all-reduce-max", "all-gather", "reduce-scatter")
 
 
 def dry_mesh(dp: int, mp: int) -> Mesh:
@@ -67,8 +68,9 @@ class CountingGroup:
         self.bytes[kind] += nbytes
         self.counts[kind] += 1
 
-    def all_reduce_(self, x: torch.Tensor, group: Any = None) -> torch.Tensor:
-        self._record("all-reduce", x.nbytes)
+    def all_reduce_(self, x: torch.Tensor, group: Any = None,
+                    op: str = "sum") -> torch.Tensor:
+        self._record("all-reduce" if op == "sum" else f"all-reduce-{op}", x.nbytes)
         return x
 
     def all_gather_(self, parts: List[torch.Tensor], x: torch.Tensor,
@@ -155,9 +157,8 @@ def meta_params(cfg: ModelConfig, shard: Optional[MeshShard]) -> Any:
     dtypes = leaf_dtypes(cfg)
 
     def leaf(path, shape):
-        shape = list(shape)
-        for dim, _, size in (shard.cuts(path, shape) if shard and shard.scope else []):
-            shape[dim] = size
+        if shard and shard.scope:
+            shape = sharding.cut_shape(shape, shard.cuts(path, shape))
         return torch.empty(shape, dtype=dtypes[path], device=META)
     shapes = model_lib.param_shapes(cfg)
     return sharding._unflatten(shapes, {path: leaf(path, shape)

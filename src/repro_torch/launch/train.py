@@ -7,6 +7,8 @@
 
 The flags are those of ``repro.launch.train``; an encdec arch
 (whisper-base) is refused, since ``SyntheticStream`` yields no frames.
+Every other family trains on any mesh, the recurrent ones (rwkv6-7b,
+zamba2-1.2b) split over the model axis too.
 ``--smoke`` trains the reduced config on one device; without it the full
 config is trained on the production mesh (``launch.mesh``: the
 ``(data, model)`` grid over the visible cards).  ``--mesh DP,MP`` trains
@@ -18,7 +20,8 @@ ranks may share a card, over gloo).  As the reference's launcher
 the optimizer state over ``data`` as well as ``model`` (fsdp, gathered a
 layer at a time; the report line says ``[mesh 2x1, fsdp]``).  Every rank
 draws the parameters from ``--seed``, keeping its slice of each leaf as
-it is drawn; rank 0's lines are printed.  ``--resume`` restores the checkpoint whatever mesh wrote it.
+it is drawn; rank 0's lines are printed.  ``--resume`` restores the
+checkpoint whatever mesh wrote it.
 The VPE trials the family's implementation axes (``attn_impl``:
 ``reference``, ``flash_cuda``; ``ssd_impl`` or ``wkv_impl``:
 ``chunked``, ``sequential``) inside the loop unless ``--no-vpe``; its

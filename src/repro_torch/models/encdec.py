@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.group import gather_params
+from repro_torch.distributed.group import gather_params, project_out
 
 from . import kvcache, layers
 from .layers import AttnSpec, Params
@@ -74,9 +74,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_params(cfg: ModelConfig, gen: torch.Generator, keep=None) -> Params:
     """Random parameters on ``gen``'s device: the reference's distributions
-    and dtypes, not its numbers."""
+    and dtypes, not its numbers.  ``keep(path, leaf)`` replaces each leaf
+    as it is drawn (``layers.keep_leaves``)."""
     dt = _dtype(cfg)
     dev = gen.device
     s = attn_spec(cfg)
@@ -89,7 +90,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         p.update({f"attn_{n}": v for n, v in layers.init_attn(gen, s, dt).items()})
         p.update({f"mlp_{n}": v for n, v in
                   layers.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, dt).items()})
-        return p
+        return layers.keep_leaves(keep, "['encoder']", p)
 
     def dec_one():
         p = {"ln1": ones(), "ln_x": ones(), "ln2": ones()}
@@ -97,14 +98,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         p.update({f"xattn_{n}": v for n, v in layers.init_attn(gen, s, dt).items()})
         p.update({f"mlp_{n}": v for n, v in
                   layers.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, dt).items()})
-        return p
+        return layers.keep_leaves(keep, "['decoder']", p)
 
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
-    return {
+    return layers.keep_leaves(keep, "", {
         "embed": embed.mul_(0.02).to(dt),
         "enc_norm": ones(),
         "dec_norm": ones(),
         "lm_head": layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
+    }) | {
         "encoder": layers.stack_layers((cfg.encoder_layers,), enc_one),
         "decoder": layers.stack_layers((cfg.decoder_layers,), dec_one),
     }
@@ -150,7 +152,7 @@ def _dec_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, enc_out: torch.Ten
     q, _, _ = layers.attn_qkv(xp, s, h, positions)
     _, k, v = layers.attn_qkv(xp, s, enc_out, enc_positions)
     o = layers.ATTENTION_VARIANTS[impl](q, k, v, causal=False)
-    x = x + layers._merge_heads(o) @ xp["wo"]
+    x = x + project_out(layers._merge_heads(o), xp["wo"], "attn")
     h = layers.rmsnorm(x, lp["ln2"], cfg.rms_eps)
     return x + layers.gelu_mlp(_sub(lp, "mlp_"), h)
 
@@ -226,12 +228,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict,
         kc, vc = cache["k"][l], cache["v"][l]
         kvcache.update_layer_cache(kc, vc, k, v, length)
         o = kvcache.decode_attention(q, kc, vc, length)
-        x = x + layers._merge_heads(o) @ lp["attn_wo"]
+        x = x + project_out(layers._merge_heads(o), lp["attn_wo"], "attn")
         h = layers.rmsnorm(x, lp["ln_x"], cfg.rms_eps)
         xp = _sub(lp, "xattn_")
         q, _, _ = layers.attn_qkv(xp, s, h, positions)
         o = kvcache.decode_attention(q, cache["xk"][l], cache["xv"][l], src_last)
-        x = x + layers._merge_heads(o) @ xp["wo"]
+        x = x + project_out(layers._merge_heads(o), xp["wo"], "attn")
         h = layers.rmsnorm(x, lp["ln2"], cfg.rms_eps)
         x = x + layers.gelu_mlp(_sub(lp, "mlp_"), h)
     x = layers.rmsnorm(x, layers.leaf(params, "dec_norm"), cfg.rms_eps)

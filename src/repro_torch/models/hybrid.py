@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.group import gather_params
+from repro_torch.distributed.group import gather_params, project_out
 
 from . import kvcache, layers, mamba2
 from .layers import Params
@@ -43,6 +43,8 @@ from .transformer import _dtype, _sub, attn_spec
 
 
 def m2_spec(cfg: ModelConfig) -> mamba2.Mamba2Spec:
+    """The block's spec; a mesh rank's config (``ShardConfig``) gives its
+    share of the heads."""
     return mamba2.Mamba2Spec(
         d_model=cfg.d_model,
         ssm_state=cfg.ssm_state,
@@ -51,6 +53,7 @@ def m2_spec(cfg: ModelConfig) -> mamba2.Mamba2Spec:
         conv_width=cfg.ssm_conv,
         chunk=cfg.ssm_chunk,
         rms_eps=cfg.rms_eps,
+        shards=getattr(cfg, "mixer_shards", 1),
     )
 
 
@@ -92,16 +95,19 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _init_mamba_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _init_mamba_layer(cfg: ModelConfig, gen: torch.Generator, keep, stack: str
+                      ) -> Params:
     dt = _dtype(cfg)
     p = {f"m_{k}": v for k, v in mamba2.init_mamba2(gen, m2_spec(cfg), dt).items()}
     p["m_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
-    return p
+    return layers.keep_leaves(keep, stack, p)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_params(cfg: ModelConfig, gen: torch.Generator, keep=None) -> Params:
     """Random parameters on ``gen``'s device: the reference's distributions
-    and dtypes (``A_log``, ``D``, ``dt_bias`` f32), not its numbers."""
+    and dtypes (``A_log``, ``D``, ``dt_bias`` f32), not its numbers.
+    ``keep(path, leaf)`` replaces each leaf as it is drawn
+    (``layers.keep_leaves``)."""
     dt = _dtype(cfg)
     dev = gen.device
     num_macro, per, tail = macro_counts(cfg)
@@ -111,14 +117,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
                    layers.init_attn(gen, attn_spec(cfg), dt).items()})
     shared.update({f"ffn_{k}": v for k, v in
                    layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt).items()})
+    shared = layers.keep_leaves(keep, "['shared']", shared)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
-    return {
+    top = layers.keep_leaves(keep, "", {
         "embed": embed.mul_(0.02).to(dt),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "lm_head": layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
+    })
+    return top | {
         "macro": layers.stack_layers((num_macro, per),
-                                     lambda: _init_mamba_layer(cfg, gen)),
-        "tail": layers.stack_layers((tail,), lambda: _init_mamba_layer(cfg, gen)),
+                                     lambda: _init_mamba_layer(cfg, gen, keep, "['macro']")),
+        "tail": layers.stack_layers((tail,),
+                                    lambda: _init_mamba_layer(cfg, gen, keep, "['tail']")),
         "shared": shared,
     }
 
@@ -220,7 +230,7 @@ def _run_layers(cfg: ModelConfig, params: Params, cache: Dict, x: torch.Tensor,
         h = layers.rmsnorm(x, sp["ln1"], cfg.rms_eps)
         q, k, v = layers.attn_qkv(_sub(sp, "attn_"), s, h, positions)
         o = shared_attention(m, q, k, v)
-        x = x + layers._merge_heads(o) @ sp["attn_wo"]
+        x = x + project_out(layers._merge_heads(o), sp["attn_wo"], "attn")
         h = layers.rmsnorm(x, sp["ln2"], cfg.rms_eps)
         x = x + layers.swiglu(_sub(sp, "ffn_"), h)
     new = {"macro_ssm": _stack_states(macro_states, (num_macro, per)),

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.group import enter_split, gather_leaf, keep_scope, project_out
+from repro_torch.distributed.group import (enter_split, gather_leaf, keep_scope, project_out,
+                                           split_sum, split_ways)
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref as kref
 
@@ -44,6 +45,23 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def rmsnorm_split(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                  block: str) -> torch.Tensor:
+    """:func:`rmsnorm` over the whole row where the rank holds a slice of
+    its channels (the active plan splits ``block``): the rank's f32 sum of
+    squares is summed over the model group, and so is each rank's partial
+    gradient of it (``group.split_sum``), and the mean is over the whole
+    row's width.  It stays one norm over the row, not a norm per head: the
+    reference's numbers are the gate.  Without a split, :func:`rmsnorm`."""
+    ways = split_ways(block)
+    if ways == 1:
+        return rmsnorm(x, gamma, eps)
+    x32 = x.float()
+    ss = split_sum(torch.sum(x32 * x32, dim=-1, keepdim=True), block)
+    var = ss / (x.shape[-1] * ways)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
@@ -267,7 +285,10 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """On a rank whose plan splits the ``"ffn"`` block, over its hidden
+    columns, the down-projection's partial summed over the model group."""
+    x = enter_split(x, "ffn")
+    return project_out(F.silu(x @ p["w_gate"]) * (x @ p["w_up"]), p["w_down"], "ffn")
 
 
 def gelu_mlp_param_shapes(d_model: int, d_ff: int) -> Dict[str, Tuple]:
@@ -288,9 +309,13 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation, so is this one's
-    (``F.gelu`` defaults to the exact erf)."""
-    return (F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh") @ p["w_out"]
-            + p["b_out"])
+    (``F.gelu`` defaults to the exact erf).  On a rank whose plan splits
+    the ``"ffn"`` block, over its hidden columns (``w_in``, ``b_in``) and
+    rows (``w_out``), the partial summed over the model group before
+    ``b_out`` is added, once."""
+    x = enter_split(x, "ffn")
+    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    return project_out(h, p["w_out"], "ffn") + p["b_out"]
 
 
 # -- recurrent scans -----------------------------------------------------------
@@ -322,6 +347,16 @@ def stack_layers(lead: Tuple[int, ...], make) -> Params:
         for k, v in p.items():
             stacked[k].view(n, *v.shape)[i] = v
     return stacked
+
+
+def keep_leaves(keep, stack: str, p: Params) -> Params:
+    """``p`` (one layer's leaves of the stack at key ``stack``, or top-level
+    leaves with ``stack`` ``""``) with each leaf replaced by ``keep(path,
+    leaf)`` as it is drawn (a mesh rank's slice of it); ``p`` itself
+    without ``keep``."""
+    if keep is None:
+        return p
+    return {k: keep(f"{stack}[{k!r}]", v) for k, v in p.items()}
 
 
 def remat(cfg, fn, *args):

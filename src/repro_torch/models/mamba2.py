@@ -30,7 +30,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, check_chunks, dense_init, rmsnorm
+from repro_torch.distributed.group import enter_split, project_out
+
+from .layers import Params, check_chunks, dense_init, rmsnorm_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +44,13 @@ class Mamba2Spec:
     conv_width: int = 4
     chunk: int = 128
     rms_eps: float = 1e-6
+    # a mesh rank's spec: the heads (and d_inner) are split over this many
+    # ranks, the projections' input (d_model) and B/C stay whole
+    shards: int = 1
 
     @property
     def d_inner(self) -> int:
-        return self.expand * self.d_model
+        return self.expand * self.d_model // self.shards
 
     @property
     def num_heads(self) -> int:
@@ -167,6 +172,11 @@ def mamba2_block(
     state-carrying prefill; the new state is returned (None without one)."""
     B, S, _ = x.shape
     H, P, N = s.num_heads, s.head_dim, s.ssm_state
+    # on a rank whose plan splits the "mixer" block: its heads' z, x and dt
+    # columns and x channels, with B and C (one group) whole on every rank,
+    # whose gradients are therefore partials (sharding.GradLeaf.shared); the
+    # input's gradient is summed once, here
+    x = enter_split(x, "mixer")
     z, xs, Bm, Cm, dt_raw = _project(p, s, x)
     xbc = torch.cat([xs, Bm, Cm], dim=-1)
     conv_prev = state["conv"] if state is not None else None
@@ -186,8 +196,10 @@ def mamba2_block(
     y, h_final = impl(s, xh, Bm.float(), Cm.float(), log_a, dt, h0)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(B, S, s.d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm"], s.rms_eps)
-    out = y @ p["out_proj"]
+    # the gated norm stays one RMSNorm over the whole d_inner (the rank's
+    # sum of squares summed), then out_proj's partial is summed
+    y = rmsnorm_split(y * F.silu(z), p["norm"], s.rms_eps, "mixer")
+    out = project_out(y, p["out_proj"], "mixer")
     new_state = {"h": h_final, "conv": conv_new} if state is not None else None
     return out, new_state
 

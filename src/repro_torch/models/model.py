@@ -74,16 +74,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                 ) -> Any:
     """Random parameters drawn from ``gen``.  ``keep(path, leaf)``, where
     given, replaces each leaf by what a mesh rank keeps of it, with the
-    same numbers: the transformer families apply it to each layer's leaf
-    as soon as it is drawn, so the rank never holds the whole parameters;
-    the other families draw them whole first."""
-    if keep is None:
-        return family_module(cfg).init_params(cfg, gen)
-    if family_module(cfg) is transformer:
-        return transformer.init_params(cfg, gen, keep=keep)
-    whole = family_module(cfg).init_params(cfg, gen)
-    return pytree.tree_map_with_path(
-        lambda path, leaf: keep("".join(f"[{k.key!r}]" for k in path), leaf), whole)
+    same numbers: every family applies it to each layer's leaf as soon as
+    it is drawn, so the rank never holds the whole parameters."""
+    return family_module(cfg).init_params(cfg, gen, keep=keep)
 
 
 # -- training ------------------------------------------------------------------------

@@ -30,7 +30,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, check_chunks, dense_init, rmsnorm
+from repro_torch.distributed.group import enter_split, project_out
+
+from .layers import Params, check_chunks, dense_init, rmsnorm_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,22 +43,30 @@ class RWKV6Spec:
     decay_lora: int = 64
     chunk: int = 32
     rms_eps: float = 1e-6
+    # a mesh rank's spec: the time-mix heads are split over this many
+    # ranks, the projections' input (d_model) stays whole
+    shards: int = 1
 
     @property
     def num_heads(self) -> int:
-        return self.d_model // self.head_dim
+        return self.d_model // self.head_dim // self.shards
+
+    @property
+    def d_mix(self) -> int:
+        """The time-mix width a rank holds: its heads times the head dim."""
+        return self.num_heads * self.head_dim
 
 
 def rwkv6_param_shapes(s: RWKV6Spec) -> Dict[str, Tuple]:
-    d = s.d_model
+    d, h = s.d_model, s.d_mix
     return {
         # time-mix
         "mix_r": (d,), "mix_k": (d,), "mix_v": (d,), "mix_w": (d,), "mix_g": (d,),
-        "wr": (d, d), "wk": (d, d), "wv": (d, d), "wg": (d, d), "wo": (d, d),
-        "w_base": (d,),
-        "w_lora_a": (d, s.decay_lora), "w_lora_b": (s.decay_lora, d),
-        "u": (d,),
-        "ln_x": (d,),
+        "wr": (d, h), "wk": (d, h), "wv": (d, h), "wg": (d, h), "wo": (h, d),
+        "w_base": (h,),
+        "w_lora_a": (d, s.decay_lora), "w_lora_b": (s.decay_lora, h),
+        "u": (h,),
+        "ln_x": (h,),
         # channel-mix
         "cmix_r": (d,), "cmix_k": (d,),
         "cr": (d, d), "ck": (d, s.d_ff), "cv": (s.d_ff, d),
@@ -156,8 +166,14 @@ def rwkv6_time_mix(
     p: Params, s: RWKV6Spec, x: torch.Tensor,
     *, wkv_impl: str = "chunked", state: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    B, T, d = x.shape
+    """On a rank whose plan splits the ``"mixer"`` block, over its heads:
+    the input's gradient is summed over the model group once, at the
+    entry (so ``mix_*`` and ``w_lora_a``, read before the split, get a
+    partial gradient on each rank), ``ln_x`` stays a norm over the whole
+    row and ``wo``'s partial is summed."""
+    B, T, _ = x.shape
     H, K = s.num_heads, s.head_dim
+    x = enter_split(x, "mixer")
     prev = state["x_tm"] if state is not None else None
     xs, last_x = _token_shift(x, prev)
 
@@ -179,9 +195,11 @@ def rwkv6_time_mix(
     kw = {"chunk": s.chunk} if impl is _wkv_chunked else {}
     out, S_final = impl(r, k, v, w, u, S0, **kw)
 
-    out = out.reshape(B, T, d).to(x.dtype)
-    out = rmsnorm(out, p["ln_x"], s.rms_eps)  # stands in for per-head groupnorm
-    out = (out * F.silu(g)) @ p["wo"]
+    out = out.reshape(B, T, s.d_mix).to(x.dtype)
+    # stands in for per-head groupnorm; over the whole row, as the reference
+    # (a rank's channels are its heads': the sum of squares is summed)
+    out = rmsnorm_split(out, p["ln_x"], s.rms_eps, "mixer")
+    out = project_out(out * F.silu(g), p["wo"], "mixer")
     new_state = {"x_tm": last_x, "S": S_final} if state is not None else None
     return out, new_state
 
@@ -192,10 +210,13 @@ def rwkv6_channel_mix(
     prev = state["x_cm"] if state is not None else None
     xs, last_x = _token_shift(x, prev)
     xr = x + p["cmix_r"] * (xs - x)
-    xk = x + p["cmix_k"] * (xs - x)
+    # on a rank whose plan splits the "ffn" block: ck's columns and cv's
+    # rows, the partial summed; cr stays whole (its sigmoid multiplies the
+    # completed sum), so only the key's input gradient is summed
+    xk = enter_split(x + p["cmix_k"] * (xs - x), "ffn")
     r = torch.sigmoid(xr @ p["cr"])
     k = torch.square(F.relu(xk @ p["ck"]))
-    out = r * (k @ p["cv"])
+    out = r * project_out(k, p["cv"], "ffn")
     new_state = {"x_cm": last_x} if state is not None else None
     return out, new_state
 

@@ -26,12 +26,15 @@ STATE_KEYS = ("x_tm", "x_cm", "S")
 
 
 def r6_spec(cfg: ModelConfig) -> rwkv6.RWKV6Spec:
+    """The block's spec; a mesh rank's config (``ShardConfig``) gives its
+    share of the heads."""
     return rwkv6.RWKV6Spec(
         d_model=cfg.d_model,
         d_ff=cfg.d_ff,
         head_dim=cfg.rwkv_head_dim,
         chunk=cfg.rwkv_chunk,
         rms_eps=cfg.rms_eps,
+        shards=getattr(cfg, "mixer_shards", 1),
     )
 
 
@@ -46,9 +49,11 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_params(cfg: ModelConfig, gen: torch.Generator, keep=None) -> Params:
     """Random parameters on ``gen``'s device: the reference's distributions
-    and dtypes (``w_base``, ``w_lora_*``, ``u`` f32), not its numbers."""
+    and dtypes (``w_base``, ``w_lora_*``, ``u`` f32), not its numbers.
+    ``keep(path, leaf)`` replaces each leaf as it is drawn
+    (``layers.keep_leaves``)."""
     dt = _dtype(cfg)
     dev = gen.device
 
@@ -56,15 +61,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
              "ln2": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
         p.update(rwkv6.init_rwkv6(gen, r6_spec(cfg), dt))
-        return p
+        return layers.keep_leaves(keep, "['layers']", p)
 
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev)
-    return {
+    return layers.keep_leaves(keep, "", {
         "embed": embed.mul_(0.02).to(dt),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "lm_head": layers.dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
-        "layers": layers.stack_layers((cfg.num_layers,), one),
-    }
+    }) | {"layers": layers.stack_layers((cfg.num_layers,), one)}
 
 
 def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor,

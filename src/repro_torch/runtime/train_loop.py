@@ -144,7 +144,7 @@ class MeshShard:
         self.layout: Optional[List[sharding.GradLeaf]] = None
         self._by_path: Dict[str, sharding.GradLeaf] = {}
         if mp > 1 or self.fsdp:
-            self.plan = sharding.shard_plan(cfg, mp)   # raises for other families
+            self.plan = sharding.shard_plan(cfg, mp)
             self.local_cfg = sharding.shard_config(cfg, mp)
             dp, d = (groups.dp, groups.d) if self.fsdp else (1, 0)
             self._by_path = dict(sharding._walk(sharding.grad_layout(
@@ -223,10 +223,17 @@ class MeshShard:
             partial = leaf.partial if leaf else None
             # a slice cut over the data axis arrived as the data group's mean
             averaged = leaf is not None and leaf.data is not None
-            if partial is None and (g_.dp == 1 or averaged):
+            shared = leaf is not None and leaf.shared is not None
+            if partial is None and not shared and (g_.dp == 1 or averaged):
                 out.append(g)
                 continue
             g32 = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+            if leaf is not None and leaf.shared is not None:
+                # the ranges every model rank holds (Mamba2's B/C): partials
+                dim, runs = leaf.shared
+                for s, n in runs:
+                    part = g32.narrow(dim, s, n)
+                    part.copy_(g_.model_sum_(part.contiguous()))
             if partial == "model":
                 g_.model_sum_(g32)
             elif partial == "holders":
@@ -241,12 +248,20 @@ class MeshShard:
         return out
 
     def norm(self, grads: Any) -> torch.Tensor:
-        """The whole model's global norm of the rank's gradients."""
+        """The whole model's global norm of the rank's gradients (the ranges
+        of a split leaf that every model rank holds counted once, as a
+        replicated leaf is)."""
         if not self.layout:
             return adamw.global_norm(grads)
-        counted = [None if leaf.cut is None else leaf.counted for leaf in self.layout]
-        data = [leaf.data is not None for leaf in self.layout]
-        return adamw.global_norm(grads, counted=counted,
+        parts, counted, data = [], [], []
+        for g, leaf in zip(pytree.tree_leaves(grads), self.layout):
+            own, shared = leaf.own_and_shared(g)
+            for group, c in ((own, None if leaf.cut is None else leaf.counted),
+                             (shared, None)):
+                parts += group
+                counted += [c] * len(group)
+                data += [leaf.data is not None] * len(group)
+        return adamw.global_norm(parts, counted=counted,
                                  model_sum=self.groups.model_sum_, data=data,
                                  data_sum=self.groups.data_sum_)
 
@@ -340,7 +355,7 @@ def make_train_step(
         if compress_grads:
             ef_kw = ({} if mesh is None else
                      dict(splits=mesh.ef_splits(), group=mesh.groups.model,
-                          data_group=mesh.groups.data))
+                          data_group=mesh.groups.data, comm=mesh.groups.group))
             grads, new_ef = compression.ErrorFeedback.apply(grads, opt_state["ef"],
                                                             **ef_kw)
             # the reference clips by the compressed gradients' norm

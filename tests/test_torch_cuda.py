@@ -14,7 +14,8 @@ reduced zamba2-1.2b served in waves through it, a group of two
 engine replicas on one card against a single engine, and the paged kernels
 at a head-sharded rank's heads with a (1, 2) sharded engine of two ranks
 on one card against a single engine, the f32-output GEMM's bf16
-gradients, and training at (1, 2) and (1, 4) on one card against one
+gradients, the data mean and ``quantize`` on the card against the CPU bit
+for bit, and training at (1, 2) and (1, 4) on one card against one
 device, through a checkpoint gathered on the card.
 Every test marked ``cuda`` needs a CUDA device (sm_90a) and ``nvcc``, and
 skips without them; the one unmarked test checks that the paper path's
@@ -460,6 +461,21 @@ def test_cuda_quantize_equals_cpu_bit_for_bit(cuda_device):
                            [], 256)
     want = _split_roundtrip(tot, (1024, 1024), [(1, 384, 384)], [], 256)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_data_mean_equals_cpu_bit_for_bit(cuda_device):
+    """``MeshGroups.data_mean_`` at dp = 3 on a CUDA tensor equals the same
+    call on its CPU copy bit for bit (the dry run's counting group, whose
+    sum over the data group is the identity, stands for the ranks): the
+    sum is divided by a device tensor, not multiplied by the rounded
+    reciprocal of 3 as a Python divisor makes PyTorch's CUDA kernel do."""
+    from repro_torch.launch.specs import counting_groups
+    groups = counting_groups(3, 1)
+    x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(3))
+    got = groups.data_mean_(x.to(cuda_device)).cpu()
+    want = groups.data_mean_(x.clone())
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 def _mesh_train_rank(group, ckpt_dir):

@@ -24,9 +24,9 @@ class RecordingGroup(ShardGroup):
         super().__init__(group.rank, group.world, group.backend)
         self.counter = CountingGroup(group.rank, group.world)
 
-    def all_reduce_(self, x, group=None):
-        self.counter.all_reduce_(x, group)
-        return super().all_reduce_(x, group)
+    def all_reduce_(self, x, group=None, op="sum"):
+        self.counter.all_reduce_(x, group, op)
+        return super().all_reduce_(x, group, op)
 
     def all_gather_(self, parts, x, group=None):
         self.counter.all_gather_(parts, x, group)
