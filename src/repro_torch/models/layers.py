@@ -20,9 +20,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.spans import span
 from repro_torch.distributed.group import (enter_split, gather_leaf, keep_scope, project_out,
                                            split_sum, split_ways)
 from repro_torch.kernels import flash_attention as kflash
@@ -150,7 +150,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         causal, window, scale = ctx.opts
-        with torch.enable_grad(), record_function("attention_flash.backward"):
+        with torch.enable_grad(), span("attention_flash.backward"):
             q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
             out = attention_chunked(q, k, v, causal=causal, window=window,
                                     scale=scale)

@@ -164,6 +164,7 @@ from repro_torch.core import (VPE, decode_horizon_bucket, kv_layout_bucket,
                               prefill_chunk_bucket, prefix_len_bucket,
                               shard_bucket, slo_pressure_bucket,
                               spec_accept_bucket)
+from repro_torch.core.spans import span
 from repro_torch.distributed.group import ShardGroup, ShardScope, shard_scope
 from repro_torch.distributed.sharding import shard_params, shard_plan
 from repro_torch.distributed.straggler import StepWatchdog, StragglerTimeout
@@ -249,6 +250,9 @@ class ServeStats:
     decode_steps: int = 0
     ttft_s: List[float] = dataclasses.field(default_factory=list)
     queue_wait_s: List[float] = dataclasses.field(default_factory=list)
+    # per first token: its request's wait for chunk turns while admitted
+    # (``Request.prefill_wait_s``)
+    prefill_wait_s: List[float] = dataclasses.field(default_factory=list)
     # shared-prefix cache (0 when the cache is off): lookups, admissions
     # that reused a cached prefix, prompt tokens served from cached pages
     prefix_lookups: int = 0
@@ -455,12 +459,17 @@ class Request:
     done: bool = False
     # filled by the engine: submit wall-clock (queue-wait/TTFT baseline),
     # the decode-step indices bounding the slot residency, and the
-    # per-request latency record (0 <= queue <= ttft <= done_t - submit_t)
+    # per-request latency record (0 <= queue <= ttft <= done_t - submit_t),
+    # and the part of first admission -> first token in which the request
+    # sat admitted while other slots' chunks and decode calls ran: that
+    # wall less its placement and its own chunk walls (a contiguous
+    # admission prefills at once: 0)
     submit_t: float = 0.0
     admit_step: int = -1
     done_step: int = -1
     queue_wait_s: float = 0.0
     ttft_s: float = 0.0
+    prefill_wait_s: float = 0.0
     done_t: float = 0.0
     # the prefix-cache pin held while resident, and the times a later
     # request was admitted ahead of this one (bounded by its class's
@@ -1836,7 +1845,8 @@ class ContinuousBatchingEngine:
             if i is None:
                 break
             self._chunk_rr = (i + 1) % self.num_slots
-            self._run_one_chunk(i)
+            with span("serve.prefill_chunk"):
+                self._run_one_chunk(i)
             ran = True
         if ran:
             self.stats.chunk_budget_hist[budget] = \
@@ -1990,6 +2000,13 @@ class ContinuousBatchingEngine:
         if not req.ttft_recorded:
             req.ttft_s = time.perf_counter() - req.submit_t
             self.stats.ttft_s.append(req.ttft_s)
+            if slot.layout == "paged":
+                # a request preempted before its first token counts its
+                # earlier residencies whole
+                req.prefill_wait_s = max(
+                    0.0, req.ttft_s - req.queue_wait_s - slot.place_wall
+                    - sum(slot.chunk_walls))
+            self.stats.prefill_wait_s.append(req.prefill_wait_s)
             req.ttft_recorded = True
         # positions in KV before this emission: prompt + earlier output
         eff_len = len(req.prompt) + len(req.out)
@@ -2189,135 +2206,140 @@ class ContinuousBatchingEngine:
         poisoned slot commits nothing and is quarantined."""
         fused = H > 1
         fault = self._take_fault("fused" if fused else "decode")
-        if self.pages is not None:
-            self._grow_block_tables(span=H, remaining=remaining)
-            remaining = {i: r for i, r in remaining.items()
-                         if self.slots[i].req is not None
-                         and not self.slots[i].prefilling}
-            if not remaining:
+        with span("serve.decode.prepare"):
+            if self.pages is not None:
+                self._grow_block_tables(span=H, remaining=remaining)
+                remaining = {i: r for i, r in remaining.items()
+                             if self.slots[i].req is not None
+                             and not self.slots[i].prefilling}
+                if not remaining:
+                    return
+            self._refresh_device_masks()
+            if fused and fault is not None and fault.kind == "device":
+                self._span_device_fault(
+                    "horizon", list(remaining),
+                    "injected device fault in fused horizon call")
                 return
-        self._refresh_device_masks()
-        if fused and fault is not None and fault.kind == "device":
-            self._span_device_fault(
-                "horizon", list(remaining),
-                "injected device fault in fused horizon call")
-            return
-        bucket = occupancy_bucket(len(remaining), self.num_slots,
-                                  levels=self.occupancy_levels) \
-            + self._shard_tail
-        name = self._select_decode_impl(bucket)
-        impl = self._resolve_impl(name)
-        if not fused and fault is not None and fault.kind == "device":
-            # the kernel variant takes the blame only when it would have
-            # run: grouped has no rung below it
-            rung = "decode_cuda" if impl in kvcache.PAGED_KERNEL_IMPLS else None
-            self._span_device_fault(rung, list(remaining),
-                                    "injected device fault in decode step")
-            return
-        budget = np.zeros((self.num_slots,), np.int32)
-        for i, rem in remaining.items():
-            budget[i] = rem
-        self.graphs.budget.copy_(torch.from_numpy(budget))
+            bucket = occupancy_bucket(len(remaining), self.num_slots,
+                                      levels=self.occupancy_levels) \
+                + self._shard_tail
+            name = self._select_decode_impl(bucket)
+            impl = self._resolve_impl(name)
+            if not fused and fault is not None and fault.kind == "device":
+                # the kernel variant takes the blame only when it would have
+                # run: grouped has no rung below it
+                rung = ("decode_cuda" if impl in kvcache.PAGED_KERNEL_IMPLS
+                        else None)
+                self._span_device_fault(rung, list(remaining),
+                                        "injected device fault in decode step")
+                return
+            budget = np.zeros((self.num_slots,), np.int32)
+            for i, rem in remaining.items():
+                budget[i] = rem
+            self.graphs.budget.copy_(torch.from_numpy(budget))
         t0 = time.perf_counter()
         # greedy argmax on the device; only the (slots, H) token block and
         # valid mask cross to the host, and that copy is the call's fence
-        out, captured = self.graphs.launch(impl, H)
+        with span("serve.decode.launch"):
+            out, captured = self.graphs.launch(impl, H)
         host, tripped = self._guarded_fence(out, fault)
-        toks, emits = host[0], host[1]
         dt = time.perf_counter() - t0
-        self.stats.decode_s += dt
-        self.stats.decode_steps += H
-        self.stats.horizon_hist[H] = self.stats.horizon_hist.get(H, 0) + 1
-        if tripped:
-            # the fence stalled: its tokens arrived and are committed, and
-            # the variant that hung is demoted (a grouped single step has
-            # nothing below it)
+        with span("serve.decode.commit"):
+            toks, emits = host[0], host[1]
+            self.stats.decode_s += dt
+            self.stats.decode_steps += H
+            self.stats.horizon_hist[H] = self.stats.horizon_hist.get(H, 0) + 1
+            if tripped:
+                # the fence stalled: its tokens arrived and are committed, and
+                # the variant that hung is demoted (a grouped single step has
+                # nothing below it)
+                if fused:
+                    self._demote("horizon")
+                elif impl in kvcache.PAGED_KERNEL_IMPLS:
+                    self._demote("decode_cuda")
+            if fault is not None and fault.kind == "nan":
+                # poisoned logits: an out-of-vocab sentinel on the planned
+                # slot's rows (all rows without one); the validation below
+                # quarantines what a real NaN would hit
+                toks = toks.copy()
+                if fused:
+                    rows = ([fault.slot] if fault.slot is not None
+                            and fault.slot in remaining else list(remaining))
+                    toks[rows, :] = -1
+                elif fault.slot is not None:
+                    toks[fault.slot, :] = -1
+                else:
+                    toks[:, :] = -1
+            tainted = captured or tripped
+            self.stats.tainted_steps += tainted
+            valid_total = int(emits.sum())
             if fused:
-                self._demote("horizon")
-            elif impl in kvcache.PAGED_KERNEL_IMPLS:
-                self._demote("decode_cuda")
-        if fault is not None and fault.kind == "nan":
-            # poisoned logits: an out-of-vocab sentinel on the planned
-            # slot's rows (all rows without one); the validation below
-            # quarantines what a real NaN would hit
-            toks = toks.copy()
-            if fused:
-                rows = ([fault.slot] if fault.slot is not None
-                        and fault.slot in remaining else list(remaining))
-                toks[rows, :] = -1
-            elif fault.slot is not None:
-                toks[fault.slot, :] = -1
-            else:
-                toks[:, :] = -1
-        tainted = captured or tripped
-        self.stats.tainted_steps += tainted
-        valid_total = int(emits.sum())
-        if fused:
-            self.stats.horizon_calls += 1
-            self.stats.horizon_tokens += valid_total
-        if self.vpe is not None and not tainted:
-            # the decode-attention axis keeps per-STEP units
-            self.vpe.profiler.record(self._axis, name, bucket, dt / H)
-            self.vpe.controller.on_sample(self._axis, bucket, name)
-        share = dt / max(valid_total, 1)
-        vocab = self.cfg.vocab_size
-        quarantine: List[int] = []
-        probe_off = probe_acc = 0
-        self._probe_tick += 1
-        probing = (self.spec_draft == "auto"
-                   and self._probe_tick % self._probe_every == 0)
-        for i in remaining:
-            slot = self.slots[i]
-            # a slot stops at most once, so its valid tokens are a prefix
-            e = int(emits[i].sum())
-            new_toks = [int(t) for t in toks[i, :e]]
-            if any(t < 0 or t >= vocab for t in new_toks):
-                # garbage logits for this slot: nothing of the call is
-                # committed, and it is quarantined after the loop
-                quarantine.append(i)
-                continue
-            slot.req.out.extend(new_toks)
-            if self.proposer is not None:
-                if probing and new_toks:
-                    # the counterfactual probe reads the context before
-                    # observe() moves it
-                    probe_acc += self._probe_accept(i, new_toks)
-                    probe_off += len(new_toks)
-                self.proposer.observe(i, new_toks)
-            slot.tok = new_toks[-1]
-            slot.pos += e
-            slot.steps_resident += e
-            if not tainted:
-                slot.clean_step_shares.extend([share] * e)
-            self.stats.tokens_out += e
-            if slot.layout == "paged":
-                self._rollback_reserved(i)
-            self._retire_if_done(i)
-        for i in quarantine:
-            self._numeric_fault(
-                i, "out-of-range token from "
-                + ("fused horizon call" if fused else "decode step"))
-        self._update_accept_ema(probe_off, probe_acc)
-        if fault is None and not tripped:
-            self._tick_probation()
-        if self.vpe is not None and not tainted and valid_total:
-            # per-TOKEN wall of the whole span (reservation, call, fence,
-            # commit — the host work a horizon amortizes); frozen steps
-            # emit nothing, so an over-long horizon pays for itself here.
-            # The SLO charge makes the same wall cost more while queued
-            # (above all interactive) requests wait it out.  With the spec
-            # axis live and "off" selected, this plain call is its off
-            # variant, fed in the verify path's units.
-            charge = 1.0 + self.slo_weight * self._queue_pressure()
-            per_tok = (time.perf_counter() - t_h) / valid_total * charge
-            if hbucket is not None:
-                self.vpe.profiler.record("decode_horizon", hname, hbucket,
-                                         per_tok)
-                self.vpe.controller.on_sample("decode_horizon", hbucket, hname)
-            if self._spec_off_pending is not None:
-                sb, sn = self._spec_off_pending
-                self.vpe.profiler.record("spec_draft", sn, sb, per_tok)
-                self.vpe.controller.on_sample("spec_draft", sb, sn)
+                self.stats.horizon_calls += 1
+                self.stats.horizon_tokens += valid_total
+            if self.vpe is not None and not tainted:
+                # the decode-attention axis keeps per-STEP units
+                self.vpe.profiler.record(self._axis, name, bucket, dt / H)
+                self.vpe.controller.on_sample(self._axis, bucket, name)
+            share = dt / max(valid_total, 1)
+            vocab = self.cfg.vocab_size
+            quarantine: List[int] = []
+            probe_off = probe_acc = 0
+            self._probe_tick += 1
+            probing = (self.spec_draft == "auto"
+                       and self._probe_tick % self._probe_every == 0)
+            for i in remaining:
+                slot = self.slots[i]
+                # a slot stops at most once, so its valid tokens are a prefix
+                e = int(emits[i].sum())
+                new_toks = [int(t) for t in toks[i, :e]]
+                if any(t < 0 or t >= vocab for t in new_toks):
+                    # garbage logits for this slot: nothing of the call is
+                    # committed, and it is quarantined after the loop
+                    quarantine.append(i)
+                    continue
+                slot.req.out.extend(new_toks)
+                if self.proposer is not None:
+                    if probing and new_toks:
+                        # the counterfactual probe reads the context before
+                        # observe() moves it
+                        probe_acc += self._probe_accept(i, new_toks)
+                        probe_off += len(new_toks)
+                    self.proposer.observe(i, new_toks)
+                slot.tok = new_toks[-1]
+                slot.pos += e
+                slot.steps_resident += e
+                if not tainted:
+                    slot.clean_step_shares.extend([share] * e)
+                self.stats.tokens_out += e
+                if slot.layout == "paged":
+                    self._rollback_reserved(i)
+                self._retire_if_done(i)
+            for i in quarantine:
+                self._numeric_fault(
+                    i, "out-of-range token from "
+                    + ("fused horizon call" if fused else "decode step"))
+            self._update_accept_ema(probe_off, probe_acc)
+            if fault is None and not tripped:
+                self._tick_probation()
+            if self.vpe is not None and not tainted and valid_total:
+                # per-TOKEN wall of the whole span (reservation, call, fence,
+                # commit — the host work a horizon amortizes); frozen steps
+                # emit nothing, so an over-long horizon pays for itself here.
+                # The SLO charge makes the same wall cost more while queued
+                # (above all interactive) requests wait it out.  With the spec
+                # axis live and "off" selected, this plain call is its off
+                # variant, fed in the verify path's units.
+                charge = 1.0 + self.slo_weight * self._queue_pressure()
+                per_tok = (time.perf_counter() - t_h) / valid_total * charge
+                if hbucket is not None:
+                    self.vpe.profiler.record("decode_horizon", hname, hbucket,
+                                             per_tok)
+                    self.vpe.controller.on_sample("decode_horizon", hbucket,
+                                                  hname)
+                if self._spec_off_pending is not None:
+                    sb, sn = self._spec_off_pending
+                    self.vpe.profiler.record("spec_draft", sn, sb, per_tok)
+                    self.vpe.controller.on_sample("spec_draft", sb, sn)
 
     # -- speculative decoding ------------------------------------------------
     def _select_spec(self, n_active: int
@@ -2372,98 +2394,102 @@ class ContinuousBatchingEngine:
         pages back and retire stopped slots — :meth:`_decode`'s structure
         with the drafts as input and the acceptance counted."""
         fault = self._take_fault("spec")
-        self._grow_block_tables(span=S, remaining=remaining)
-        remaining = {i: r for i, r in remaining.items()
-                     if self.slots[i].req is not None
-                     and not self.slots[i].prefilling}
-        if not remaining:
-            return
-        self._refresh_device_masks()
-        if fault is not None and fault.kind == "device":
-            self._span_device_fault(
-                "spec", list(remaining),
-                "injected device fault in speculative verify call")
-            return
-        # column 0 is each slot's last committed token (its score is the
-        # token a plain step would emit), columns 1.. the drafts; a miss
-        # pads with a wrong token, so speculation measures as a loss where
-        # the table has nothing
-        tokens = np.zeros((self.num_slots, S), np.int32)
-        for i, slot in enumerate(self.slots):
-            if slot.req is not None:
-                tokens[i, 0] = slot.tok
-            if i in remaining:
-                tokens[i, 1:] = self.proposer.draft(i, S - 1)
-        budget = np.zeros((self.num_slots,), np.int32)
-        for i, rem in remaining.items():
-            budget[i] = rem
-        self.graphs.budget.copy_(torch.from_numpy(budget))
+        with span("serve.decode.prepare"):
+            self._grow_block_tables(span=S, remaining=remaining)
+            remaining = {i: r for i, r in remaining.items()
+                         if self.slots[i].req is not None
+                         and not self.slots[i].prefilling}
+            if not remaining:
+                return
+            self._refresh_device_masks()
+            if fault is not None and fault.kind == "device":
+                self._span_device_fault(
+                    "spec", list(remaining),
+                    "injected device fault in speculative verify call")
+                return
+            # column 0 is each slot's last committed token (its score is the
+            # token a plain step would emit), columns 1.. the drafts; a miss
+            # pads with a wrong token, so speculation measures as a loss where
+            # the table has nothing
+            tokens = np.zeros((self.num_slots, S), np.int32)
+            for i, slot in enumerate(self.slots):
+                if slot.req is not None:
+                    tokens[i, 0] = slot.tok
+                if i in remaining:
+                    tokens[i, 1:] = self.proposer.draft(i, S - 1)
+            budget = np.zeros((self.num_slots,), np.int32)
+            for i, rem in remaining.items():
+                budget[i] = rem
+            self.graphs.budget.copy_(torch.from_numpy(budget))
         t0 = time.perf_counter()
-        out, captured = self.graphs.verify(tokens)
+        with span("serve.decode.launch"):
+            out, captured = self.graphs.verify(tokens)
         host, tripped = self._guarded_fence(out, fault)
-        toks, emits = host[0], host[1]
         dt = time.perf_counter() - t0
-        self.stats.decode_s += dt
-        self.stats.decode_steps += 1
-        self.stats.spec_calls += 1
-        if tripped:
-            self._demote("spec")
-        if fault is not None and fault.kind == "nan":
-            toks = toks.copy()
-            rows = ([fault.slot] if fault.slot is not None
-                    and fault.slot in remaining else list(remaining))
-            toks[rows, :] = -1
-        tainted = captured or tripped
-        self.stats.tainted_steps += tainted
-        valid_total = int(emits.sum())
-        share = dt / max(valid_total, 1)
-        vocab = self.cfg.vocab_size
-        quarantine: List[int] = []
-        offered_total = accepted_total = 0
-        for i in remaining:
-            slot = self.slots[i]
-            # the committed tokens are a prefix of the span
-            e = int(emits[i].sum())
-            new_toks = [int(t) for t in toks[i, :e]]
-            if any(t < 0 or t >= vocab for t in new_toks):
-                quarantine.append(i)
-                continue
-            # the drafts this slot's budget could still commit (k drafts
-            # need k + 1 <= budget), and those that landed
-            offered = min(S - 1, max(remaining[i] - 1, 0))
-            acc = max(e - 1, 0)
-            offered_total += offered
-            accepted_total += acc
-            self.stats.draft_tokens += offered
-            self.stats.accepted_tokens += acc
-            self.stats.accept_hist[acc] = self.stats.accept_hist.get(acc, 0) + 1
-            slot.req.out.extend(new_toks)
-            self.proposer.observe(i, new_toks)
-            slot.tok = new_toks[-1]
-            slot.pos += e
-            slot.steps_resident += e
-            if not tainted:
-                slot.clean_step_shares.extend([share] * e)
-            self.stats.tokens_out += e
-            if slot.layout == "paged":
-                self._rollback_reserved(i)
-            self._retire_if_done(i)
-        for i in quarantine:
-            self._numeric_fault(
-                i, "out-of-range token from speculative verify call")
-        self._update_accept_ema(offered_total, accepted_total)
-        if fault is None and not tripped:
-            self._tick_probation()
-        if self.vpe is not None and sbucket is not None and not tainted \
-                and valid_total:
-            # per-COMMITTED-token wall of the whole span (drafting,
-            # reservation, call, fence, commit): drafts that miss commit
-            # ~1 token a call and price the span out
-            charge = 1.0 + self.slo_weight * self._queue_pressure()
-            self.vpe.profiler.record("spec_draft", sname, sbucket,
-                                     (time.perf_counter() - t_h)
-                                     / valid_total * charge)
-            self.vpe.controller.on_sample("spec_draft", sbucket, sname)
+        with span("serve.decode.commit"):
+            toks, emits = host[0], host[1]
+            self.stats.decode_s += dt
+            self.stats.decode_steps += 1
+            self.stats.spec_calls += 1
+            if tripped:
+                self._demote("spec")
+            if fault is not None and fault.kind == "nan":
+                toks = toks.copy()
+                rows = ([fault.slot] if fault.slot is not None
+                        and fault.slot in remaining else list(remaining))
+                toks[rows, :] = -1
+            tainted = captured or tripped
+            self.stats.tainted_steps += tainted
+            valid_total = int(emits.sum())
+            share = dt / max(valid_total, 1)
+            vocab = self.cfg.vocab_size
+            quarantine: List[int] = []
+            offered_total = accepted_total = 0
+            for i in remaining:
+                slot = self.slots[i]
+                # the committed tokens are a prefix of the span
+                e = int(emits[i].sum())
+                new_toks = [int(t) for t in toks[i, :e]]
+                if any(t < 0 or t >= vocab for t in new_toks):
+                    quarantine.append(i)
+                    continue
+                # the drafts this slot's budget could still commit (k drafts
+                # need k + 1 <= budget), and those that landed
+                offered = min(S - 1, max(remaining[i] - 1, 0))
+                acc = max(e - 1, 0)
+                offered_total += offered
+                accepted_total += acc
+                self.stats.draft_tokens += offered
+                self.stats.accepted_tokens += acc
+                self.stats.accept_hist[acc] = \
+                    self.stats.accept_hist.get(acc, 0) + 1
+                slot.req.out.extend(new_toks)
+                self.proposer.observe(i, new_toks)
+                slot.tok = new_toks[-1]
+                slot.pos += e
+                slot.steps_resident += e
+                if not tainted:
+                    slot.clean_step_shares.extend([share] * e)
+                self.stats.tokens_out += e
+                if slot.layout == "paged":
+                    self._rollback_reserved(i)
+                self._retire_if_done(i)
+            for i in quarantine:
+                self._numeric_fault(
+                    i, "out-of-range token from speculative verify call")
+            self._update_accept_ema(offered_total, accepted_total)
+            if fault is None and not tripped:
+                self._tick_probation()
+            if self.vpe is not None and sbucket is not None and not tainted \
+                    and valid_total:
+                # per-COMMITTED-token wall of the whole span (drafting,
+                # reservation, call, fence, commit): drafts that miss commit
+                # ~1 token a call and price the span out
+                charge = 1.0 + self.slo_weight * self._queue_pressure()
+                self.vpe.profiler.record("spec_draft", sname, sbucket,
+                                         (time.perf_counter() - t_h)
+                                         / valid_total * charge)
+                self.vpe.controller.on_sample("spec_draft", sbucket, sname)
 
     def step(self) -> bool:
         """One engine iteration; returns False when fully idle.
@@ -2484,7 +2510,8 @@ class ContinuousBatchingEngine:
         had_decoders = self.num_decoding > 0
         admits_before = len(self.stats.queue_wait_s)
         t_p = time.perf_counter()
-        self._admit()
+        with span("serve.admit"):
+            self._admit()
         ran_chunk = self._run_prefill_chunks()
         prefill_work = ran_chunk or len(self.stats.queue_wait_s) != admits_before
         n_active = self.num_decoding
@@ -2510,7 +2537,8 @@ class ContinuousBatchingEngine:
             fit = [c for c in choices if c <= S and c <= cap]
             S = max(fit) if fit else 0
         if S > 1:
-            self._spec_decode(S, sbucket, sname, remaining, t_h)
+            with span("serve.decode"):
+                self._spec_decode(S, sbucket, sname, remaining, t_h)
             return True
         if sbucket is not None:
             # the axis chose "off" (or the span clamped out): the plain
@@ -2522,7 +2550,8 @@ class ContinuousBatchingEngine:
                           if self.decode_horizon == "auto" else (H,))
                          if c <= H]
         H = max(c for c in allowed if c <= cap)
-        self._decode(H, hbucket, hname, remaining, t_h)
+        with span("serve.decode"):
+            self._decode(H, hbucket, hname, remaining, t_h)
         return True
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:

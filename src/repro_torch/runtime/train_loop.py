@@ -59,13 +59,13 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import VPE, block_until_ready
+from repro_torch.core.spans import span
 from repro_torch.data.pipeline import device_put_batch
 from repro_torch.distributed import sharding
 from repro_torch.distributed.group import MeshGroups, ShardScope, shard_scope
@@ -318,9 +318,9 @@ def make_train_step(
         return loss, grads, spec
 
     def train_step(params, opt_state, batch, lr):
-        with record_function("train_step.loss_and_grads"):
+        with span("train_step.loss_and_grads"):
             loss, grads, spec = grads_of(params, batch)
-        with record_function("train_step.optimizer"):
+        with span("train_step.optimizer"):
             return optimize(params, opt_state, loss, grads, spec, lr)
 
     def accumulate(params, batch):
