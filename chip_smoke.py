@@ -17,11 +17,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (paged kernels at qwen3-8b's head shapes and at qwen2-moe-a2.7b's, a
    group of 1; the flash kernel at h2o-danube-3-4b's, qwen3-8b's and
    qwen2-moe-a2.7b's, the training path's 4096 tokens among them, and the
-   autograd wiring of its gradient), bf16 (the tensor-core bodies of flash
-   and prefill) and f32 (CUDA-core bodies); then, at the shapes its path
-   gives it, its time beside its plain version's, one PyTorch library
-   call's (timed only: the port never calls it) and its bound, and the
-   decode kernel's time at qwen2-moe-a2.7b's heads;
+   autograd wiring of its gradient; the flash backward kernel's bf16
+   gradients against the f32 VJP of ``attention_chunked`` at danube's,
+   zamba2's, whisper's and a split rank's heads), bf16 (the tensor-core
+   bodies of flash and prefill) and f32 (CUDA-core bodies); then, at the
+   shapes its path gives it, its time beside its plain version's, one
+   PyTorch library call's (timed only: the port never calls it) and its
+   bound, and the decode kernel's time at qwen2-moe-a2.7b's heads;
 4. serving path: full-width qwen3-8b, all 36 layers (random weights from
    a seeded generator on the card), served by the continuous-batching
    engine on the paged layout with both paged kernels pinned, one decode
@@ -168,8 +170,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 7. training path: full h2o-danube-3-4b, all 24 layers (bf16 params, f32
    master/m/v, 1 x 4096 tokens, remat), trained by ``TrainLoop``: first
    with the VPE free until it concludes its ``attn_impl`` trial, then with
-   ``flash_cuda`` pinned, the flash launch count zeroed just before those
-   steps and read just after; then a full-size checkpoint save and
+   ``flash_cuda`` pinned, the flash launch counts zeroed just before those
+   steps and read just after (2 forward and 1 backward launches a layer a
+   step); then a full-size checkpoint save and
    restore of the params, the f32 master copy and the step (23.8 GB),
    every leaf zeroed before the restore and compared bit for bit after it
    (m and v stay out: the whole state, 55.5 GB, would pass the 45 GiB this
@@ -325,6 +328,27 @@ FLASH_CASES = ((2048, 2048, True, None), (2048, 2048, True, 1024),
                (2048, 2048, False, None), (2048, 2048, False, 1024),
                (300, 1100, True, 1024), (1000, 1000, True, 4096),
                (TRAIN_SEQ, TRAIN_SEQ, True, 4096))
+# flash backward checks (phase 3c): (heads, (S, T, causal, window)) at
+# danube's heads (a window under S; the training path's shape), zamba2's
+# D = 64 causal at 32/32 heads, whisper-base's non-causal encoder and its
+# cross-attention (S != T), and a head split at mp = 2 (16/4)
+FLASH_BWD_CASES = (((32, 8, 120), (1024, 1024, True, 512)),
+                   ((32, 8, 120), (TRAIN_SEQ, TRAIN_SEQ, True, 4096)),
+                   ((32, 32, 64), (1024, 1024, True, None)),
+                   ((8, 8, 64), (1500, 1500, False, None)),
+                   ((8, 8, 64), (256, 1500, False, None)),
+                   ((16, 4, 120), (1000, 1000, True, None)))
+# the bf16 backward against the f32 VJP, relative distance of each gradient
+# (its norm): rounding the gradients to bf16 alone gives ~2.3e-3 (CPU
+# tests), the kernel's P and dS roundings ~1e-4 more; a lost tile or a
+# wrong mask gives O(1)
+FLASH_BWD_REL = 1e-2
+# the backward kernel against its plain version (the same algorithm, the
+# same bf16 roundings of P and dS), (atol, rtol): both sum in f32 and round
+# once to bf16, so the gradients may sit one bf16 step apart (2^-7 of the
+# value); the atol covers gradients near 0, where a rounding of P or dS to
+# the other bf16 neighbour (exp2 against ex2.approx) moves a sum by more
+FLASH_BWD_TOL = (2e-2, 2 ** -7)
 # the contiguous admission's whole-prompt prefill (phase 4e(i)): qwen3-8b's
 # heads, causal, no window, S = T = the padded prompt lengths 64..512 (64 is
 # a single q tile)
@@ -357,6 +381,7 @@ SOURCES = {
     "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_prefill_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "conv2d": "src/repro_torch/kernels/csrc/conv2d.cu",
 }
@@ -364,6 +389,7 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:352",
     "paged_prefill_attention": "src/repro/kernels/paged_attention.py:268",
     "flash_attention": "src/repro/kernels/flash_attention.py:105",
+    "flash_attention_bwd": "none: src/repro/models/layers.py:149 (_flash_cvjp_bwd, plain VJP)",
     "matmul": "src/repro/kernels/matmul.py:48",
     "conv2d": "src/repro/kernels/conv2d.py:41",
 }
@@ -2043,6 +2069,7 @@ def phase_full_width_parity(cfg, params, dev, prompts, atol, tag="5b"):
 KERNEL_GROUPS = (("paged decode kernels", ("paged_decode",)),
                  ("paged prefill kernel", ("paged_prefill_kernel",)),
                  ("flash forward kernel", ("flash_fwd_kernel",)),
+                 ("flash backward kernels", ("flash_bwd",)),
                  ("f32 GEMMs", ("f32f32", "sgemm")),
                  ("other GEMMs", ("nvjet", "gemm", "xmma")),
                  ("softmax", ("softmax",)),
@@ -3008,7 +3035,8 @@ def phase_flash_checks(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import layers
-    say("[3c] flash kernel against its plain version (B=1)")
+    say("[3c] flash kernel against its plain version (B=1); the bf16 backward "
+        "kernel against the f32 VJP of attention_chunked")
     gen = torch.Generator(dev).manual_seed(6)
     err = 0.0
     cases = [(h, c) for h in FLASH_HEADS for c in FLASH_CASES] + [
@@ -3043,6 +3071,54 @@ def phase_flash_checks(dev):
                                    outs["flash_cuda"][i], outs["reference"][i],
                                    *flash_tolerance(torch.float32)))
     return err
+
+
+def phase_flash_bwd_checks(dev) -> float:
+    """Phase 3c's backward half: :func:`check_flash_bwd` at
+    :data:`FLASH_BWD_CASES`; returns the largest absolute error."""
+    import torch
+    gen = torch.Generator(dev).manual_seed(16)
+    return max(check_flash_bwd(gen, *heads, S, T, causal, window)
+               for heads, (S, T, causal, window) in FLASH_BWD_CASES)
+
+
+def check_flash_bwd(gen, Hq, Hkv, D, S, T, causal, window) -> float:
+    """The bf16 gradients of ``attention_flash`` (the forward kernel with its
+    log-sum-exp, then the backward kernel) against autograd through
+    ``attention_chunked`` in f32 (TF32 off) at the same bf16 inputs; held
+    by :data:`FLASH_BWD_REL` on each gradient's norm.  Returns the largest
+    absolute error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    q, k, v = (t.requires_grad_() for t in
+               flash_inputs(gen, torch.bfloat16, Hq, Hkv, S, T, D))
+    g = torch.randn(q.shape, generator=gen, device=q.device).bfloat16()
+    before = fa.flash_attention_bwd_cuda.launches
+    o = layers.attention_flash(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    with ref.full_f32():
+        q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+        o32 = layers.attention_chunked(q32, k32, v32, causal=causal, window=window)
+        want = torch.autograd.grad(o32, (q32, k32, v32), g.float())
+    torch.cuda.synchronize()
+    if fa.flash_attention_bwd_cuda.launches != before + 1:
+        raise AssertionError("attention_flash's bf16 backward did not launch the kernel")
+    worst = 0.0
+    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"flash backward {what}: non-finite gradient")
+        rel = float((a.float() - b).norm() / b.norm())
+        err = float((a.float() - b).abs().max())
+        say(f"  attention_flash bf16 {what} vs attention_chunked f32 VJP (Hq={Hq} "
+            f"Hkv={Hkv} D={D} S={S} T={T} causal={causal} window={window}): relative "
+            f"distance {rel} (limit {FLASH_BWD_REL}), max_abs_err {err}")
+        if rel > FLASH_BWD_REL:
+            raise AssertionError(f"flash backward {what}: relative distance {rel} "
+                                 f"exceeds {FLASH_BWD_REL}")
+        worst = max(worst, err)
+    return worst
 
 
 def flash_work(S, T, Hq, Hkv, D, causal, window, elem):
@@ -3092,6 +3168,58 @@ def phase_flash_time(dev, cfg):
     del flush
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, bytes=nbytes, ops=ops,
+                shape=shape)
+
+
+def phase_flash_bwd_time(dev, cfg):
+    """The flash backward kernel at the training path's shapes (bf16, from
+    the forward kernel's output and log-sum-exp): checked against its plain
+    version (``ref.flash_attention_bwd_ref``); kernel, the f32 VJP of
+    ``attention_chunked`` (the plain backward it replaced) and SDPA's
+    backward (timed only) timed with L2 flushed; the bound is twice the
+    forward's operations and bytes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    S = T = TRAIN_SEQ
+    Hq, Hkv, D, window = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.window
+    if window is not None and window < S:
+        raise AssertionError("the SDPA yardstick assumes the window spans the sequence")
+    gen = torch.Generator(dev).manual_seed(8)
+    q, k, v = flash_inputs(gen, torch.bfloat16, Hq, Hkv, S, T, D)
+    g = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=window, with_lse=True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    kernel = lambda: fa.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, lse, g, causal=True, window=window)
+    shape = f"B=1 Hq={Hq} Hkv={Hkv} S=T={S} D={D} causal window={window} bf16"
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=True, window=window,
+                                       block_q=256, block_k=256)
+    err = max(check_close(f"flash_attention_bwd {what} [{shape}]", a, b, *FLASH_BWD_TOL)
+              for what, a, b in zip(("dq", "dk", "dv"), kernel(), want))
+    del want
+    ms = device_ms(kernel, flush)
+    tq, tk, tv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def plain():
+        with ref.full_f32():
+            o = layers.attention_chunked(tq, tk, tv, causal=True, window=window)
+            return torch.autograd.grad(o, (tq, tk, tv), g)
+
+    plain_ms = device_ms(plain, flush, iters=5)
+    so = F.scaled_dot_product_attention(tq, tk, tv, is_causal=True, enable_gqa=True)
+    library_ms = device_ms(lambda: torch.autograd.grad(so, (tq, tk, tv), g,
+                                                       retain_graph=True), flush)
+    nbytes, ops = flash_work(S, T, Hq, Hkv, D, True, window, 2)
+    bound_ms, bound_by = bound(2 * nbytes, 2 * ops, "bfloat16")
+    say(f"  flash_attention_bwd [{shape}]: kernel {ms} ms, plain {plain_ms} ms, "
+        f"SDPA backward {library_ms} ms, bound {bound_ms} ms ({bound_by}: {2 * nbytes} B, "
+        f"{2 * ops} ops), kernel/bound {ms / bound_ms}, max_abs_err vs plain {err}")
+    del flush, so
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, bytes=2 * nbytes, ops=2 * ops,
                 shape=shape)
 
 
@@ -3170,6 +3298,7 @@ def phase_train(dev, trace_dir):
     metrics = loop.run(first + TRAIN_STEPS)[-TRAIN_STEPS:]
     torch.cuda.synchronize()
     launches = fa.flash_attention_cuda.launches
+    bwd_launches = fa.flash_attention_bwd_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     expected = 2 * cfg.num_layers * TRAIN_STEPS
     losses = [m["loss"] for m in metrics]
@@ -3182,11 +3311,14 @@ def phase_train(dev, trace_dir):
         f"model FLOPs {flops} per step ({attn_flops} of them attention) -> "
         f"{flops / step_s / PEAK_OPS_PER_S['bfloat16']} of 989 TFLOP/s; peak "
         f"memory {peak} B ({peak / 2 ** 30} GiB); flash launches {launches} "
-        f"(expected {expected}: 2 per layer per step under remat)")
+        f"(expected {expected}: 2 per layer per step under remat), backward "
+        f"launches {bwd_launches} (expected {expected // 2}: 1 per layer per step)")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if launches != expected:
         raise AssertionError(f"flash launches {launches} != {expected}")
+    if bwd_launches != expected // 2:
+        raise AssertionError(f"flash backward launches {bwd_launches} != {expected // 2}")
 
     traces = None
     if trace_dir:
@@ -3194,7 +3326,8 @@ def phase_train(dev, trace_dir):
         say("[7b] trace of one training step (torch.profiler)")
         traces = profiled(lambda: loop.run_step(batch), "train_step", trace_dir,
                           ranges=("train_step.loss_and_grads", "train_step.optimizer",
-                                  "attention_flash.backward"))
+                                  "attention_flash.backward",
+                                  "attention_flash.backward.plain"))
 
     # full-size checkpoint round trip of the bf16 params, the f32 master
     # copy and the step, through the checkpoint module TrainLoop.save and
@@ -3239,7 +3372,7 @@ def phase_train(dev, trace_dir):
                tokens_per_s=tokens / step_s, flops=flops,
                mfu=flops / step_s / PEAK_OPS_PER_S["bfloat16"], peak_bytes=peak,
                launches=launches, ckpt_bytes=on_disk, save_s=save_s,
-               restore_s=restore_s, trace=traces)
+               restore_s=restore_s, trace=traces, bwd_launches=bwd_launches)
     del loop
     gc.collect()
     torch.cuda.empty_cache()
@@ -5096,9 +5229,11 @@ def run_phases(args, dev, t_start) -> int:
     errors = phase_kernel_checks(dev)
     times = phase_kernel_times(dev, [len(p) for p in traffic(VOCAB)])
     errors["flash_attention"] = phase_flash_checks(dev)
-    say("[3d] flash kernel time at the training path's shapes (median of 20 "
-        "calls, L2 flushed before each)")
+    errors["flash_attention_bwd"] = phase_flash_bwd_checks(dev)
+    say("[3d] flash kernel times at the training path's shapes (median of 20 "
+        "calls, L2 flushed before each): forward, then backward")
     times["flash_attention"] = phase_flash_time(dev, get_config(TRAIN_ARCH))
+    times["flash_attention_bwd"] = phase_flash_bwd_time(dev, get_config(TRAIN_ARCH))
     cfg, params, prompts, main_run = phase_main_path(dev)
     main_logits = main_run.pop("first_logits")
     fused = phase_fused_horizons(cfg, params, dev, prompts, main_run)
@@ -5140,6 +5275,8 @@ def run_phases(args, dev, t_start) -> int:
     train_parity = phase_train_parity(dev)
     main_run["launches"]["flash_attention"] = train["launches"]
     by_path["flash_attention"] = {"7 training": train["launches"]}
+    main_run["launches"]["flash_attention_bwd"] = train["bwd_launches"]
+    by_path["flash_attention_bwd"] = {"7 training": train["bwd_launches"]}
     train_mesh = phase_train_mesh(dev)
     by_path["flash_attention"].update(train_mesh["launches"])
     dry_run = phase_dry_run(train_mesh)
@@ -5158,7 +5295,7 @@ def run_phases(args, dev, t_start) -> int:
 
     kernels = []
     for name in ("paged_decode_attention", "paged_prefill_attention",
-                 "flash_attention", "matmul", "conv2d"):
+                 "flash_attention", "flash_attention_bwd", "matmul", "conv2d"):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` (paged attention, flash attention, matmul,
-conv2d, and the attention tile core ``attention_tile.cuh`` that the first
-two include) are compiled for Hopper (``sm_90a``) by one ``nvcc`` process
+The sources in ``csrc/`` (paged attention, flash attention forward and
+backward, matmul, conv2d, the attention tile core ``attention_tile.cuh``
+that the attention kernels include, and ``tensor_map.cuh``, the flash
+kernels' TMA maps) are compiled for Hopper (``sm_90a``) by one ``nvcc`` process
 per ``.cu`` file, all started together, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The library
 goes to ``build/repro_torch_kernels/`` at the root of the checkout, named
@@ -37,7 +38,11 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _P) + (_I,) * 8 + (_F, _I, _P), _I),
     "repro_paged_decode_smem": ((_I,) * 4, ctypes.c_size_t),
     "repro_paged_prefill_smem": ((_I, _I, _I), ctypes.c_size_t),
-    "repro_flash_attention": ((_P,) * 4 + (_I,) * 10 + (_F, _I, _P), _I),
+    "repro_flash_attention": ((_P,) * 5 + (_I,) * 10 + (_F, _I, _P), _I),
+    "repro_flash_attention_bwd": ((_P,) * 10 + (_I,) * 10 + (_F, _I, _P), _I),
+    "repro_flash_bwd_block_q": ((), _I),
+    "repro_flash_bwd_block_k": ((), _I),
+    "repro_flash_bwd_head_tile": ((_I,), _I),
     "repro_flash_block_q": ((_I,), _I),
     "repro_flash_block_k": ((_I,), _I),
     "repro_flash_max_head_dim": ((), _I),

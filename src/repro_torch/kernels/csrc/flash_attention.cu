@@ -44,7 +44,8 @@
 // Hq / Hkv heads of one KV head run together and share its K/V tiles in
 // L2, and the q tiles with the longest causal loops start first.  The
 // maps are encoded on the host with cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint (no -lcuda).
+// through cudaGetDriverEntryPoint (no -lcuda; tensor_map.cuh, shared with
+// the backward).
 //
 // f32 body (flash_fwd_kernel): the tensor cores have no f32 product, so it
 // runs both products on CUDA cores in f32 (67 TFLOP/s peak against 989
@@ -64,7 +65,10 @@
 // does not take.  dtype 0 = float32, 1 = bfloat16; q, k, v and out share
 // it and are contiguous; S and T must be multiples of the dtype's tiles
 // (repro_flash_block_q/_k; the wrapper pads); window < 0 means no sliding
-// window.
+// window.  lse, when not null (bf16 only), receives each row's
+// log-sum-exp, (B, Hq, S) f32, which the backward kernel
+// (flash_attention_bwd.cu) reads; a null lse runs the forward alone, and
+// the output is the same bit for bit either way.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -73,6 +77,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -280,12 +285,25 @@ constexpr size_t kSmem16 = 1024 +             // slack to align the tiles to 102
                            (size_t)attn_tile::kTileBytes * (kWG + 2 * kStages) +
                            sizeof(uint64_t) * (2 * kStages + 3);
 
+// The log-sum-exp of rows ra (dst[0]) and ra + 8 (dst[8]) in natural units
+// of the scaled scores, (m + log2 l) ln 2, for the backward; -inf for a
+// row with no valid column.  Every thread of the warpgroup calls it (the
+// quad sums shuffle).
+__device__ __forceinline__ void store_lse(const attn_tile::Softmax& st, float* dst) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = attn_tile::quad_sum(st.l[r]);
+    if (threadIdx.x % 4 == 0)
+      dst[8 * r] = l == 0.f ? -INFINITY : (st.m[r] + log2f(l)) * 0.6931471805599453f;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads16, 1)
 flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                      int Hq, int Hkv, int S, int T_, int D, int t_valid, int q_offset,
-                      int causal, int window, float scale_log2) {
+                      float* __restrict__ lse, int Hq, int Hkv, int S, int T_, int D,
+                      int t_valid, int q_offset, int causal, int window, float scale_log2) {
   using namespace attn_tile;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -372,54 +390,17 @@ flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tq,
       });
   __nv_bfloat16* ob = out + (((size_t)b * Hq + h) * S + (size_t)qi * kBQ16 + wg * kRows) * D;
   store_rows(o, state, D, [&](int slot) { return ob + (size_t)(ra + 8 * slot) * D; });
+  if (lse != nullptr)
+    store_lse(state, lse + ((size_t)b * Hq + h) * S + (size_t)qi * kBQ16 + wg * kRows + ra);
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime so that
-// the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (rows, D) bf16 matrix as 64 x 64 boxes in the 128-byte swizzle; boxes
-// reaching past D or past the last row are filled with zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, size_t rows, int D) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, 64};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-                int S, int T_, int D, int t_valid, int q_offset, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                int Hq, int Hkv, int S, int T_, int D, int t_valid, int q_offset, int causal,
+                int window, float scale, cudaStream_t stream) {
   if (D % 8 || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
+  using attn_tile::tensor_map;
   if (!tensor_map(&tq, q, (size_t)B * Hq * S, D) || !tensor_map(&tk, k, (size_t)B * Hkv * T_, D) ||
       !tensor_map(&tv, v, (size_t)B * Hkv * T_, D))
     return (int)cudaErrorInvalidValue;
@@ -428,8 +409,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hq, S / kBQ16, B);
   flash_fwd_kernel_bf16<<<grid, kThreads16, kSmem16, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Hq, Hkv, S, T_, D, t_valid, q_offset,
-      causal, window, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Hq, Hkv, S, T_,
+      D, t_valid, q_offset, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -443,10 +424,12 @@ int repro_flash_block_q(int dtype) { return dtype == 1 ? kBQ16 : kBQ; }
 int repro_flash_block_k(int dtype) { return dtype == 1 ? attn_tile::kKeys : kBK; }
 int repro_flash_max_head_dim(void) { return kDP; }
 
-int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                          int Hq, int Hkv, int S, int T, int D, int t_valid, int q_offset,
-                          int causal, int window, float scale, int dtype, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+int repro_flash_attention(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int B, int Hq, int Hkv, int S, int T, int D, int t_valid,
+                          int q_offset, int causal, int window, float scale, int dtype,
+                          void* stream) {
+  if ((dtype != 0 && dtype != 1) || (dtype == 0 && lse != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int bq = repro_flash_block_q(dtype), bk = repro_flash_block_k(dtype);
   if (B < 1 || Hkv < 1 || Hq % Hkv || D < 1 || D > kDP || S < bq || S % bq || T < bk || T % bk)
     return (int)cudaErrorInvalidValue;
@@ -454,8 +437,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
   if (dtype == 0)
     return launch_f32(q, k, v, out, B, Hq, Hkv, S, T, D, t_valid, q_offset, causal, window,
                       scale, s);
-  return launch_bf16(q, k, v, out, B, Hq, Hkv, S, T, D, t_valid, q_offset, causal, window,
-                     scale, s);
+  return launch_bf16(q, k, v, out, lse, B, Hq, Hkv, S, T, D, t_valid, q_offset, causal,
+                     window, scale, s);
 }
 
 }  // extern "C"

@@ -3,7 +3,10 @@
 The counterparts of ``repro.kernels.ref``: ``matmul_ref`` and
 ``conv2d_ref``, and ``attention_ref``, ``paged_attention_ref`` and
 ``paged_prefill_attention_ref``, which materialise the score matrix (and,
-for the paged ones, the gather) that the CUDA kernels in ``csrc/`` avoid.
+for the paged ones, the gather) that the CUDA kernels in ``csrc/`` avoid;
+and, with no counterpart there (the JAX package has no backward kernel),
+``attention_lse_ref`` and ``flash_attention_bwd_ref``, the flash forward's
+saved log-sum-exp and the backward kernel's algorithm.
 They are what those kernels are held against — on the CPU (where the
 wrappers run them in place of the kernels) and on the card
 (``chip_smoke.py``).
@@ -196,20 +199,128 @@ def attention_ref(
     group = Hq // Hkv
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    if t_valid is None:
-        t_valid = T
-    if q_offset is None:
-        q_offset = T - S
-    kx = k.repeat_interleave(group, dim=1).float()
     vx = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kx) * scale
-    row = torch.arange(S, device=q.device)[:, None] + q_offset
-    col = torch.arange(T, device=q.device)[None, :]
+    s = _masked_scores(q, k, causal, window, scale, t_valid, q_offset)
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhst,bhtd->bhsd", p, vx).to(q.dtype)
+
+
+def _kept(rows: torch.Tensor, cols: torch.Tensor, causal: bool, window: Optional[int],
+          t_valid: int) -> torch.Tensor:
+    """(len(rows), len(cols)) mask of the pairs attention keeps: query
+    positions ``rows`` against key positions ``cols``."""
+    row, col = rows[:, None], cols[None, :]
     mask = col < t_valid
     if causal:
         mask = mask & (col <= row)
     if window is not None:
         mask = mask & (col > row - window)
-    s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
-    return torch.einsum("bhst,bhtd->bhsd", p, vx).to(q.dtype)
+    return mask
+
+
+def _masked_scores(q, k, causal, window, scale, t_valid, q_offset) -> torch.Tensor:
+    """f32 scores q k^T * scale (B, Hq, S, T), grouped K heads repeated to
+    Hq, with the pairs attention drops at -inf; the defaults of
+    :func:`attention_ref`."""
+    S, T = q.shape[2], k.shape[2]
+    if t_valid is None:
+        t_valid = T
+    if q_offset is None:
+        q_offset = T - S
+    kx = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kx) * scale
+    mask = _kept(torch.arange(S, device=q.device) + q_offset,
+                 torch.arange(T, device=q.device), causal, window, t_valid)
+    return s.masked_fill(~mask, float("-inf"))
+
+
+def attention_lse_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    t_valid: Optional[int] = None,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """The log-sum-exp of each row's kept f32 scores (``q k^T * scale``),
+    (B, Hq, S) f32, with :func:`attention_ref`'s arguments: what the flash
+    kernel's bf16 body saves for the backward.  A row with no valid column
+    gives -inf."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = _masked_scores(q, k, causal, window, scale, t_valid, q_offset)
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    t_valid: Optional[int] = None,
+    q_offset: Optional[int] = None,
+    block_q: int = 64,
+    block_k: int = 64,
+) -> tuple:
+    """The gradients (dq, dk, dv) of attention, computed as the flash
+    backward kernel (``csrc/flash_attention_bwd.cu``) computes them: the
+    plain version it is held against.
+
+    q, o, g (the output's gradient): (B, Hq, S, D); k, v: (B, Hkv, T, D);
+    lse: (B, Hq, S) f32, the forward's :func:`attention_lse_ref`; the
+    other arguments as :func:`attention_ref`'s.  Tile by tile of
+    ``block_q`` rows and ``block_k`` keys, skipping tiles the mask drops
+    whole: P = exp(S * scale - lse) in f32 (0 where masked), dP = g V^T,
+    dS = P (dP - D) with D = rowsum(g o) in f32; P is rounded to bf16
+    before dV += P^T g, and dS before dK += dS^T q and dQ += dS K, each
+    product summed in f32; dq and dk take the scale at the end.  Grouped
+    query heads sum into their K/V head's dk, dv.  Returns q's, k's and
+    v's dtypes.
+    """
+    B, Hq, S, D = q.shape
+    _, Hkv, T, _ = k.shape
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if t_valid is None:
+        t_valid = T
+    if q_offset is None:
+        q_offset = T - S
+    log2e = 1.4426950408889634
+    qf = q.float().reshape(B, Hkv, G, S, D)
+    gf = g.float().reshape(B, Hkv, G, S, D)
+    kf, vf = k.float(), v.float()
+    lse2 = (lse.float() * log2e).reshape(B, Hkv, G, S, 1)
+    delta = (gf * o.float().reshape(B, Hkv, G, S, D)).sum(-1, keepdim=True)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    positions = torch.arange(max(S, T), device=q.device)
+    for c0 in range(0, T, block_k):
+        c1 = min(c0 + block_k, T)
+        for r0 in range(0, S, block_q):
+            r1 = min(r0 + block_q, S)
+            ok = _kept(positions[r0:r1] + q_offset, positions[c0:c1], causal, window,
+                       t_valid)
+            if not ok.any():
+                continue
+            qi, gi = qf[:, :, :, r0:r1], gf[:, :, :, r0:r1]
+            kj, vj = kf[:, :, c0:c1], vf[:, :, c0:c1]
+            s = torch.einsum("bhgsd,bhtd->bhgst", qi, kj)
+            p = torch.where(ok, torch.exp2(s * (scale * log2e) - lse2[:, :, :, r0:r1]), 0.0)
+            dp = torch.einsum("bhgsd,bhtd->bhgst", gi, vj)
+            ds = p * (dp - delta[:, :, :, r0:r1])
+            p, ds = _round(p, torch.bfloat16), _round(ds, torch.bfloat16)
+            dv[:, :, c0:c1] += torch.einsum("bhgst,bhgsd->bhtd", p, gi)
+            dk[:, :, c0:c1] += torch.einsum("bhgst,bhgsd->bhtd", ds, qi)
+            dq[:, :, :, r0:r1] += torch.einsum("bhgst,bhtd->bhgsd", ds, kj)
+    return ((dq * scale).reshape(B, Hq, S, D).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))

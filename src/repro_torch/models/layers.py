@@ -8,8 +8,9 @@ transpose.  Numerics follow the reference step by step: RoPE rotates
 interleaved pairs ``x[..., 0::2]``/``x[..., 1::2]``, and ``rmsnorm`` casts
 back to the input dtype *before* the gamma multiply.  Attention is a VPE
 op with two variants (``ATTENTION_VARIANTS``): ``reference``, the
-q-chunked softmax in plain PyTorch, and ``flash_cuda``, the forward flash
-kernel whose backward runs through the reference.
+q-chunked softmax in plain PyTorch, and ``flash_cuda``, the flash kernel,
+whose backward is the flash backward kernel in bf16 on the card and runs
+through the reference elsewhere.
 """
 
 from __future__ import annotations
@@ -135,32 +136,59 @@ def attention_chunked(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the flash kernel (its plain version on the CPU).  Backward:
-    the VJP of :func:`attention_chunked`, recomputed from the saved q, k, v
-    — ``repro.models.layers._flash_cvjp_bwd`` line for line (the JAX
-    package has no backward kernel either)."""
+    """Forward: the flash kernel (its plain version on the CPU).  Backward,
+    on a CUDA bf16 tensor: the flash backward kernel
+    (:func:`kflash.flash_attention_bwd_cuda`) from the saved q, k, v, output
+    and log-sum-exp.  Elsewhere (the CPU, f32): the VJP of
+    :func:`attention_chunked`, recomputed from the saved q, k, v —
+    ``repro.models.layers._flash_cvjp_bwd`` line for line (the JAX package
+    has no backward kernel), under the range
+    ``attention_flash.backward.plain``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        ctx.save_for_backward(q, k, v)
         ctx.opts = (causal, window, scale)
+        if _backward_kernel(q):
+            out, lse = kflash.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                                   scale=scale, with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return kflash.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, scale=scale)
 
     @staticmethod
     def backward(ctx, g):
         causal, window, scale = ctx.opts
-        with torch.enable_grad(), span("attention_flash.backward"):
-            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-            out = attention_chunked(q, k, v, causal=causal, window=window,
-                                    scale=scale)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        saved = ctx.saved_tensors        # unpacked once: remat's checkpoint allows no more
+        with span("attention_flash.backward"):
+            if len(saved) == 5:
+                dq, dk, dv = kflash.flash_attention_bwd_cuda(
+                    *saved, g, causal=causal, window=window, scale=scale)
+            else:
+                dq, dk, dv = _chunked_vjp(saved, g, causal, window, scale)
         return dq, dk, dv, None, None, None
 
 
+def _backward_kernel(q: torch.Tensor) -> bool:
+    """Whether :class:`_FlashAttention` saves the log-sum-exp and runs the
+    backward kernel: bf16 on the card (f32 keeps the plain VJP)."""
+    return q.device.type == "cuda" and q.dtype == torch.bfloat16
+
+
+def _chunked_vjp(saved, g, causal, window, scale):
+    """The VJP of :func:`attention_chunked` at the saved q, k, v, under its
+    own range, so a trace shows a backward that left the kernel."""
+    with torch.enable_grad(), span("attention_flash.backward.plain"):
+        q, k, v = (t.detach().requires_grad_() for t in saved)
+        out = attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
+        return torch.autograd.grad(out, (q, k, v), g)
+
+
 def attention_flash(q, k, v, *, causal=True, window=None, scale=None):
-    """Flash kernel variant: :func:`kflash.flash_attention_cuda` forward,
-    reference backward."""
+    """Flash kernel variant: :func:`kflash.flash_attention_cuda` forward;
+    the flash backward kernel in bf16 on the card, the reference backward
+    elsewhere."""
     return _FlashAttention.apply(q, k, v, causal, window, scale)
 
 

@@ -1153,6 +1153,142 @@ def test_cuda_train_step_flash_pinned(cuda_device):
     assert losses["flash_cuda"] == pytest.approx(losses["reference"], rel=1e-5)
 
 
+# the flash backward kernel: (B, Hq, Hkv, S, T, D, causal, window) — danube's
+# heads at S = 512 and at its training shape, zamba2's D = 64 causal at 32/32
+# heads, whisper's non-causal S != T both ways, a window under S, S, T and D
+# off the tiles, a head split at mp = 2 (16/4), and a batch of 2
+FLASH_BWD_CASES = [
+    (1, 32, 8, 512, 512, 120, True, None),
+    (1, 32, 8, 4096, 4096, 120, True, 4096),
+    (1, 32, 32, 256, 256, 64, True, None),
+    (2, 8, 8, 200, 300, 64, False, None),
+    (2, 8, 8, 32, 24, 64, False, None),
+    (1, 8, 2, 256, 256, 120, True, 100),
+    (1, 8, 2, 130, 250, 100, True, None),
+    (2, 16, 4, 1000, 1000, 120, True, None),
+]
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_cuda_flash_bwd_against_mirror_and_vjp(cuda_device, case):
+    """The backward kernel (bf16, from the forward kernel's output and
+    log-sum-exp) against its plain version, which makes the same bf16
+    roundings of P and dS (relative distance of each gradient under 1e-3;
+    measured on an H100 1e-4-3.6e-4: sums in another order, exp2 against
+    ex2.approx), and against autograd through ``attention_chunked`` in f32
+    (under 1e-2; measured 2.3e-3-2.5e-3 in chip_smoke phase 3c: the
+    gradients' own bf16 rounding)."""
+    B, Hq, Hkv, S, T, D, causal, window = case
+    gen = torch.Generator(cuda_device).manual_seed(31)
+    q, k, v, g = (torch.randn((B, h, n, D), generator=gen, device=cuda_device).bfloat16()
+                  for h, n in ((Hq, S), (Hkv, T), (Hkv, T), (Hq, S)))
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        with_lse=True)
+    before = tfa.flash_attention_bwd_cuda.launches
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_cuda.launches == before + 1
+    mirror = tref.flash_attention_bwd_ref(q, k, v, out, lse[:, :, :S], g, causal=causal,
+                                          window=window, block_q=256, block_k=256)
+    with tref.full_f32():
+        tq, tk, tv = (t.float().requires_grad_() for t in (q, k, v))
+        o = tlayers.attention_chunked(tq, tk, tv, causal=causal, window=window)
+        plain = torch.autograd.grad(o, (tq, tk, tv), g.float())
+    for a, m, p in zip(got, mirror, plain):
+        assert a.shape == m.shape and a.dtype == torch.bfloat16
+        assert torch.isfinite(a).all()
+        assert _rel(a, m) < 1e-3
+        assert _rel(a, p) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_is_deterministic(cuda_device):
+    """No atomics: dQ comes from its own q-parallel pass and dK, dV sum a
+    group's heads in registers, so two calls give the same bits."""
+    gen = torch.Generator(cuda_device).manual_seed(33)
+    q, k, v, g = (torch.randn((1, h, 1024, 120), generator=gen, device=cuda_device).bfloat16()
+                  for h in (32, 8, 8, 32))
+    out, lse = tfa.flash_attention_cuda(q, k, v, with_lse=True)
+    first = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+    second = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,D,causal,window", [(512, 512, 120, True, None),
+                                                 (4096, 4096, 120, True, 4096),
+                                                 (130, 250, 64, True, 100),
+                                                 (200, 70, 64, False, None)])
+def test_cuda_flash_lse_leaves_the_output_unchanged(cuda_device, S, T, D, causal, window):
+    """``with_lse``: the forward kernel's output bit for bit as without it,
+    and each row's log-sum-exp that of its kept f32 scores (rows with a
+    kept column)."""
+    gen = torch.Generator(cuda_device).manual_seed(32)
+    q, k, v = (torch.randn((1, h, n, D), generator=gen, device=cuda_device).bfloat16()
+               for h, n in ((32, S), (8, T), (8, T)))
+    plain = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    want = tref.attention_lse_ref(q, k, causal=causal, window=window)
+    kept = torch.isfinite(want)
+    torch.testing.assert_close(lse[:, :, :S][kept], want[kept], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_rejects_bad_arguments(cuda_device):
+    q = torch.zeros((1, 8, 128, 64), device=cuda_device, dtype=torch.bfloat16)
+    kv = q[:, :2].contiguous()
+    out, lse = tfa.flash_attention_cuda(q, kv, kv, with_lse=True)
+    before = tfa.flash_attention_bwd_cuda.launches
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd_cuda(q.float(), kv.float(), kv.float(), out.float(), lse,
+                                     q.float())
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_cuda(q, kv, kv, out, lse[:, :, :64], q)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_cuda(q, kv, kv, out.cpu(), lse, q)
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 8, 128, 136), device=cuda_device, dtype=torch.bfloat16)
+        tfa.flash_attention_bwd_cuda(big, big[:, :2], big[:, :2], big, lse, big)
+    assert tfa.flash_attention_bwd_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_flash_bf16_launches_the_backward(cuda_device):
+    """One TrainLoop step of reduced h2o-danube-3-4b in bf16 under remat with
+    flash_cuda pinned: the forward kernel twice a layer (forward and the
+    remat recomputation), the backward kernel once, never the plain VJP;
+    the loss within bf16 rounding of the reference variant's."""
+    import dataclasses
+    base = dataclasses.replace(get_config("h2o-danube-3-4b").reduced(), dtype="bfloat16",
+                               remat="full")
+    params = tmodel.init_params(base, torch.Generator(cuda_device).manual_seed(0))
+    data = DataConfig(vocab_size=base.vocab_size, seq_len=256, global_batch=2)
+    losses = {}
+    for impl in ("flash_cuda", "reference"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        loop = ttrain.TrainLoop(
+            cfg, ttrain.TrainLoopConfig(total_steps=1, log_every=0, enable_vpe=False),
+            SyntheticStream(data), device=cuda_device,
+            params={k: (v.clone() if isinstance(v, torch.Tensor) else
+                        {kk: vv.clone() for kk, vv in v.items()})
+                    for k, v in params.items()})
+        tfa.reset_launch_counts()
+        losses[impl] = loop.run()[0]["loss"]
+        flash = impl == "flash_cuda"
+        assert tfa.flash_attention_cuda.launches == (2 * cfg.num_layers if flash else 0)
+        assert tfa.flash_attention_bwd_cuda.launches == (cfg.num_layers if flash else 0)
+    assert np.isfinite(losses["flash_cuda"])
+    assert losses["flash_cuda"] == pytest.approx(losses["reference"], rel=1e-2)
+
+
 # matmul: tests/test_kernels.py's shapes, the paper path's 512^3, one off
 # every tile, and the Fig. 2b sweep's largest; then k and n off the
 # 16-byte copies (the predicated-load path), on both tiles

@@ -208,3 +208,150 @@ def test_flash_wrapper_pads_to_the_dtypes_tiles(monkeypatch, dtype, rows, dims):
     assert (seen["t_valid"], seen["q_offset"]) == (250, 120)
     assert seen["scale"] == pytest.approx(100 ** -0.5)
     assert out.shape == (1, 4, 130, 100)
+
+
+# -- the backward kernel's plain version (kernels.ref.flash_attention_bwd_ref) --
+#
+# (S, T, Hq, Hkv, D, causal, window): danube's heads at S = 512, D = 64
+# causal at 32/32 heads (zamba2), non-causal S != T (whisper's
+# cross-attention), a window under S, and S, T, D off the tiles
+BWD_CASES = [
+    (512, 512, 32, 8, 120, True, None),
+    (256, 256, 32, 32, 64, True, None),
+    (200, 300, 8, 8, 64, False, None),
+    (256, 256, 8, 2, 120, True, 100),
+    (130, 250, 8, 2, 100, True, None),
+]
+
+
+def _bwd_inputs(S, T, Hq, Hkv, D, seed):
+    q, k, v = (_torch(a, "bfloat16") for a in _inputs(S, T, Hq, Hkv, D, seed=seed))
+    g = _torch(np.random.default_rng(seed + 1).standard_normal((1, Hq, S, D))
+               .astype(np.float32), "bfloat16")
+    return q, k, v, g
+
+
+def _exact_vjp(q, k, v, g, causal, window):
+    """Attention's VJP in f64 at the bf16 inputs' values: the yardstick."""
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    S, T, group = q.shape[2], k.shape[2], q.shape[1] // k.shape[1]
+    s = torch.einsum("bhsd,bhtd->bhst", q, k.repeat_interleave(group, 1)) * q.shape[3] ** -0.5
+    keep = tref._kept(torch.arange(S) + T - S, torch.arange(T), causal, window, T)
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+    out = torch.einsum("bhst,bhtd->bhsd", p, v.repeat_interleave(group, 1))
+    return torch.autograd.grad(out, (q, k, v), g.double())
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,causal,window", BWD_CASES)
+def test_flash_bwd_ref_against_chunked_and_f64(S, T, Hq, Hkv, D, causal, window):
+    """The mirror from the forward's output and log-sum-exp against
+    autograd through ``attention_chunked`` (today's backward, bf16 in and
+    out) and against the f64 VJP.  Its one new rounding, dS to bf16, keeps
+    its distance to f64 within 2x of the chunked VJP's (measured 0.98-1.49x,
+    all of it the bf16 rounding of the gradients: ~2.3e-3 relative to
+    their norm); mirror and chunked VJP part by bf16 steps (measured
+    2.6e-3-3.4e-3)."""
+    q, k, v, g = _bwd_inputs(S, T, Hq, Hkv, D, seed=11)
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+    got = tref.flash_attention_bwd_ref(q, k, v, out, lse[:, :, :S], g, causal=causal,
+                                       window=window)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = tlayers.attention_chunked(tq, tk, tv, causal=causal, window=window)
+    chunked = torch.autograd.grad(o, (tq, tk, tv), g)
+    exact = _exact_vjp(q, k, v, g, causal, window)
+    for name, a, b, x in zip(("dq", "dk", "dv"), got, chunked, exact):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _rel(a, b) < 1e-2, name
+        assert _rel(a, x) <= 2 * _rel(b, x), name
+
+
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,causal,window", BWD_CASES)
+def test_flash_bwd_wrapper_pads_around_the_mirror(S, T, Hq, Hkv, D, causal, window):
+    """The backward wrapper on the CPU: S, T and D padded to the kernel's
+    tiles with zeros around the mirror, which adds nothing: the unpadded
+    mirror's gradients, sums in another order at most."""
+    q, k, v, g = _bwd_inputs(S, T, Hq, Hkv, D, seed=13)
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+    assert lse.shape == (1, Hq, -(-S // tfa.BWD_BLOCK_Q) * tfa.BWD_BLOCK_Q)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal, window=window)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse[:, :, :S], g, causal=causal,
+                                        window=window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel(a, b) < 1e-4
+    assert tfa.flash_attention_bwd_cuda.launches == 0       # no kernel on the CPU
+
+
+@pytest.mark.parametrize("S,T,causal,window", [(130, 250, True, None), (70, 6, True, None),
+                                               (96, 64, False, 30)])
+def test_flash_lse_is_the_logsumexp_of_the_scores(S, T, causal, window):
+    """``with_lse``: the output unchanged bit for bit, and each row's
+    log-sum-exp of its kept f32 scores (-inf for a row with none: S > T
+    leaves the first rows without a column)."""
+    q, k, v, _ = _bwd_inputs(S, T, 4, 2, 40, seed=17)
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+    assert torch.equal(out, tfa.flash_attention_cuda(q, k, v, causal=causal, window=window))
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(),
+                     k.float().repeat_interleave(2, 1)) * 40 ** -0.5
+    keep = tref._kept(torch.arange(S) + T - S, torch.arange(T), causal, window, T)
+    want = torch.logsumexp(s.masked_fill(~keep, float("-inf")), -1)
+    torch.testing.assert_close(lse[:, :, :S], want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_cuda(q.float(), k.float(), v.float(), with_lse=True)
+
+
+def test_flash_bwd_wrapper_rejects_bad_arguments():
+    q, k, v, g = _bwd_inputs(64, 64, 4, 2, 32, seed=19)
+    out, lse = tfa.flash_attention_cuda(q, k, v, with_lse=True)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd_cuda(q.float(), k.float(), v.float(), out.float(), lse,
+                                     g.float())
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_cuda(q, k, v, out, lse[:, :, :64], g)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_cuda(q, k, v, out[:, :, :32], lse, g)
+
+
+def test_flash_kernel_backward_wiring_under_remat(monkeypatch):
+    """The bf16 path of ``attention_flash`` (the card's) on the CPU, its
+    kernel test pointed at bf16 CPU tensors: one train step of reduced
+    h2o-danube-3-4b in bf16 under ``remat="full"`` saves the log-sum-exp
+    and calls the backward wrapper (here the mirror) once a layer, the
+    forward twice (the remat recomputation), and lands within bf16
+    rounding of the reference attention's step."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as ttrain
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    import dataclasses
+    monkeypatch.setattr(tlayers, "_backward_kernel", lambda q: q.dtype == torch.bfloat16)
+    calls = {"fwd": 0, "bwd": 0}
+    for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
+        real = getattr(tfa, name)
+
+        def counting(*a, _real=real, _key=name, **kw):
+            calls["bwd" if "bwd" in _key else "fwd"] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tfa, name, counting)
+    base = dataclasses.replace(get_config("h2o-danube-3-4b").reduced(), dtype="bfloat16",
+                               remat="full")
+    rng = np.random.default_rng(21)
+    toks = torch.from_numpy(rng.integers(0, base.vocab_size, (2, 48)).astype(np.int64))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    metrics = {}
+    for impl in ("flash_cuda", "reference"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        params = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+        step = ttrain.make_train_step(cfg, adamw.AdamWConfig(), impl={"attn_impl": impl})
+        _, _, metrics[impl] = step(params, ttrain.init_opt_state(adamw.AdamWConfig(), params),
+                                   batch, 1e-3)
+    assert calls == {"fwd": 2 * base.num_layers, "bwd": base.num_layers}
+    assert float(metrics["flash_cuda"]["loss"]) == pytest.approx(
+        float(metrics["reference"]["loss"]), rel=1e-2)
+    assert float(metrics["flash_cuda"]["grad_norm"]) == pytest.approx(
+        float(metrics["reference"]["grad_norm"]), rel=2e-2)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the port's five kernels, for comparing two trees on one
+"""Device times of the port's kernels, for comparing two trees on one
 card.
 
     PYTHONPATH=<tree>/src python3 tools/kernel_times.py LABEL
@@ -8,7 +8,10 @@ Builds the kernel library of the ``repro_torch`` found on ``PYTHONPATH``
 and prints one line ``RESULT {...}``: the median of 20 calls, with the L2
 cache flushed before each, in ms, of
 - flash attention at h2o-danube-3-4b's training shape (B=1, Hq=32,
-  Hkv=8, S=T=4096, D=120, causal), bf16 and f32;
+  Hkv=8, S=T=4096, D=120, causal), bf16 and f32; its backward kernel in
+  bf16 from the forward's output and log-sum-exp (``flash_bwd_bf16``,
+  where the tree has it) and, as the yardstick, SDPA's backward on the
+  same inputs (``flash_bwd_bf16_sdpa``);
 - paged prefill at the serving path's chunk (qwen3-8b heads, bs=16,
   C=128 at base 256), bf16 and f32;
 - paged decode at its batch (B=4, lengths 461, 365, 309, 201): the bf16
@@ -76,6 +79,17 @@ def main() -> int:
         q, k, v = (randn((1, h, 4096, 120), dt) for h in (32, 8, 8))
         res[f"flash_{name}"] = ms(lambda: fa.flash_attention_cuda(
             q, k, v, causal=True, window=4096))
+        if dt == torch.bfloat16 and hasattr(fa, "flash_attention_bwd_cuda"):
+            g = randn(q.shape, dt)
+            out, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=4096,
+                                               with_lse=True)
+            res["flash_bwd_bf16"] = ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, out, lse, g, causal=True, window=4096))
+            tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+            so = F.scaled_dot_product_attention(tq, tk, tv, is_causal=True, enable_gqa=True)
+            res["flash_bwd_bf16_sdpa"] = ms(lambda: torch.autograd.grad(
+                so, (tq, tk, tv), g, retain_graph=True))
+            del g, out, lse, tq, tk, tv, so
         del q, k, v
         n_pages = 4 * 64 + 5
         kp, vp = (randn((n_pages, 8, 16, 128), dt) for _ in range(2))
