@@ -2,9 +2,10 @@
 
 Once the window has closed and the program is freed, a sample of the
 requests the window finished (the one with the most tokens, and
-``requests - 1`` more drawn from the seed) goes to the reference: one f32
-forward pass over each prompt and its served tokens, with weights made
-again from the seed.  At each served position the reference's best logit
+``requests - 1`` more drawn from the seed) goes to the reference of the
+configuration's family (``reference/<family>.py``): one f32 forward pass
+over each prompt and its served tokens, with weights made again from the
+seed.  At each served position the reference's best logit
 minus its logit of the served token is a gap (0 where they agree); the
 number compared is the widest gap over the sample.  Greedy decoding in
 bf16 parts from f32 only where two logits nearly tie, so its gaps stay
@@ -25,8 +26,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from portbench import generate, weights
-from portbench.reference import model as ref
+from portbench import families, generate, weights
 
 
 def draw_sample(finished, check: Dict, seed: int) -> List[Tuple[np.ndarray, List[int], int]]:
@@ -52,6 +52,7 @@ def gaps(dims, params, prompt: np.ndarray, out: List[int], device,
     seq = np.concatenate([prompt, np.asarray(out[:-1], np.int32)])
     toks = torch.from_numpy(seq).to(device)
     start = len(prompt) - 1
+    ref = families.reference(dims.family)
     logits = ref.serve_logits(dims, params, toks, start)
     served = torch.tensor(out, dtype=torch.long, device=device)
     best = logits.max(dim=-1).values

@@ -1,8 +1,9 @@
 """Whether a training run's first steps are right, judged by the plain
 reference.
 
-After the window, with the program freed, the reference makes the same
-initial weights again from the seed (in the served dtype, then f32), takes
+After the window, with the program freed, the reference of the
+configuration's family (``reference/<family>.py``) makes the same initial
+weights again from the seed (in the served dtype, then f32), takes
 the same batches and follows the checked steps in f32 with TF32 off.  Three
 numbers are compared, each a gap of the program's reading from the
 reference's, over the worst leaf where there are leaves:
@@ -39,9 +40,19 @@ from typing import Dict, List
 
 import torch
 
-from portbench import weights
+from portbench import families, weights
 from portbench.harness import log
-from portbench.reference import model as ref
+from portbench.reference import common
+
+
+def family_loss(d):
+    """The loss of ``d``'s family's reference (``reference/<family>.py``)."""
+    ref = families.reference(d.family)
+    if not hasattr(ref, "loss"):
+        raise NotImplementedError(
+            f"portbench/reference/{d.family}.py has no loss: the {d.family} family "
+            f"trains in no cell until its reference gives one")
+    return ref.loss
 
 
 def reference_run(d, seed: int, device, batches, conf: Dict, steps: int,
@@ -56,8 +67,8 @@ def reference_run(d, seed: int, device, batches, conf: Dict, steps: int,
         data.append((torch.from_numpy(b["tokens"]).to(device),
                      torch.from_numpy(b["labels"]).to(device)))
     port = conf["port"]
-    out = ref.train(d, params, data, port["optimizer"], port["schedule"],
-                    precision=precision, half_rows=half_rows)
+    out = common.train(family_loss(d), d, params, data, port["optimizer"], port["schedule"],
+                       precision=precision, half_rows=half_rows)
     change = {}
     for i, spec in enumerate(weights.leaf_specs(d)):
         init = weights.make_leaf(spec, seed, i, device, dt).to(torch.float32)

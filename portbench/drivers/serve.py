@@ -28,9 +28,8 @@ from typing import Dict, List
 
 from torch.profiler import record_function
 
-from portbench import check_serve, generate, weights
+from portbench import check_serve, families, generate, weights
 from portbench.harness import log
-from portbench.model_config import dims, port_config
 from portbench.trace import Tracer
 
 
@@ -77,8 +76,9 @@ def run(spec, seed: int, seconds: float, trace: bool, device, t0: float,
     from repro_torch.runtime.serve_loop import ContinuousBatchingEngine, Request
 
     conf, traffic = spec.config, spec.traffic
-    d = dims(conf)
-    cfg = port_config(conf, d)
+    fam = families.for_config(conf)
+    d = fam.dims(conf)
+    cfg = fam.port_config(conf, d)
     port = conf["port"]
     dev = torch.device(device)
     params = weights.make_params(d, seed, dev, getattr(torch, d.dtype))

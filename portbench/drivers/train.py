@@ -27,9 +27,8 @@ from typing import Dict, List
 import torch
 from torch.profiler import record_function
 
-from portbench import check_train, generate, weights
+from portbench import check_train, families, generate, weights
 from portbench.harness import log
-from portbench.model_config import dims, port_config
 from portbench.trace import Tracer
 
 
@@ -76,8 +75,10 @@ def run(spec, seed: int, seconds: float, trace: bool, device, t0: float,
     from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
 
     conf, traffic = spec.config, spec.traffic
-    d = dims(conf)
-    cfg = port_config(conf, d)
+    fam = families.for_config(conf)
+    d = fam.dims(conf)
+    check_train.family_loss(d)   # a family whose reference has no loss trains nowhere
+    cfg = fam.port_config(conf, d)
     port = conf["port"]
     dev = torch.device(device)
     opt, sched = port["optimizer"], port["schedule"]

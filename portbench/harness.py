@@ -2,7 +2,8 @@
 
 Everything particular to a configuration, a traffic mix, a cell or a metric
 is a file found by its name: ``configs/`` (the file ``BENCHMARK.json``
-names), ``traffic/<traffic>.json`` (its ``driver`` picks
+names; its ``port.family`` picks ``families/<family>.py`` and
+``reference/<family>.py``), ``traffic/<traffic>.json`` (its ``driver`` picks
 ``drivers/<driver>.py``), ``cells/<cell>.json`` (the check's sample and
 limits) and ``metrics/<metric>.py`` (a reader ``read(obs)`` returning a
 number, or None when the run has nothing for it to read).

@@ -1,4 +1,5 @@
-"""The plain reference: a dense transformer in f32 (TF32 off), its loss and
-AdamW, in plain PyTorch.  It imports neither ``jax``, ``repro`` nor
-``repro_torch``, and takes nothing the program made: its weights come again
-from the seed (:mod:`portbench.weights`)."""
+"""The plain reference: each family's model in f32 (TF32 off), its loss,
+AdamW, in plain PyTorch (``<family>.py``, on the shared pieces of
+``common.py``).  It imports neither ``jax``, ``repro`` nor ``repro_torch``,
+and takes nothing the program made: its weights come again from the seed
+(:mod:`portbench.weights`)."""

@@ -1,21 +1,18 @@
-"""A dense decoder-only transformer (GQA, RoPE, optional per-head q/k
-RMSNorm, SwiGLU, RMSNorm, untied LM head), its next-token loss and AdamW,
-written from the equations in plain PyTorch.
+"""The plain pieces every family's reference shares, written from the
+equations in plain PyTorch: products, RMSNorm, RoPE, causal GQA attention
+and the attention half of a decoder layer, a decoder's serving logits and
+next-token loss around a family's layer, AdamW, its schedule and the
+training steps.
 
 Everything runs in f32 with TF32 off.  ``precision="fp8"`` is the control:
-the same model with both operands of every weight product rounded to
-``float8_e4m3fn`` (one scale a tensor, its absolute maximum over 448), the
-step below bf16 that a later change could be tempted to take.
+both operands of every weight product rounded to ``float8_e4m3fn`` (one
+scale a tensor, its absolute maximum over 448), the step below bf16 that a
+later change could be tempted to take.
 
 Conventions the port shares: weights are (d_in, d_out), so a product is
 ``x @ W``; RoPE rotates interleaved pairs ``x[..., 0::2]``, ``x[..., 1::2]``;
-RMSNorm is ``x / sqrt(mean(x^2) + eps) * gain``.
-
-``cfg`` is any object with the fields of the port's ``ModelConfig`` that a
-dense model reads (``num_layers``, ``d_model``, ``num_heads``,
-``num_kv_heads``, ``head_dim``, ``d_ff``, ``vocab_size``, ``qk_norm``,
-``window``, ``rope_theta``, ``rms_eps``).  Parameters are a flat dict of
-``path -> tensor`` (:func:`portbench.weights.flatten`), any dtype: each
+RMSNorm is ``x / sqrt(mean(x^2) + eps) * gain``.  Parameters are a flat dict
+of ``path -> tensor`` (:func:`portbench.weights.flatten`), any dtype: each
 layer's weights are cast to f32 as the layer runs.
 """
 
@@ -23,15 +20,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 FP8_MAX = 448.0
-LAYER_KEYS = ("ln1", "ln2", "attn_wq", "attn_wk", "attn_wv", "attn_wo",
-              "attn_q_norm", "attn_k_norm", "ffn_w_gate", "ffn_w_up", "ffn_w_down")
+LAYERS = "layers/"
 
 
 @contextlib.contextmanager
@@ -99,9 +95,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-def layer(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, positions: torch.Tensor,
-          precision: str) -> torch.Tensor:
-    """One layer on x (S, d) in f32."""
+def attention_block(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    positions: torch.Tensor, precision: str) -> torch.Tensor:
+    """x (S, d) in f32 plus its attention half: RMSNorm, the q/k/v
+    projections, per-head q/k RMSNorm where ``cfg.qk_norm``, RoPE, causal
+    GQA attention (within ``cfg.window``), the output projection."""
     S = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rmsnorm(x, p["ln1"], cfg.rms_eps)
@@ -114,22 +112,23 @@ def layer(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, positions: torch.Ten
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, positions, positions, cfg.window)
-    x = x + linear(o.transpose(0, 1).reshape(S, hq * hd), p["attn_wo"], precision)
-    h = rmsnorm(x, p["ln2"], cfg.rms_eps)
-    ff = F.silu(linear(h, p["ffn_w_gate"], precision)) * linear(h, p["ffn_w_up"], precision)
-    return x + linear(ff, p["ffn_w_down"], precision)
+    return x + linear(o.transpose(0, 1).reshape(S, hq * hd), p["attn_wo"], precision)
+
+
+Layer = Callable[..., torch.Tensor]
 
 
 def layer_params(params: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
     """Layer ``l``'s weights in f32 (a copy; the stacks keep their dtype)."""
-    return {k: params[f"layers/{k}"][l].to(torch.float32)
-            for k in LAYER_KEYS if f"layers/{k}" in params}
+    return {k[len(LAYERS):]: v[l].to(torch.float32)
+            for k, v in params.items() if k.startswith(LAYERS)}
 
 
-def serve_logits(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                 start: int, precision: str = "f32") -> torch.Tensor:
+def decoder_logits(layer: Layer, cfg, params: Dict[str, torch.Tensor],
+                   tokens: torch.Tensor, start: int, precision: str) -> torch.Tensor:
     """Logits (S - start, V) in f32 of positions ``start`` .. S - 1 of one
-    sequence ``tokens`` (S,): row j predicts the token after position
+    sequence ``tokens`` (S,) through ``cfg.num_layers`` of ``layer(cfg, p,
+    x, positions, precision)``: row j predicts the token after position
     ``start + j``.  One layer's f32 weights live at a time."""
     with strict_f32(), torch.no_grad():
         dev = tokens.device
@@ -141,20 +140,19 @@ def serve_logits(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
         return linear(h, params["lm_head"].to(torch.float32), precision)
 
 
-def loss(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-         labels: torch.Tensor, precision: str = "f32",
-         remat: bool = True) -> torch.Tensor:
+def decoder_loss(layer: Layer, cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                 labels: torch.Tensor, precision: str, remat: bool) -> torch.Tensor:
     """Mean next-token cross-entropy over every position of every row of
-    ``tokens`` (B, S), params f32 leaves (autograd through them); each layer
-    recomputed in the backward pass when ``remat``."""
+    ``tokens`` (B, S) through ``cfg.num_layers`` of ``layer``, params f32
+    leaves (autograd through them); each layer recomputed in the backward
+    pass when ``remat``."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     total = 0.0
     for b in range(B):
         x = F.embedding(tokens[b].long(), params["embed"])
         for l in range(cfg.num_layers):
-            p = {k: params[f"layers/{k}"][l] for k in LAYER_KEYS
-                 if f"layers/{k}" in params}
+            p = {k[len(LAYERS):]: v[l] for k, v in params.items() if k.startswith(LAYERS)}
             if remat:
                 x = checkpoint(layer, cfg, p, x, positions, precision,
                                use_reentrant=False)
@@ -201,9 +199,11 @@ def adamw_step(params, grads, m, v, step: int, lr: float, opt: dict,
             del g_all
 
 
-def train(cfg, params: Dict[str, torch.Tensor], batches, opt: dict, schedule: dict,
-          precision: str = "f32", half_rows: bool = False) -> dict:
-    """``len(batches)`` training steps from ``params`` (f32 leaves, updated in
+def train(loss: Callable[..., torch.Tensor], cfg, params: Dict[str, torch.Tensor],
+          batches, opt: dict, schedule: dict, precision: str = "f32",
+          half_rows: bool = False) -> dict:
+    """``len(batches)`` training steps of a family's ``loss(cfg, params,
+    tokens, labels, precision)`` from ``params`` (f32 leaves, updated in
     place).  Returns each step's loss, the first step's per-leaf gradient
     norms (before the clip) and each step's global gradient norm.
     ``half_rows`` is a planted fault: each loss takes the mean over the first

@@ -10,7 +10,7 @@ import torch
 
 
 def _dims(qk_norm=True, window=None):
-    from portbench.model_config import Dims
+    from portbench.families.dense import Dims
     return Dims(name="small", num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
                 head_dim=32, d_ff=256, vocab_size=512, rope_theta=1e4, rms_eps=1e-6,
                 qk_norm=qk_norm, qkv_bias=False, tie_embeddings=False, window=window,
@@ -29,7 +29,7 @@ def _port_cfg(d, **kw):
 @pytest.mark.parametrize("qk_norm", [True, False])
 def test_serve_logits_match_port_forward(qk_norm):
     from portbench import weights
-    from portbench.reference import model as ref
+    from portbench.reference import dense as ref
     from repro_torch.models import model as model_lib
     d = _dims(qk_norm=qk_norm)
     params = weights.make_params(d, 7, torch.device("cpu"), torch.float32)
@@ -42,7 +42,7 @@ def test_serve_logits_match_port_forward(qk_norm):
 @pytest.mark.parametrize("window", [None, 8])
 def test_loss_and_grads_match_port(window):
     from portbench import weights
-    from portbench.reference import model as ref
+    from portbench.reference import dense as ref
     from repro_torch.models import model as model_lib
     d = _dims(qk_norm=False, window=window)
     params = weights.make_params(d, 11, torch.device("cpu"), torch.float32)
@@ -63,7 +63,7 @@ def test_loss_and_grads_match_port(window):
 
 
 def test_adamw_step_matches_port():
-    from portbench.reference import model as ref
+    from portbench.reference import common as ref
     from repro_torch.optim import adamw
     gen = torch.Generator().manual_seed(3)
     p = {"a": torch.randn(5, 7, generator=gen), "b": torch.randn(9, generator=gen)}
@@ -85,7 +85,7 @@ def test_adamw_step_matches_port():
 
 
 def test_schedule_matches_port():
-    from portbench.reference import model as ref
+    from portbench.reference import common as ref
     from repro_torch.optim import schedule
     for s in (0, 1, 5, 10, 50, 100000):
         assert ref.warmup_cosine(s, 3e-4, 10, 1000) == schedule.warmup_cosine(

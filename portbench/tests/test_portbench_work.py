@@ -48,7 +48,7 @@ def test_causal_pairs_count_by_brute_force(window):
 
 
 def test_model_flops_add_up():
-    from portbench.model_config import Dims
+    from portbench.families.dense import Dims
     d = Dims("x", 2, 64, 4, 2, 16, 128, 100, 1e4, 1e-6, False, False, False, None, "bfloat16")
     per_layer = 64 * 16 * (2 * 4 + 2 * 2) + 3 * 64 * 128
     assert work.layer_matmul_params(d) == per_layer

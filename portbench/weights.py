@@ -3,51 +3,33 @@
 Both sides of a run take their weights from here: the program gets them
 once in set-up, and the plain reference makes the same numbers again after
 the window, from the same seed, so it takes nothing the program made.  Each
-leaf (a stack over the layers, in the port's parameter layout) is one
-``torch.randn`` call on a generator of its own, seeded from ``--seed`` and
-the leaf's index, so any leaf can be made again alone.
+leaf (a stack over the layers, in the port's parameter layout, as the
+configuration's family lists them) is one ``torch.randn`` call on a
+generator of its own, seeded from ``--seed`` and the leaf's index, so any
+leaf can be made again alone.  A leaf is made in the dtype served, or in
+the dtype its family pins (an MoE router's f32).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-# (path, shape function, init) in the port's layout: "normal" is N(0, 1 /
-# fan_in) (the port's dense_init), "embed" N(0, 0.02^2), "ones" a norm gain
-Spec = Tuple[str, Tuple[int, ...], str]
+from portbench import families
+
+# (path, shape, init, dtype) in the port's layout: "normal" is N(0, 1 /
+# fan_in) (the port's dense_init), "embed" N(0, 0.02^2), "ones" a norm gain;
+# dtype None is the dtype served
+Spec = Tuple[str, Tuple[int, ...], str, Optional[str]]
 
 
-def leaf_specs(cfg) -> List[Spec]:
-    """Every leaf of a dense transformer in the port's layout: top-level
-    leaves, and the per-layer weights stacked on a leading L axis under
-    ``layers/``."""
-    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    specs: List[Spec] = [
-        ("embed", (cfg.vocab_size, d), "embed"),
-        ("final_norm", (d,), "ones"),
-        ("layers/ln1", (L, d), "ones"),
-        ("layers/ln2", (L, d), "ones"),
-        ("layers/attn_wq", (L, d, hq * hd), "normal"),
-        ("layers/attn_wk", (L, d, hkv * hd), "normal"),
-        ("layers/attn_wv", (L, d, hkv * hd), "normal"),
-        ("layers/attn_wo", (L, hq * hd, d), "normal"),
-    ]
-    if cfg.qkv_bias:
-        raise ValueError("qkv_bias is not part of any configuration here")
-    if cfg.qk_norm:
-        specs += [("layers/attn_q_norm", (L, hd), "ones"),
-                  ("layers/attn_k_norm", (L, hd), "ones")]
-    specs += [("layers/ffn_w_gate", (L, d, f), "normal"),
-              ("layers/ffn_w_up", (L, d, f), "normal"),
-              ("layers/ffn_w_down", (L, f, d), "normal")]
-    if not cfg.tie_embeddings:
-        specs.append(("lm_head", (d, cfg.vocab_size), "normal"))
-    return specs
+def leaf_specs(d) -> List[Spec]:
+    """Every leaf of the model ``d`` describes, from its family
+    (``families/<family>.py``): ``(path, shape, init, dtype)``."""
+    return families.program(d.family).leaf_specs(d)
 
 
 def leaf_seed(seed: int, index: int) -> int:
@@ -59,7 +41,9 @@ def leaf_seed(seed: int, index: int) -> int:
 
 def make_leaf(spec: Spec, seed: int, index: int, device: torch.device,
               dtype: torch.dtype) -> torch.Tensor:
-    path, shape, init = spec
+    path, shape, init, leaf_dtype = spec
+    if leaf_dtype is not None:
+        dtype = getattr(torch, leaf_dtype)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
     gen = torch.Generator(device).manual_seed(leaf_seed(seed, index))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Iterable, Optional, Sequence
 
+from portbench import families
+
 INT32 = 4
 
 
@@ -82,25 +84,18 @@ def roofline_seconds(ops: float, nbytes: float, flops_peak: float,
     return max(ops / flops_peak, nbytes / bytes_peak)
 
 
-# -- the model steps ------------------------------------------------------------
+# -- the model steps (the weights from the configuration's family) -------------
 
 def layer_matmul_params(cfg) -> int:
-    """Weights one token multiplies in one layer (attention projections and
-    the SwiGLU FFN)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    return attn + 3 * d * cfg.d_ff
+    """Weights one token multiplies in one layer, as ``cfg``'s family
+    counts them (``families/<family>.py``)."""
+    return families.program(cfg.family).layer_matmul_params(cfg)
 
 
 def token_flops(cfg, context: int, logits: bool) -> int:
-    """Model FLOPs of one token through the whole model: 2 per weight
-    multiplied, attention over ``context`` keys in every layer, and the LM
-    head where the token's logits are needed."""
-    flops = 2 * layer_matmul_params(cfg) * cfg.num_layers
-    flops += attention_flops(context, cfg.num_heads, cfg.head_dim) * cfg.num_layers
-    if logits:
-        flops += 2 * cfg.d_model * cfg.vocab_size
-    return flops
+    """Model FLOPs of one token through the whole model, attending to
+    ``context`` keys, as ``cfg``'s family counts them."""
+    return families.program(cfg.family).token_flops(cfg, context, logits)
 
 
 def decode_step_flops(cfg, positions: Iterable[int]) -> int:
